@@ -1,4 +1,5 @@
-"""Where the port's serving forward spends its time on one NVIDIA GPU.
+"""Where the port's serving forward and distill step spend their time on
+one NVIDIA GPU.
 
     python3 chip_profile.py [--out chiprun_out/chip_profile.json]
 
@@ -18,6 +19,12 @@ in the 832x1344 bucket and measures:
      channels_last trunk, interleaved (nchw, cl, cl, nchw), at batch 8
      and batch 1.
 
+Then the GHND distill step of chip_smoke.py (teacher and student, batch 4
+at 832x1344, the fused stem switched on): its stages between device syncs
+(teacher forward, student forward and loss, backward, Adam update), the
+same unprofiled-latency / profiler breakdown per step, and the step with
+the stem switch on against off, interleaved (on, off, off, on).
+
 Prints one line per result and, last, one JSON object holding them all.
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -26,6 +33,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import statistics
 import sys
 import time
@@ -35,8 +43,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chip_smoke import (BUCKETS, COMPUTE_DTYPE, EVAL_BATCH, SEED,
-                        gpu_name_and_power, serving_batches, serving_model)
+from chip_smoke import (BUCKETS, COMPUTE_DTYPE, EVAL_BATCH, SEED, TRAIN,
+                        distill_batches, distill_models, gpu_name_and_power,
+                        serving_batches, serving_model)
 
 REPEATS = 5      # stage timings and A/B runs per side and order
 FORWARDS = 3     # forwards per latency / profiler window
@@ -135,10 +144,12 @@ def _group(name: str) -> str:
     low = name.lower()
     if "nchwtonhwc" in low or "nhwctonchw" in low or "transpose" in low:
         return "layout transposes"
-    if "roi_align" in low or "quantize" in low:
-        return "port kernels (K1-K3)"
+    if "roi_align" in low or "quantize" in low or "stem_" in low:
+        return "port kernels"
     if "memcpy" in low or "memset" in low:
         return "copies and memsets"
+    if "dgrad" in low or "wgrad" in low:
+        return "cuDNN convolution backward"
     if "conv" in low or "xmma" in low or "fft" in low or "implicit" in low \
             or "winograd" in low:
         return "cuDNN convolutions"
@@ -158,20 +169,20 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def device_profile(model, batch):
+def device_profile(unit_fn, unit: str = "forward"):
+    """Latency of ``unit_fn`` (one forward or step) unprofiled, then a
+    profiler trace of FORWARDS of them: per-unit device time by group."""
     from torch.profiler import ProfilerActivity, profile
 
-    from hnd_ghnd_tpu_torch.runners.common import eval_forward
-
-    def forwards():
+    def units():
         for _ in range(FORWARDS):
-            eval_forward(model, batch, True)
+            unit_fn()
 
-    _, wall = synced_ms(forwards, 3)
+    _, wall = synced_ms(units, 3)
     latency = wall / FORWARDS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        forwards()
+        units()
         torch.cuda.synchronize()
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -189,11 +200,12 @@ def device_profile(model, batch):
         kernels[e.name] = (n + 1, tot + us)
     busy = _busy_us([(e.time_range.start, e.time_range.end)
                      for e in device]) / 1e3 / FORWARDS
+    out.update({
+        f"busy_ms_per_{unit}": busy,
+        "idle_share": 1.0 - busy / latency,
+        f"kernel_ms_per_{unit}": sum(groups.values()) / 1e3 / FORWARDS,
+        f"launches_per_{unit}": len(device) / FORWARDS})
     out.update(
-        busy_ms_per_forward=busy,
-        idle_share=1.0 - busy / latency,
-        kernel_ms_per_forward=sum(groups.values()) / 1e3 / FORWARDS,
-        launches_per_forward=len(device) / FORWARDS,
         groups_ms={g: v / 1e3 / FORWARDS for g, v in
                    sorted(groups.items(), key=lambda kv: -kv[1])},
         top_kernels=[{"name": k[:120], "calls": n / FORWARDS,
@@ -201,6 +213,69 @@ def device_profile(model, batch):
                      for k, (n, v) in sorted(kernels.items(),
                                              key=lambda kv: -kv[1][1])
                      [:TOP_KERNELS]])
+    return out
+
+
+def log_profile(prof, unit: str) -> None:
+    log(f"[profile] latency {prof['latency_ms']:.3f} ms per {unit} "
+        f"(unprofiled, {FORWARDS} {unit}s)")
+    if "groups_ms" not in prof:
+        return
+    log(f"[profile] device busy {prof[f'busy_ms_per_{unit}']:.3f} ms, "
+        f"kernel sum {prof[f'kernel_ms_per_{unit}']:.3f} ms, "
+        f"{prof[f'launches_per_{unit}']:.0f} device events per {unit}; "
+        f"idle share {prof['idle_share']:.4f}")
+    for g, ms in prof["groups_ms"].items():
+        log(f"[profile] {g}: {ms:.3f} ms")
+    for k in prof["top_kernels"]:
+        log(f"[profile] top {k['ms']:.3f} ms x{k['calls']:.0f} {k['name']}")
+
+
+def distill_profile(dev):
+    """Stages, profile and stem-switch A/B of one distill step."""
+    from hnd_ghnd_tpu_torch.distill.box import DistillationBox
+    from hnd_ghnd_tpu_torch.parallel.train_step import make_distill_train_step
+    os.environ["HND_TPU_PALLAS_STEM"] = "1"
+    teacher, student = distill_models(dev)
+    teacher.eval().requires_grad_(False)
+    student.train()
+    box = DistillationBox(teacher, student, TRAIN["criterion"])
+    step = make_distill_train_step(box, TRAIN["optimizer"], TRAIN["scheduler"],
+                                   1000, 999)
+    images = distill_batches(np.random.RandomState(SEED + 2), dev)[0]["images"]
+    for _ in range(2):  # cuDNN's first calls at this shape
+        step(images)
+    out = {"batch": tuple(images.shape)}
+
+    def teacher_forward():
+        with torch.no_grad():
+            return box._features(teacher, images)
+
+    def forward_backward():
+        step.optimizer.zero_grad(set_to_none=True)
+        loss, _ = box.loss(images)
+        loss.backward()
+
+    t = {}
+    _, t["teacher forward"] = synced_ms(teacher_forward)
+    _, fwd = synced_ms(lambda: box.loss(images))
+    t["student forward + loss"] = fwd - t["teacher forward"]
+    _, fwd_bwd = synced_ms(forward_backward)
+    t["student backward"] = fwd_bwd - fwd
+    _, t["Adam update"] = synced_ms(step.optimizer.step)
+    _, t["whole step"] = synced_ms(lambda: step(images))
+    out["stages_ms"] = t
+    out["profile"] = device_profile(lambda: step(images), "step")
+    runs = {"on": [], "off": []}
+    for tag in ("on", "off", "off", "on"):
+        os.environ["HND_TPU_PALLAS_STEM"] = "1" if tag == "on" else "0"
+        step(images)  # the first call after a switch
+        for _ in range(REPEATS):
+            runs[tag].append(synced_ms(lambda: step(images), 1)[1])
+    out["stem_switch_ab"] = {k: {"median_ms": statistics.median(v),
+                                 "min_ms": min(v), "max_ms": max(v),
+                                 "runs": len(v)} for k, v in runs.items()}
+    os.environ["HND_TPU_PALLAS_STEM"] = "1"
     return out
 
 
@@ -270,26 +345,24 @@ def main() -> int:
     result["nms_fixpoint_syncs_per_forward"] = nms_syncs
     log(f"[syncs] {syncs} synchronizing calls per batch-8 forward, "
         f"{nms_syncs} of them NMS fixpoint checks")
-    result["profile"] = device_profile(model, b8)
-    prof = result["profile"]
-    log(f"[profile] latency {prof['latency_ms']:.3f} ms per forward "
-        f"(unprofiled, {FORWARDS} forwards)")
-    if "groups_ms" in prof:
-        log(f"[profile] device busy {prof['busy_ms_per_forward']:.3f} ms, "
-            f"kernel sum {prof['kernel_ms_per_forward']:.3f} ms, "
-            f"{prof['launches_per_forward']:.0f} device events per forward; "
-            f"idle share {prof['idle_share']:.4f}")
-        for g, ms in prof["groups_ms"].items():
-            log(f"[profile] {g}: {ms:.3f} ms")
-        for k in prof["top_kernels"]:
-            log(f"[profile] top {k['ms']:.3f} ms x{k['calls']:.0f} "
-                f"{k['name']}")
+    result["profile"] = device_profile(lambda: eval_forward(model, b8, True))
+    log_profile(result["profile"], "forward")
     result["layout_ab"] = layout_ab(model, {"batch8": b8, "batch1": b1})
     for label, r in result["layout_ab"].items():
         log(f"[layout] {label}: " + ", ".join(
             f"{k} {r[k]['median_ms']:.3f} ms ({r[k]['min_ms']:.3f}-"
             f"{r[k]['max_ms']:.3f})" for k in ("nchw", "channels_last"))
             + f"; identical detections {r['identical_detections']}")
+    del model, b8, b1
+    torch.cuda.empty_cache()
+
+    d = result["distill"] = distill_profile(dev)
+    for name, ms in d["stages_ms"].items():
+        log(f"[distill] {name}: {ms:.3f} ms")
+    log_profile(d["profile"], "step")
+    log("[distill] stem switch: " + ", ".join(
+        f"{k} {v['median_ms']:.3f} ms ({v['min_ms']:.3f}-{v['max_ms']:.3f})"
+        for k, v in d["stem_switch_ab"].items()))
     line = json.dumps(result)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

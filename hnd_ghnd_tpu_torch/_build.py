@@ -36,6 +36,9 @@ _SIGNATURES = {
     "hnd_dequantize_u8": [_P, _P, _P, _P, _I64, _P],
     "hnd_roi_align_fwd": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                           _P],
+    "hnd_stem_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "hnd_stem_dw_partials_size": [_I, _I, _I],
+    "hnd_stem_dw": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

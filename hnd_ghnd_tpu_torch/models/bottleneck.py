@@ -1,4 +1,4 @@
-"""The compressive bottleneck that replaces ResNet ``layer1`` (eval only).
+"""The compressive bottleneck that replaces ResNet ``layer1``.
 
 Counterpart of hnd_ghnd_tpu/models/bottleneck.py (reference
 Bottleneck4LargeResNet): a 4-conv encoder 64 -> 64 -> 256 -> 64 -> b and a
@@ -9,7 +9,10 @@ state_dict keys (``encoder.encoder.0.weight``, ``decoder.10.running_var``)
 are the ones hnd_ghnd_tpu/models/convert.py maps.
 
 At eval, ``use_bottleneck_transformer`` puts the 8-bit quantize/dequantize
-round trip between encoder and decoder (the CUDA kernels on the card).
+round trip between encoder and decoder (the CUDA kernels on the card).  In
+train mode (the distill step) the BNs use batch statistics and update
+their running ones, and the round trip is never applied, as in the JAX
+package (bottleneck.py:161).
 """
 from __future__ import annotations
 
@@ -53,6 +56,6 @@ class Bottleneck4LargeResNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 use_bottleneck_transformer: bool = False) -> torch.Tensor:
         z = self.encoder(x)
-        if use_bottleneck_transformer:
+        if use_bottleneck_transformer and not self.training:
             z = roundtrip(z, self.quant_bits)
         return self.decoder(z)

@@ -1,15 +1,17 @@
 """JAX-package weights -> this package's ``state_dict``.
 
 The inverse of hnd_ghnd_tpu/models/convert.py:convert_state_dict for the
-serving model: it takes the JAX package's (params, state) pytrees as numpy
-and returns the state_dict of models/rcnn.RCNN.
+teacher and the student: it takes the JAX package's (params, state)
+pytrees as numpy and returns the state_dict of models/rcnn.RCNN.
 
   * conv kernels HWIO -> OIHW; linear weights [in, out] -> [out, in];
   * frozen BN {scale, bias} -> weight=scale, bias=bias, running_mean=0,
     running_var=1 (exact: FrozenBatchNorm2d uses eps=0, so it folds back to
     the same scale and bias);
   * bottleneck BN {gamma, beta} + state {mean, var} -> nn.BatchNorm2d fields
-    at the reference's Sequential indices.
+    at the reference's Sequential indices;
+  * a stock layer1 (the teacher's: ``layer1.0.conv1``,
+    ``layer1.0.downsample.0``, ...) keeps its path, like layer2-4.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ def _leaves(tree: Dict[str, Any], path=()) -> Iterator[Tuple[tuple, Dict]]:
 
 
 def _torch_prefix(path: tuple) -> str:
-    if path[:3] == _LAYER1:
+    if path[:3] == _LAYER1 and path[3] in ("encoder", "decoder"):
         part, name = path[3], path[4]
         idx = (_ENC_IDX if part == "encoder" else _DEC_IDX)[name]
         inner = "encoder.encoder" if part == "encoder" else "decoder"

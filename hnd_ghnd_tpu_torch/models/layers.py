@@ -6,8 +6,18 @@ OIHW weights, and models/convert.py moves weights between the two.
 
 ``FrozenBatchNorm2d`` is torchvision 0.4.2's, eps=0: it folds to
 ``x * scale + bias`` with scale = weight / sqrt(var) and
-bias = bias - mean * scale.  The trainable BatchNorm of the bottleneck is
-``nn.BatchNorm2d`` (eps=1e-5) in eval mode.
+bias = bias - mean * scale.  Its statistics are buffers; its ``weight``
+and ``bias`` are parameters, as the JAX package's folded ``scale`` and
+``bias`` are leaves of the params tree: the distill step trains those of
+the student's stem ``bn1``, which the reference keeps frozen (ROADMAP
+C6), and every other one is frozen by ``requires_grad``.  Weights from
+the JAX package arrive with mean 0 and variance 1, so scale = weight and
+the gradients land on the same leaves as in JAX.
+
+The trainable BatchNorm of the bottleneck is ``nn.BatchNorm2d`` (eps=1e-5,
+momentum 0.1).  In train mode it normalises with the batch mean and the
+biased variance and updates the running variance with the unbiased one,
+as hnd_ghnd_tpu/models/layers.py:batch_norm does.
 """
 from __future__ import annotations
 
@@ -18,19 +28,24 @@ from torch import nn
 
 
 class FrozenBatchNorm2d(nn.Module):
-    """BatchNorm2d with fixed statistics and affine parameters (eps=0)."""
+    """BatchNorm2d with fixed statistics (eps=0); the affine is trainable
+    unless ``requires_grad`` is off."""
 
     def __init__(self, channels: int, eps: float = 0.0):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(channels))
-        self.register_buffer("bias", torch.zeros(channels))
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def folded(self):
+        """(scale, bias) with x * scale + bias the normalisation."""
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        bias = self.bias - self.running_mean * scale
+        return scale, self.bias - self.running_mean * scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale, bias = self.folded()
         return x * scale[None, :, None, None] + bias[None, :, None, None]
 
 

@@ -11,7 +11,7 @@ transposes than the NHWC copy of P2-P5 for the RoIAlign kernel costs.
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -35,7 +35,7 @@ def _mean_std(dtype: torch.dtype, device: torch.device):
 
 
 class Backbone(nn.Module):
-    def __init__(self, bottleneck: Bottleneck4LargeResNet):
+    def __init__(self, bottleneck: Optional[Bottleneck4LargeResNet]):
         super().__init__()
         self.body = ResNetBody(bottleneck)
         self.fpn = FPN(self.body.out_channels, 256)
@@ -43,9 +43,11 @@ class Backbone(nn.Module):
 
 class RCNN(nn.Module):
     """Module paths are the reference's: backbone.body.*, backbone.fpn.*,
-    rpn.head.*, roi_heads.box_head.*, roi_heads.box_predictor.*."""
+    rpn.head.*, roi_heads.box_head.*, roi_heads.box_predictor.*.  A
+    student has the bottleneck as layer1, a teacher (``bottleneck`` None)
+    the stock ResNet-50 layer1."""
 
-    def __init__(self, bottleneck: Bottleneck4LargeResNet,
+    def __init__(self, bottleneck: Optional[Bottleneck4LargeResNet],
                  num_classes: int = 91):
         super().__init__()
         self.backbone = Backbone(bottleneck)
@@ -75,7 +77,8 @@ class RCNN(nn.Module):
         and bucket coordinates (``boxes_model``)."""
         if self.training:
             raise NotImplementedError(
-                "training is not ported yet (ROADMAP A4/A7); call .eval()")
+                "the detection losses are not ported yet (ROADMAP A7); "
+                "distillation trains through distill.box; call .eval()")
         images = batch["images"]
         image_shape = (images.shape[1], images.shape[2])
         _, feats = self.backbone_features(images, use_bottleneck_transformer)

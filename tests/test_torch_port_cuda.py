@@ -84,3 +84,76 @@ def test_roi_align_kernel_rejects_what_it_does_not_take(cuda):
     three = [torch.zeros(1, s, s, 16, device=cuda) for s in sizes[:3]]
     with pytest.raises(ValueError):
         RK.roi_align(three, boxes, (32, 32), 7)
+
+
+# the stem's sums run in another order than cuDNN's: 147-term sums for the
+# forward, B x OH x OW-term sums for dW
+STEM_FWD_TOL = 1e-5    # x max |plain output|
+STEM_DW_TOL = 1e-4     # x max |plain dW|
+
+
+def _stem_inputs(cuda, b, h, w, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((b, 3, h, w), generator=gen, device=cuda)
+    weight = torch.randn((64, 3, 7, 7), generator=gen, device=cuda) * 0.1
+    scale = torch.rand(64, generator=gen, device=cuda) + 0.5
+    bias = torch.randn(64, generator=gen, device=cuda) * 0.1
+    return x, weight, scale, bias
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 96), (2, 66, 100), (1, 16, 32),
+                                   (2, 832, 1344)])
+def test_stem_kernels_vs_plain(cuda, shape):
+    from hnd_ghnd_tpu_torch.ops import stem as ts
+    from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
+    torch.backends.cudnn.allow_tf32 = False
+    x, weight, scale, bias = _stem_inputs(cuda, *shape)
+    counts = (SK.stem_fwd.launches, SK.stem_fwd_res.launches,
+              SK.stem_dw.launches)
+    want, conv = ts.stem_forward(x, weight, scale, bias, with_conv=True)
+    got = SK.stem_fwd(x, weight, scale, bias)
+    got_res, got_conv = SK.stem_fwd_res(x, weight, scale, bias)
+    g = torch.randn_like(conv)
+    dw = SK.stem_dw(x, g)
+    torch.cuda.synchronize()
+    tol = STEM_FWD_TOL * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    assert torch.equal(got_res, got)
+    assert float((got_conv - conv).abs().max()) <= \
+        STEM_FWD_TOL * float(conv.abs().max())
+    want_dw = ts.stem_weight_grad(x, g)
+    assert float((dw - want_dw).abs().max()) <= \
+        STEM_DW_TOL * float(want_dw.abs().max())
+    assert torch.equal(SK.stem_dw(x, g), dw)  # no atomics: same bits
+    assert (SK.stem_fwd.launches, SK.stem_fwd_res.launches,
+            SK.stem_dw.launches) == (counts[0] + 1, counts[1] + 1,
+                                     counts[2] + 2)
+
+
+def test_stem_function_grads_vs_plain(cuda):
+    from hnd_ghnd_tpu_torch.ops import stem as ts
+    from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
+    torch.backends.cudnn.allow_tf32 = False
+    args = _stem_inputs(cuda, 2, 64, 96)
+    got = [a.clone().requires_grad_(True) for a in args]
+    ref = [a.clone().requires_grad_(True) for a in args]
+    SK.stem_conv_bn_relu(*got).square().sum().backward()
+    ts.stem_forward(*ref).square().sum().backward()
+    for name, g, r in zip(("dx", "dw", "dscale", "dbias"), got, ref):
+        assert float((g.grad - r.grad).abs().max()) <= \
+            STEM_DW_TOL * float(r.grad.abs().max()), name
+
+
+def test_stem_kernels_reject_what_they_do_not_take(cuda):
+    from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
+    x, weight, scale, bias = _stem_inputs(cuda, 1, 32, 32)
+    with pytest.raises(TypeError):
+        SK.stem_fwd(x.double(), weight, scale, bias)
+    with pytest.raises(ValueError):
+        SK.stem_fwd(x[:, :, :31], weight, scale, bias)
+    with pytest.raises(ValueError):
+        SK.stem_fwd(x.transpose(2, 3), weight, scale, bias)
+    with pytest.raises(ValueError):
+        SK.stem_fwd(x, weight[:32], scale, bias)
+    with pytest.raises(ValueError):
+        SK.stem_dw(x, torch.zeros(1, 64, 16, 15, device=cuda))

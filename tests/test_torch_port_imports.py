@@ -1,9 +1,10 @@
 """The port runs on torch and numpy alone, and chip_smoke.py refuses to run
 without a GPU or without the package beside it.
 
-Each check runs in a fresh interpreter: the serving slice is imported, built
-and run once on a tiny input, then jax, the JAX package, PIL, cv2 and yaml
-must be absent from ``sys.modules`` (the GPU host has none of them)."""
+Each check runs in a fresh interpreter: the serving and distill slices are
+imported, built and run once on a tiny input (one distill epoch of one
+step, then its eval), then jax, the JAX package, PIL, cv2 and yaml must be
+absent from ``sys.modules`` (the GPU host has none of them)."""
 import os
 import shutil
 import subprocess
@@ -21,15 +22,22 @@ from hnd_ghnd_tpu_torch.codec import quantizer
 from hnd_ghnd_tpu_torch.models import (bottleneck, convert, factory, fpn,
     layers, rcnn, resnet, roi_heads, rpn)
 from hnd_ghnd_tpu_torch.ops import (anchors, boxes, nms, quant_kernels,
-    roi_align, roi_align_kernels)
-from hnd_ghnd_tpu_torch.runners import common
-from chip_smoke import STUDENT_MODEL
-model = factory.get_model(STUDENT_MODEL, seed=0)
+    roi_align, roi_align_kernels, stem, stem_kernels)
+from hnd_ghnd_tpu_torch.distill import box, losses
+from hnd_ghnd_tpu_torch.parallel import train_step
+from hnd_ghnd_tpu_torch.runners import common, mimic_runner
+from hnd_ghnd_tpu_torch.utils import params
+from chip_smoke import STUDENT_MODEL, TEACHER_MODEL, TRAIN
+model = factory.get_model(STUDENT_MODEL, seed=0, device="cpu")
 batch = {"images": np.zeros((1, 64, 64, 3), np.uint8),
          "image_sizes": np.array([[64, 64]], np.int32),
          "original_sizes": np.array([[64, 64]], np.int32)}
 (rec,) = common.evaluate(model, [batch], use_bottleneck_transformer=True)
 assert rec["dets"]["boxes"].shape == (1, 100, 4)
+teacher = factory.get_model(TEACHER_MODEL, seed=1, device="cpu")
+config = {"student_model": STUDENT_MODEL, "train": dict(TRAIN, num_epochs=1)}
+hist = mimic_runner.distill(teacher, model, config, [batch], [batch], 1)
+assert len(hist["steps"]) == 1 and len(hist["evals"]) == 1
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "hnd_ghnd_tpu", "PIL",
                                  "cv2", "yaml")]

@@ -38,7 +38,8 @@ def _close(got, want, what):
 
 
 def _nhwc(t):
-    return t.permute(0, 2, 3, 1).numpy()
+    # the student's stem and bottleneck train, so their outputs carry grad
+    return t.detach().permute(0, 2, 3, 1).numpy()
 
 
 def _nchw(a):

@@ -1,10 +1,11 @@
 """Weights and configuration of the port against the JAX package.
 
 ``state_dict_from_jax`` is the inverse of the JAX package's
-``convert_state_dict``: a JAX-initialised b3ch student crosses to the port
-and back bit for bit, with its init's identity BNs and with the live BNs
-of ``live_models``.  The config literal of chip_smoke.py is the parsed
-YAML, and every schema feature the port does not run raises.
+``convert_state_dict``: a JAX-initialised b3ch student and ResNet-50
+teacher cross to the port and back bit for bit, with their init's identity
+BNs and with the live BNs of ``live_models``.  The config literals of
+chip_smoke.py are the parsed YAML, every schema feature the port does not
+run raises, and ``get_model`` builds on the CPU only when asked.
 
 ``live_models`` is the pair of models the other port tests compare."""
 import copy
@@ -15,7 +16,7 @@ import pytest
 import torch
 import yaml
 
-from chip_smoke import STUDENT_MODEL, live_norms_
+from chip_smoke import STUDENT_MODEL, TEACHER_MODEL, TRAIN, live_norms_
 from hnd_ghnd_tpu.models.convert import convert_state_dict, torch_path_to_ours
 from hnd_ghnd_tpu.models.factory import build_model as jax_build_model
 from hnd_ghnd_tpu.models.factory import init_model as jax_init_model
@@ -53,6 +54,18 @@ def jax_weights(request):
             jax.tree_util.tree_map(np.asarray, state))
 
 
+@pytest.fixture(scope="module", params=["init", "live"])
+def teacher_weights(request):
+    params, state = jax_init_model(jax_build_model(TEACHER_MODEL), 0)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    state = jax.tree_util.tree_map(np.asarray, state)
+    if request.param == "live":
+        pm = build_model(TEACHER_MODEL)
+        pm.load_state_dict(state_dict_from_jax(params, state))
+        params, _ = convert_state_dict(live_norms_(pm, 0).state_dict())
+    return params, state
+
+
 def _assert_trees_equal(a, b, path=""):
     if isinstance(a, dict):
         assert set(a) == set(b), (path, set(a) ^ set(b))
@@ -66,6 +79,8 @@ def test_config_literal_is_the_yaml():
     with open(CONFIG) as f:
         cfg = yaml.safe_load(f)
     assert cfg["student_model"] == STUDENT_MODEL
+    assert cfg["teacher_model"] == TEACHER_MODEL
+    assert cfg["train"] == TRAIN
     assert cfg["tpu"]["compute_dtype"] == "float32"
 
 
@@ -78,17 +93,45 @@ def test_jax_weights_round_trip_exactly(jax_weights):
     _assert_trees_equal(state, back_state)
 
 
-def test_every_port_key_is_a_reference_path():
-    sd = get_model(STUDENT_MODEL, seed=0).state_dict()
+def test_teacher_weights_round_trip_exactly(teacher_weights):
+    params, state = teacher_weights
+    model = build_model(TEACHER_MODEL)
+    assert not model.backbone.body.injected
+    model.load_state_dict(state_dict_from_jax(params, state), strict=True)
+    assert "backbone.body.layer1.0.downsample.0.weight" in model.state_dict()
+    back_params, _ = convert_state_dict(model.state_dict())
+    _assert_trees_equal(params, back_params)
+
+
+@pytest.mark.parametrize("cfg", [STUDENT_MODEL, TEACHER_MODEL],
+                         ids=["student", "teacher"])
+def test_every_port_key_is_a_reference_path(cfg):
+    sd = get_model(cfg, seed=0, device="cpu").state_dict()
     for key in sd:
         prefix = key.rsplit(".", 1)[0]
         assert torch_path_to_ours(prefix) is not None, key
 
 
+def test_get_model_runs_on_the_card_unless_asked():
+    model = get_model(TEACHER_MODEL, seed=0, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_model(TEACHER_MODEL, seed=0)
+
+
+def test_frozen_modules_do_not_train():
+    model = build_model(STUDENT_MODEL)
+    for name, p in model.named_parameters():
+        frozen = any(name.startswith(f + ".")
+                     for f in STUDENT_MODEL["frozen_modules"])
+        assert p.requires_grad != frozen, name
+
+
 def test_seeded_init_is_deterministic():
-    a = get_model(STUDENT_MODEL, seed=3).state_dict()
-    b = get_model(STUDENT_MODEL, seed=3).state_dict()
-    c = get_model(STUDENT_MODEL, seed=4).state_dict()
+    a = get_model(STUDENT_MODEL, seed=3, device="cpu").state_dict()
+    b = get_model(STUDENT_MODEL, seed=3, device="cpu").state_dict()
+    c = get_model(STUDENT_MODEL, seed=4, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["backbone.body.conv1.weight"],
                            c["backbone.body.conv1.weight"])
@@ -111,10 +154,9 @@ def _with(path, value):
           ["quantizer", "jpeg_compressor", "jpeg_decompressor", "dequantizer"]),
     _with(("params", "int8_roi_pool"), True),
     _with(("params", "roi_pool_impl"), "xla"),
-    _with(("backbone", "params", "layer1"), None),
     _with(("backbone", "name"), "resnet101"),
 ], ids=["mask", "keypoint", "ext", "jpeg", "int8_pool", "xla_pool",
-        "stock_layer1", "resnet101"])
+        "resnet101"])
 def test_unported_features_raise(cfg):
     with pytest.raises(NotImplementedError):
         build_model(cfg)
