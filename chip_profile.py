@@ -25,6 +25,11 @@ at 832x1344, the fused stem switched on): its stages between device syncs
 same unprofiled-latency / profiler breakdown per step, and the step with
 the stem switch on against off, interleaved (on, off, off, on).
 
+Last, the supervised bfloat16 step of the org Faster R-CNN (chip_smoke.py's
+training phase, batch 2 at 832x1344): its stages between device syncs
+(trunk and FPN, RPN proposals, RPN loss, RoI sampling, RoI loss, backward,
+SGD update), host syncs per step, and the same profiler breakdown.
+
 Prints one line per result and, last, one JSON object holding them all.
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -43,8 +48,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chip_smoke import (BUCKETS, COMPUTE_DTYPE, EVAL_BATCH, SEED, TRAIN,
-                        distill_batches, distill_models, gpu_name_and_power,
+from chip_smoke import (BUCKETS, EVAL_BATCH, ORG_BATCH, ORG_MODEL, ORG_TRAIN,
+                        SEED, TRAIN, distill_batches, distill_models,
+                        gpu_name_and_power, live_norms_, org_batch,
                         serving_batches, serving_model)
 
 REPEATS = 5      # stage timings and A/B runs per side and order
@@ -92,7 +98,8 @@ def stage_times(model, batch):
         return out
 
     x = stage("uint8 -> float, normalize",
-              lambda: RCNN.normalize(images_to_compute(batch["images"])))
+              lambda: RCNN.normalize(images_to_compute(batch["images"],
+                                                       torch.float32)))
     y = stage("stem", lambda: body.stem(x))
     z = stage("encoder", lambda: body.layer1.encoder(y))
     zq = stage("quantize + dequantize (K1+K2)",
@@ -103,8 +110,8 @@ def stage_times(model, batch):
         feats.append(stage(f"layer{i}", lambda: layer(feats[-1])))
     fpn = stage("FPN", lambda: model.backbone.fpn(feats))
     stage("RPN head convs", lambda: model.rpn.head(fpn))
-    props, pvalid = stage("RPN propose (with head)",
-                          lambda: model.rpn.propose(fpn, sizes, shape))
+    props, pvalid, _ = stage("RPN propose (with head)",
+                             lambda: model.rpn.propose(fpn, sizes, shape))
     levels = stage("NHWC hand-over of P2-P5",
                    lambda: [f.permute(0, 2, 3, 1).contiguous()
                             for f in fpn[:4]])
@@ -279,6 +286,71 @@ def distill_profile(dev):
     return out
 
 
+def train_profile(dev):
+    """Stages, host syncs and profile of one supervised bfloat16 step."""
+    from hnd_ghnd_tpu_torch.models.factory import get_model
+    from hnd_ghnd_tpu_torch.parallel.train_step import (
+        images_to_compute, make_detection_train_step, uniform_draw)
+    os.environ["HND_TPU_PALLAS_STEM"] = "0"
+    model = live_norms_(get_model(ORG_MODEL, seed=SEED + 6, device=dev),
+                        SEED + 6).train()
+    step = make_detection_train_step(model, ORG_TRAIN["optimizer"],
+                                     ORG_TRAIN["scheduler"], 1000, 0,
+                                     torch.bfloat16)
+    batch, targets = org_batch(np.random.RandomState(SEED + 7), BUCKETS[0],
+                               ORG_BATCH)
+    batch, targets = on_device(batch, dev), on_device(targets, dev)
+    for _ in range(2):  # cuDNN's first calls at this shape
+        step(batch, targets)
+    draw = uniform_draw(torch.Generator(device=dev).manual_seed(SEED))
+    shape = BUCKETS[0]
+    out = {"batch": tuple(batch["images"].shape)}
+    t = {}
+
+    def stage(name, fn):
+        res, t[name] = synced_ms(fn)
+        return res
+
+    images = images_to_compute(batch["images"], torch.bfloat16)
+    _, fpn = stage("trunk + FPN forward",
+                   lambda: model.backbone_features(images))
+    props, pvalid, raw = stage("RPN propose (head, top-k, NMS)",
+                               lambda: model.rpn.propose(
+                                   fpn, batch["image_sizes"], shape, True))
+    stage("RPN loss (match, sample)",
+          lambda: model.rpn.loss(raw, targets, draw))
+    sampled = stage("RoI sampling", lambda: model.roi_heads
+                    .select_training_samples(props, pvalid, targets, draw))
+    stage("RoI loss (RoIAlign, heads)",
+          lambda: model.roi_heads.loss(fpn, shape, sampled))
+    del fpn, props, pvalid, raw, sampled
+    cast = dict(batch, images=images)
+    _, fwd = synced_ms(lambda: model(cast, targets, draw))
+
+    def forward_backward():
+        step.optimizer.zero_grad(set_to_none=True)
+        sum(model(cast, targets, draw).values()).backward()
+
+    _, fwd_bwd = synced_ms(forward_backward)
+    t["whole forward (losses)"] = fwd
+    t["backward"] = fwd_bwd - fwd
+    _, t["SGD update"] = synced_ms(step.optimizer.step)
+    _, t["whole step"] = synced_ms(lambda: step(batch, targets))
+    out["stages_ms"] = t
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step(batch, targets)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out["host_syncs_per_step"] = sum("synchroniz" in str(w.message).lower()
+                                     for w in caught)
+    out["profile"] = device_profile(lambda: step(batch, targets), "step")
+    return out
+
+
 def channels_last_variant(model):
     """The same weights with a channels_last trunk: conv weights and the
     stem's input in channels_last, so every map after it is too and the
@@ -326,7 +398,7 @@ def main() -> int:
     card = gpu_name_and_power()
     log(f"[setup] card: {card}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    configure_precision(COMPUTE_DTYPE)
+    configure_precision(torch.float32)
     model = serving_model(dev)
     all_batches = serving_batches(np.random.RandomState(SEED + 1))
     b8 = on_device(all_batches[0], dev)
@@ -363,6 +435,14 @@ def main() -> int:
     log("[distill] stem switch: " + ", ".join(
         f"{k} {v['median_ms']:.3f} ms ({v['min_ms']:.3f}-{v['max_ms']:.3f})"
         for k, v in d["stem_switch_ab"].items()))
+    del d
+    torch.cuda.empty_cache()
+
+    tr = result["train"] = train_profile(dev)
+    for name, ms in tr["stages_ms"].items():
+        log(f"[train] {name}: {ms:.3f} ms")
+    log(f"[train] {tr['host_syncs_per_step']} synchronizing calls per step")
+    log_profile(tr["profile"], "step")
     line = json.dumps(result)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -13,7 +13,12 @@ paths, at full width with random weights and BN statistics from a seed:
     teacher, batch 4 on both buckets, with the fused stem switched on
     (HND_TPU_PALLAS_STEM=1), then its per-epoch eval on a batch-8 serving
     batch; the same steps again with the switch off (cuDNN's stem); one
-    step compared with a float64 step on the CPU.
+    step compared with a float64 step on the CPU;
+  * supervised training: ``coco_runner.train`` of the org Faster R-CNN of
+    config/org/faster_rcnn-backbone_resnet50.yaml in bfloat16, batch 2 on
+    both buckets with seeded synthetic targets, then its float32 eval on a
+    batch-8 serving batch; one float32 step compared with a float64 step on
+    the CPU.
 
 Each path checks that every kernel it runs was launched.  Any failed check
 raises.
@@ -96,6 +101,27 @@ TRAIN = {
                   "params": {"milestones": [5, 15], "gamma": 0.1}},
 }
 COMPUTE_DTYPE = "float32"      # tpu.compute_dtype of the same config
+# model, train and tpu of config/org/faster_rcnn-backbone_resnet50.yaml: its
+# model block is the GHND config's teacher_model
+ORG_MODEL = TEACHER_MODEL
+ORG_TRAIN = {
+    "num_epochs": 26,
+    "batch_size": 2,
+    "log_freq": 1000,
+    "optimizer": {"type": "SGD", "params": {"lr": 0.0075, "momentum": 0.9,
+                                            "weight_decay": 0.0001}},
+    "scheduler": {"type": "MultiStepLR",
+                  "params": {"milestones": [16, 22], "gamma": 0.1}},
+}
+ORG_TPU = {"buckets": [[832, 1344], [1344, 832]], "compute_dtype": "bfloat16",
+           "mesh_axis": "data", "eval_batch_size": 8, "pixel_dtype": "float32"}
+# the training phase: batch 2 (train.batch_size), 3 steps on each bucket and
+# the first batch again (warmup 6 of 7 steps); 1-8 GT boxes per image,
+# padded to the JAX loader's MAX_GT
+ORG_BATCH = 2
+MAX_GT = 100
+# RoI sampling of the train step: 512 per image, P2-P5 of 256 channels
+TRAIN_ROIS = 512
 BUCKETS = ((832, 1344), (1344, 832))
 EVAL_BATCH = 8                 # tpu.eval_batch_size
 SEED = 0
@@ -132,6 +158,17 @@ CPU_SHAPE = (416, 672)
 CPU_TERM_TOL = 1e-5
 CPU_GRAD_TOL = 5e-3
 CPU_STATS_TOL = 1e-5
+# one supervised float32 step on the card against the CPU in float64, at
+# batch 1 on the same quarter bucket, both sides on the CPU's RoI samples
+# and the same RPN draws: the four terms, and the gradients of the RoI
+# heads and the FPN (through the backward kernel).  On an H100 80GB HBM3
+# at 700 W, over two draws of random weights, the terms agreed to 9.1e-7
+# and the gradients to 1.65e-3 of a leaf's largest element in the RoI
+# heads (fc7's bias: fc6/fc7 pre-activations within float32 noise of 0 flip
+# their ReLU between the two sides) and to 1.6e-4 in the FPN
+TRAIN_TERM_TOL = 1e-5
+TRAIN_HEAD_GRAD_TOL = 5e-3     # x a leaf's largest gradient element
+TRAIN_FPN_GRAD_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -567,6 +604,275 @@ def distill_cpu_phase(dev: torch.device, teacher, student) -> None:
         f" worst {worst:.2e}")
 
 
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
+def roi_train_kernels_phase(dev: torch.device, kernels: dict) -> None:
+    """The bf16 RoIAlign forward and the RoIAlign backward (f32 and bf16
+    levels) against their plain versions at the train step's shapes: P2-P5
+    of one batch-2 832x1344 bucket, 512 RoIs per image, 7x7 bins, C=256."""
+    from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
+    from hnd_ghnd_tpu_torch.ops.roi_align import multiscale_roi_align_batch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    h, w = BUCKETS[0]
+    rng = np.random.RandomState(SEED + 5)
+    boxes = torch.from_numpy(box_mix(rng, ORG_BATCH, TRAIN_ROIS, h, w)).to(dev)
+    # sel_on: a few slots unsampled, as when an image has too few candidates
+    valid = torch.from_numpy(rng.rand(ORG_BATCH, TRAIN_ROIS) > 0.05).to(dev)
+    n_valid = int(valid.sum())
+    size = (h, w)
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        levels = [torch.randn((ORG_BATCH, h // s, w // s, 256), generator=gen,
+                              device=dev).to(dtype) for s in (4, 8, 16, 32)]
+        cot = torch.randn((ORG_BATCH, TRAIN_ROIS, 7, 7, 256), generator=gen,
+                          device=dev).to(dtype)
+        shapes = [tuple(f.shape[1:3]) for f in levels]
+        _, level, weight = RK.checked_inputs(levels, boxes, valid)
+        got = RK.roi_align(levels, boxes, size, 7, 2, valid)
+        want = multiscale_roi_align_batch(levels, boxes, size, 7, 2, valid)
+        fwd_err = float((got.float() - want.float()).abs().max())
+        log(f"[roi-train] forward {tag} {tuple(got.shape)}: max abs err "
+            f"{fwd_err} (bit-identical: {torch.equal(got, want)})")
+        if dtype == torch.bfloat16:
+            # the kernel rounds the plain version's float32 bin once
+            check(torch.equal(got, want), "roi_align bf16 is not "
+                  "bit-identical to its plain version")
+        ref = [f.clone().requires_grad_(True) for f in levels]
+        plain_out = multiscale_roi_align_batch(ref, boxes, size, 7, 2, valid)
+        plain = torch.autograd.grad(plain_out, ref, cot, retain_graph=True)
+        got_g = RK.roi_align_backward(cot, shapes, dtype, boxes, level,
+                                      weight, size, 2)
+        again = RK.roi_align_backward(cot, shapes, dtype, boxes, level,
+                                      weight, size, 2)
+        torch.cuda.synchronize()
+        top = max(float(g.float().abs().max()) for g in plain)
+        bwd_err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got_g, plain))
+        # float atomics add in another order than the plain scatter:
+        # 1e-5 of the largest gradient (f32), one bf16 ulp of it (bf16)
+        tol = ROI_TOL * top if dtype == torch.float32 else bf16_ulp(top)
+        same = all(torch.equal(a, b) for a, b in zip(got_g, again))
+        log(f"[roi-train] backward {tag}: max abs err {bwd_err:.3e} (largest "
+            f"|plain grad| {top:.3e}, bound {tol:.3e}); two runs "
+            f"{'agree' if same else 'differ'} bit for bit (float atomics: "
+            "the order of the adds is not fixed)")
+        check(bwd_err <= tol, f"roi_align_bwd {tag}: {bwd_err} > {tol}")
+        bwd_ms = time_ms(lambda: RK.roi_align_backward(
+            cot, shapes, dtype, boxes, level, weight, size, 2))
+        plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            plain_out, ref, cot, retain_graph=True))
+        # 2 x 2 samples of 4 taps, a multiply and an add each, and the
+        # validity weight, per (valid RoI, bin, channel)
+        n_ops = 33.0 * n_valid * 49 * 256
+        fwd_bound = bound(nbytes(*levels, boxes, valid, got), n_ops)
+        bwd_bound = bound(nbytes(cot, boxes, valid, *got_g), n_ops)
+        fwd_ms = time_ms(lambda: RK.roi_align(levels, boxes, size, 7, 2,
+                                              valid))
+        plain_fwd_ms = time_ms(lambda: multiscale_roi_align_batch(
+            levels, boxes, size, 7, 2, valid))
+        log(f"[roi-train] forward {tag}: {fwd_ms:.4f} ms kernel, "
+            f"{plain_fwd_ms:.4f} ms plain; backward {bwd_ms:.4f} ms kernel, "
+            f"{plain_bwd_ms:.4f} ms plain autograd (median of {REPS}); "
+            f"bounds {fwd_bound['bound_ms']:.4f} / "
+            f"{bwd_bound['bound_ms']:.4f} ms by {fwd_bound['bound_by']}")
+        # no single PyTorch call computes either function (no torchvision)
+        if dtype == torch.bfloat16:
+            kernels["roi_align_bf16"] = dict(
+                source="hnd_ghnd_tpu_torch/csrc/roi_align.cu",
+                replaces="hnd_ghnd_tpu/ops/pallas_roi.py:231",
+                max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_fwd_ms,
+                library_ms=None, **fwd_bound)
+            kernels["roi_align_bwd"] = dict(
+                source="hnd_ghnd_tpu_torch/csrc/roi_align.cu",
+                replaces="hnd_ghnd_tpu/ops/pallas_roi.py:446",
+                max_abs_err=bwd_err, ms=bwd_ms, plain_ms=plain_bwd_ms,
+                library_ms=None, **bwd_bound)
+        del levels, cot, got, want, ref, plain_out, plain, got_g, again
+    torch.cuda.empty_cache()
+
+
+def org_targets(rng: np.random.RandomState, sizes: np.ndarray):
+    """1-8 GT boxes per image inside its valid size, labels 1-90, padded to
+    MAX_GT with ``boxes_valid``, like the JAX loader's targets."""
+    b = len(sizes)
+    boxes = np.zeros((b, MAX_GT, 4), np.float32)
+    labels = np.zeros((b, MAX_GT), np.int64)
+    valid = np.zeros((b, MAX_GT), bool)
+    for i, (h, w) in enumerate(sizes):
+        g = rng.randint(1, 9)
+        bw = rng.uniform(16, 0.6 * w, g)
+        bh = rng.uniform(16, 0.6 * h, g)
+        x1 = rng.uniform(0, w - bw)
+        y1 = rng.uniform(0, h - bh)
+        boxes[i, :g] = np.stack([x1, y1, x1 + bw, y1 + bh], -1)
+        labels[i, :g] = rng.randint(1, 91, g)
+        valid[i, :g] = True
+    return {"boxes": boxes, "labels": labels, "boxes_valid": valid}
+
+
+def org_batch(rng: np.random.RandomState, bucket, b: int):
+    """(batch, targets): float32 images in [0, 1] padded into the bucket."""
+    bh, bw = bucket
+    images = np.zeros((b, bh, bw, 3), np.float32)
+    sizes = np.zeros((b, 2), np.int32)
+    for i in range(b):
+        h = bh if i % 2 == 0 else int(bh * rng.uniform(0.6, 1.0))
+        w = bw if i % 3 == 0 else int(bw * rng.uniform(0.6, 1.0))
+        images[i, :h, :w] = rng.rand(h, w, 3)
+        sizes[i] = (h, w)
+    batch = {"images": images, "image_sizes": sizes,
+             "original_sizes": np.round(sizes * 0.75).astype(np.int32)}
+    return batch, org_targets(rng, sizes)
+
+
+def train_phase(dev: torch.device, eval_batch: dict) -> dict:
+    """coco_runner.train of the org model in bfloat16: batch 2, 3 steps on
+    each bucket and the first batch again, then the float32 eval of a
+    batch-8 serving batch.  Returns the kernels' launches in that run."""
+    from hnd_ghnd_tpu_torch.models.factory import get_model
+    from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
+    from hnd_ghnd_tpu_torch.runners.coco_runner import train
+    from hnd_ghnd_tpu_torch.utils.params import updatable_param_names
+    model = live_norms_(get_model(ORG_MODEL, seed=SEED + 6, device=dev),
+                        SEED + 6)
+    start = copy.deepcopy(model.state_dict())
+    trainable = set(updatable_param_names(model))
+    frozen = [n for n, _ in model.named_parameters() if n not in trainable]
+    rng = np.random.RandomState(SEED + 7)
+    batches = [org_batch(rng, bucket, ORG_BATCH) for bucket in BUCKETS
+               for _ in range(STEPS_PER_BUCKET)]
+    batches.append(batches[0])
+    n = len(batches)
+    config = {"model": ORG_MODEL, "train": dict(ORG_TRAIN, num_epochs=1),
+              "tpu": ORG_TPU}
+    RK.roi_align.launches = RK.roi_align.launches_bf16 = 0
+    RK.roi_align_backward.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    hist = train(model, config, batches, [eval_batch], n, seed=SEED)
+    wall = time.perf_counter() - t0
+    launches = {"roi_align": RK.roi_align.launches,
+                "roi_align_bf16": RK.roi_align.launches_bf16,
+                "roi_align_bwd": RK.roi_align_backward.launches}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"[train] {n} bf16 steps + 1 float32 eval batch in {wall:.3f} s; "
+        f"launches {launches}; peak memory {peak:.2f} GiB")
+    for idx, loss, terms, ms in hist["steps"]:
+        shape = tuple(batches[idx][0]["images"].shape)
+        check(all(np.isfinite(v) for v in terms.values()),
+              f"step {idx}: a non-finite loss term {terms}")
+        log(f"[train] step {idx} {shape}: {ms:.3f} ms, loss {loss:.6e}, "
+            + " ".join(f"{k} {v:.6e}" for k, v in terms.items()))
+    check(len(hist["steps"]) == n, "a step's scalars are missing")
+    check(launches["roi_align_bf16"] == n and launches["roi_align_bwd"] == n,
+          "the bf16 RoIAlign forward and backward did not launch once per "
+          "step")
+    check(launches["roi_align"] == 1, "the f32 RoIAlign did not launch once "
+          "in the float32 eval")
+    after = model.state_dict()
+    for name in frozen:
+        check(torch.equal(after[name], start[name]), f"frozen {name} changed")
+    for name in trainable:
+        check(not torch.equal(after[name], start[name]),
+              f"trainable {name} did not move")
+    check(all(n.startswith(("backbone.body.conv1.", "backbone.body.bn1.",
+                            "backbone.body.layer1.")) for n in frozen)
+          and len(frozen) > 0, "freeze_layers froze something else")
+    log(f"[train] {len(frozen)} frozen parameters (conv1, bn1, layer1) "
+        f"bit-identical, {len(trainable)} trainable ones moved")
+    (rec,) = hist["evals"][0]
+    dets = rec["dets"]
+    check(dets["boxes"].shape == (EVAL_BATCH, 100, 4)
+          and bool(np.isfinite(dets["boxes"]).all())
+          and bool(np.isfinite(dets["scores"]).all()), "eval output")
+    log(f"[train] float32 eval of batch {tuple(eval_batch['images'].shape)}:"
+        f" {rec['ms']:.2f} ms, {int(dets['valid'].sum())} detections")
+    for bi, bucket in enumerate(BUCKETS):
+        first = bi * STEPS_PER_BUCKET
+        ms = [s[3] for s in hist["steps"]
+              if tuple(batches[s[0]][0]["images"].shape[1:3]) == bucket
+              and s[0] != first]
+        log(f"[train] bucket {bucket}: median step "
+            f"{statistics.median(ms):.3f} ms over {len(ms)} steps "
+            f"({ORG_BATCH / statistics.median(ms) * 1e3:.2f} img/s)")
+    return launches
+
+
+def train_cpu_phase(dev: torch.device) -> None:
+    """One supervised float32 step (TF32 off) on the card against the same
+    step on the CPU in float64, at batch 1 on a quarter of the 832x1344
+    bucket.  Top-k, NMS and sampling are discrete: the CPU's RoI samples
+    and the same RPN draws go to both sides."""
+    from hnd_ghnd_tpu_torch.models.factory import get_model
+    from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
+    from hnd_ghnd_tpu_torch.parallel.train_step import images_to_compute
+    model = live_norms_(get_model(ORG_MODEL, seed=SEED + 8, device="cpu"),
+                        SEED + 8)
+    rng = np.random.RandomState(SEED + 8)
+    batch, targets = org_batch(rng, CPU_SHAPE, 1)
+    recorded = []  # the CPU's draws, replayed on the card
+
+    def record(shape):
+        r = torch.from_numpy(rng.rand(*shape).astype(np.float32))
+        recorded.append(r)
+        return r
+
+    out, sampled = {}, None
+    n_bwd = RK.roi_align_backward.launches
+    for where in ("cpu", "gpu"):
+        if where == "cpu":
+            m, d, dtype = model.double(), torch.device("cpu"), torch.float64
+            draw = record
+        else:
+            m, d, dtype = model.float().to(dev), dev, torch.float32
+            replay = iter(list(recorded))
+            draw = lambda shape: next(replay).to(dev)  # noqa: E731
+        m.train().zero_grad(set_to_none=True)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        t = {k: torch.from_numpy(v).to(d) for k, v in targets.items()}
+        t["boxes"] = t["boxes"].to(dtype)
+        t0 = time.perf_counter()
+        images = images_to_compute(b["images"], dtype)
+        _, feats = m.backbone_features(images)
+        props, pvalid, raw = m.rpn.propose(feats, b["image_sizes"], CPU_SHAPE,
+                                           training=True)
+        losses = m.rpn.loss(raw, t, draw)
+        if sampled is None:
+            sampled = m.roi_heads.select_training_samples(props, pvalid, t,
+                                                          record)
+        s = tuple(x.to(d, dtype) if x.is_floating_point() else x.to(d)
+                  for x in sampled)
+        losses.update(m.roi_heads.loss(feats, CPU_SHAPE, s))
+        sum(losses.values()).backward()
+        grads = {n: p.grad.detach().double().cpu()
+                 for n, p in m.named_parameters()
+                 if n.startswith(("roi_heads.", "backbone.fpn."))}
+        out[where] = ({k: float(v.detach()) for k, v in losses.items()}, grads)
+        log(f"[train-cpu] {where}: one step at {tuple(images.shape)} in "
+            f"{time.perf_counter() - t0:.2f} s")
+    check(RK.roi_align_backward.launches == n_bwd + 1,
+          "the card's step did not run the backward kernel")
+    (t_g, g_g), (t_c, g_c) = out["gpu"], out["cpu"]
+    worst = max(abs(t_g[k] - t_c[k]) / abs(t_c[k]) for k in t_c)
+    log("[train-cpu] terms card / cpu: " + ", ".join(
+        f"{k} {t_g[k]:.8e} / {t_c[k]:.8e}" for k in t_c)
+        + f"; max rel {worst:.2e}")
+    check(worst <= TRAIN_TERM_TOL, f"terms: {worst} > {TRAIN_TERM_TOL}")
+    rels = {n: float((g_g[n] - c).abs().max() / c.abs().max())
+            for n, c in g_c.items()}
+    top = sorted(rels.items(), key=lambda kv: -kv[1])[:4]
+    log(f"[train-cpu] {len(g_c)} gradients of the RoI heads and the FPN, "
+        "largest errors (x their max): "
+        + ", ".join(f"{n} {r:.2e}" for n, r in top))
+    for name, rel in rels.items():
+        tol = (TRAIN_HEAD_GRAD_TOL if name.startswith("roi_heads.")
+               else TRAIN_FPN_GRAD_TOL)
+        check(rel <= tol, f"gradient {name}: {rel} of its max > {tol}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -605,7 +911,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- 3. kernels
     # float32 with TF32 off everywhere, the plain versions included
-    configure_precision(COMPUTE_DTYPE)
+    configure_precision(torch.float32)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels = {}
     # the bottleneck tensor of the serving path (+4 from the k2/p1 convs),
@@ -686,6 +992,7 @@ def main() -> int:
         f"NCHW, {free_ms:.3f} ms from channels_last")
     del levels, nchw, cl, got, want, z, q
     stem_kernels_phase(dev, kernels)
+    roi_train_kernels_phase(dev, kernels)
     for name, k in kernels.items():
         lib = "" if k["library_ms"] is None else \
             f", {k['library_ms']:.4f} ms library"
@@ -702,8 +1009,7 @@ def main() -> int:
     nms_ops.fixpoint.iterations = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    records = evaluate(model, served, use_bottleneck_transformer=True,
-                       compute_dtype=COMPUTE_DTYPE)
+    records = evaluate(model, served, use_bottleneck_transformer=True)
     wall = time.perf_counter() - t0
     launches = {"quantize": QK.quantize.launches,
                 "dequantize": QK.dequantize.launches,
@@ -767,7 +1073,7 @@ def main() -> int:
     log("[cpu] RPN head outputs within tolerance on every level")
     shape = BUCKETS[0]
     sizes = torch.from_numpy(one["image_sizes"])
-    props, pvalid = cpu_model.rpn.propose(fpn["cpu"], sizes, shape)
+    props, pvalid, _ = cpu_model.rpn.propose(fpn["cpu"], sizes, shape)
     # the CPU's proposals go to both sides (top-k and NMS are discrete)
     lc = cpu_model.roi_heads.box_logits(fpn["cpu"], props, pvalid, shape)
     lg = model.roi_heads.box_logits(on_gpu, props.to(dev), pvalid.to(dev), shape)
@@ -800,6 +1106,17 @@ def main() -> int:
 
     # ---------------------------------------------------------- 7. card vs CPU
     distill_cpu_phase(dev, teacher, student)
+    del teacher, student
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 8. training
+    os.environ["HND_TPU_PALLAS_STEM"] = "0"  # the stem kernels are f32 only
+    train_launches = train_phase(dev, batches[0])
+    launches.update({k: train_launches[k] for k in
+                     ("roi_align_bf16", "roi_align_bwd")})
+
+    # ---------------------------------------------------------- 9. card vs CPU
+    train_cpu_phase(dev)
 
     # ---------------------------------------------------------- result
     out = [dict(name=name, route="cuda", launches=launches[name], **k)

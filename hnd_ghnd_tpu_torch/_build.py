@@ -1,10 +1,11 @@
 """Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
 
 The kernels have a plain C interface (pointers, sizes and the stream), so
-one ``nvcc -shared`` call builds them in seconds, without PyTorch's headers.
-The library goes to ``build/torch_kernels/`` at the repo root, named by a
-hash of the sources and flags: a changed source builds a new library, an
-unchanged one is loaded as it is.
+they build in seconds, without PyTorch's headers: one ``nvcc -c`` per
+source, all started together, then one ``nvcc -shared`` link.  The library
+goes to ``build/torch_kernels/`` at the repo root, named by a hash of the
+sources and flags: a changed source builds a new library, an unchanged one
+is loaded as it is.
 
 Nothing here runs at import time; the first kernel launch calls ``load()``.
 """
@@ -24,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # no --use_fast_math: the quantizer must divide and round like IEEE f32
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,7 +36,10 @@ _SIGNATURES = {
     "hnd_quantize_u8": [_P, _P, _P, _P, _I64, _I, _P],
     "hnd_dequantize_u8": [_P, _P, _P, _P, _I64, _P],
     "hnd_roi_align_fwd": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
-                          _P],
+                          _I, _P],
+    "hnd_roi_align_bwd": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
+                          _I, _P],
+    "hnd_f32_to_bf16": [_P, _P, _I64, _P],
     "hnd_stem_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hnd_stem_dw_partials_size": [_I, _I, _I],
     "hnd_stem_dw": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -89,15 +93,31 @@ def load() -> ctypes.CDLL:
         cached = path.is_file()
         if not cached:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            # build to a private name, then rename: concurrent builders
+            # build to private names, then rename: concurrent builders
             # never load a half-written library
+            nvcc = find_nvcc()
+            tag = f"{path.stem}.{os.getpid()}"
+            objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in sources]
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for s, o in zip(sources, objs)]
+            outs = [p.communicate()[0] for p in procs]
+            log = "".join(outs)
+            for s, p, out in zip(sources, procs, outs):
+                if p.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed on {s.name} ({p.returncode}):\n{out}")
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(s) for s in sources]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
+            proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                                   *[str(o) for o in objs]],
+                                  capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                                   f"{log}")
+            for o in objs:
+                o.unlink()
             os.replace(tmp, path)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():

@@ -20,10 +20,11 @@ import torch
 from torch import nn
 
 from hnd_ghnd_tpu_torch.codec.quantizer import roundtrip
+from hnd_ghnd_tpu_torch.models.layers import BatchNorm2d, Conv2d
 
 
-def _conv(cin: int, cout: int, padding: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 2, stride=1, padding=padding, bias=False)
+def _conv(cin: int, cout: int, padding: int) -> Conv2d:
+    return Conv2d(cin, cout, 2, stride=1, padding=padding, bias=False)
 
 
 class _Encoder(nn.Module):
@@ -32,9 +33,9 @@ class _Encoder(nn.Module):
     def __init__(self, bottleneck_channel: int):
         super().__init__()
         self.encoder = nn.Sequential(
-            _conv(64, 64, 1), nn.BatchNorm2d(64),
-            _conv(64, 256, 1), nn.BatchNorm2d(256), nn.ReLU(inplace=True),
-            _conv(256, 64, 1), nn.BatchNorm2d(64),
+            _conv(64, 64, 1), BatchNorm2d(64),
+            _conv(64, 256, 1), BatchNorm2d(256), nn.ReLU(inplace=True),
+            _conv(256, 64, 1), BatchNorm2d(64),
             _conv(64, bottleneck_channel, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -47,11 +48,11 @@ class Bottleneck4LargeResNet(nn.Module):
         self.quant_bits = quant_bits
         self.encoder = _Encoder(bottleneck_channel)
         self.decoder = nn.Sequential(
-            nn.BatchNorm2d(bottleneck_channel), nn.ReLU(inplace=True),
-            _conv(bottleneck_channel, 64, 0), nn.BatchNorm2d(64),
-            _conv(64, 128, 0), nn.BatchNorm2d(128), nn.ReLU(inplace=True),
-            _conv(128, 256, 0), nn.BatchNorm2d(256),
-            _conv(256, 256, 0), nn.BatchNorm2d(256), nn.ReLU(inplace=True))
+            BatchNorm2d(bottleneck_channel), nn.ReLU(inplace=True),
+            _conv(bottleneck_channel, 64, 0), BatchNorm2d(64),
+            _conv(64, 128, 0), BatchNorm2d(128), nn.ReLU(inplace=True),
+            _conv(128, 256, 0), BatchNorm2d(256),
+            _conv(256, 256, 0), BatchNorm2d(256), nn.ReLU(inplace=True))
 
     def forward(self, x: torch.Tensor,
                 use_bottleneck_transformer: bool = False) -> torch.Tensor:

@@ -1,20 +1,25 @@
 """Config-driven construction of the models (reference YAML schema).
 
 Counterpart of hnd_ghnd_tpu/models/factory.py for the slices this package
-runs: a ``faster_rcnn`` teacher with the stock ResNet-50 trunk, and a
-``faster_rcnn`` student whose ``layer1`` is a Bottleneck4LargeResNet, with
-an optional [quantizer, dequantizer] bottleneck transformer.  Every other
-feature of the schema raises NotImplementedError naming the ROADMAP item
-that ports it; nothing falls back silently.  ``frozen_modules`` turn
-``requires_grad`` off (utils/params.set_trainable).
+runs: a ``faster_rcnn`` with the stock ResNet-50 trunk (the org model of
+config/org and the distillation teacher), and a ``faster_rcnn`` student
+whose ``layer1`` is a Bottleneck4LargeResNet, with an optional [quantizer,
+dequantizer] bottleneck transformer.  Every other feature of the schema
+raises NotImplementedError naming the ROADMAP item that ports it; nothing
+falls back silently.  ``frozen_modules``, and the trunk's conv1, bn1 and
+layer1 under ``backbone.params.freeze_layers`` (the reference's
+freeze_layers, as hnd_ghnd_tpu/runners/coco_runner.py:53-58 adds them),
+turn ``requires_grad`` off (utils/params.set_trainable).
 
 ``init_model`` draws seeded random weights from an explicit
-``torch.Generator`` with the JAX package's init distributions (the zoo
-weights are not in the repository).
+``torch.Generator`` with the JAX package's init distributions.  The zoo
+weights that ``params.pretrained`` asks for are not in the repository:
+``get_model`` says so and keeps the seeded init, as JAX's does.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import logging
+from typing import Any, Dict, List
 
 import torch
 from torch import nn
@@ -24,7 +29,13 @@ from hnd_ghnd_tpu_torch.models.bottleneck import Bottleneck4LargeResNet
 from hnd_ghnd_tpu_torch.models.rcnn import RCNN
 from hnd_ghnd_tpu_torch.utils.params import set_trainable
 
+logger = logging.getLogger(__name__)
+
 BOTTLENECK_NAMES = {"Bottleneck4LargeResNet", "Bottleneck4SmallResNet"}
+# what the reference's freeze_layers leaves out of training: the trunk
+# except layer2-4 (src/models/org/rcnn.py:399-404)
+FREEZE_LAYERS = ["backbone.body.conv1", "backbone.body.bn1",
+                 "backbone.body.layer1"]
 
 
 def _quant_bits(transformer_cfg) -> int:
@@ -40,9 +51,18 @@ def _quant_bits(transformer_cfg) -> int:
     return int(q.get("num_bits", 8))
 
 
+def frozen_modules(model_config: Dict[str, Any]) -> List[str]:
+    """``frozen_modules`` plus, under ``backbone.params.freeze_layers``,
+    the trunk's conv1, bn1 and layer1."""
+    frozen = list(model_config.get("frozen_modules", []) or [])
+    if (model_config["backbone"].get("params", {}) or {}).get("freeze_layers"):
+        frozen += FREEZE_LAYERS
+    return frozen
+
+
 def build_model(model_config: Dict[str, Any]) -> RCNN:
-    """An RCNN in eval mode on the CPU from a ``teacher_model`` or
-    ``student_model`` block, with its ``frozen_modules`` frozen."""
+    """An RCNN in eval mode on the CPU from a ``model``, ``teacher_model``
+    or ``student_model`` block, with ``frozen_modules`` frozen."""
     kind = model_config["name"]
     if kind in ("mask_rcnn", "keypoint_rcnn"):
         raise NotImplementedError(f"{kind}: mask/keypoint heads are ROADMAP A8")
@@ -69,7 +89,7 @@ def build_model(model_config: Dict[str, Any]) -> RCNN:
         int(layer1_cfg["bottleneck_channel"]),
         quant_bits=_quant_bits(model_config.get("bottleneck_transformer")))
     model = RCNN(bottleneck, num_classes=int(params_cfg.get("num_classes", 91)))
-    set_trainable(model, model_config.get("frozen_modules", []))
+    set_trainable(model, frozen_modules(model_config))
     return model.eval()
 
 
@@ -111,4 +131,7 @@ def get_model(model_config: Dict[str, Any], seed: int = 0,
                            "build the model on the CPU")
     model = build_model(model_config)
     init_model(model, torch.Generator().manual_seed(seed))
+    if (model_config.get("params", {}) or {}).get("pretrained"):
+        logger.warning("pretrained=True but the zoo weights are not in the "
+                       "repository; using the seeded init")
     return model.to(device)

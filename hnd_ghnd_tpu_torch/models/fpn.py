@@ -13,14 +13,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hnd_ghnd_tpu_torch.models.layers import Conv2d
+
 
 class FPN(nn.Module):
     def __init__(self, in_channels_list: List[int], out_channels: int = 256):
         super().__init__()
         self.inner_blocks = nn.ModuleList(
-            nn.Conv2d(c, out_channels, 1) for c in in_channels_list)
+            Conv2d(c, out_channels, 1) for c in in_channels_list)
         self.layer_blocks = nn.ModuleList(
-            nn.Conv2d(out_channels, out_channels, 3, padding=1)
+            Conv2d(out_channels, out_channels, 3, padding=1)
             for _ in in_channels_list)
 
     def forward(self, feats: List[torch.Tensor]) -> List[torch.Tensor]:

@@ -14,17 +14,52 @@ C6), and every other one is frozen by ``requires_grad``.  Weights from
 the JAX package arrive with mean 0 and variance 1, so scale = weight and
 the gradients land on the same leaves as in JAX.
 
-The trainable BatchNorm of the bottleneck is ``nn.BatchNorm2d`` (eps=1e-5,
+The trainable BatchNorm of the bottleneck is ``BatchNorm2d`` (eps=1e-5,
 momentum 0.1).  In train mode it normalises with the batch mean and the
 biased variance and updates the running variance with the unbiased one,
 as hnd_ghnd_tpu/models/layers.py:batch_norm does.
+
+The compute dtype follows the input, as in the JAX package
+(layers.py:70, 79, 87, 112-113, 127-128, 158-175): ``Conv2d`` and
+``Linear`` cast their float32 weight and bias to ``x.dtype``; the frozen BN
+folds in float32 and casts scale and bias; the trainable BN computes in
+float32 and returns ``x.dtype``.  A bfloat16 image therefore runs the
+whole network in bfloat16 with float32 parameters, without
+``torch.autocast``, whose op lists would run softmax and the losses in
+float32 and so compute another function than JAX's explicit casts.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose weight and bias are cast to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose weight and bias are cast to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` computed in float32, returned in the input's
+    dtype (statistics and affine stay float32)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype in (torch.float32, torch.float64):
+            return super().forward(x)
+        return super().forward(x.float()).to(x.dtype)
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -46,7 +81,8 @@ class FrozenBatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale, bias = self.folded()
-        return x * scale[None, :, None, None] + bias[None, :, None, None]
+        return (x * scale.to(x.dtype)[None, :, None, None]
+                + bias.to(x.dtype)[None, :, None, None])
 
 
 def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:

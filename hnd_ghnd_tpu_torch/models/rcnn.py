@@ -1,10 +1,11 @@
-"""Faster R-CNN meta-architecture, eval forward.
+"""Faster R-CNN meta-architecture: eval forward and training losses.
 
 Counterpart of hnd_ghnd_tpu/models/rcnn.py (the reference's CustomRCNN):
 normalize -> trunk (with the bottleneck as layer1) -> FPN -> RPN -> RoI
 heads -> boxes rescaled from the padded bucket to each image's original
-size.  The batch keeps the JAX package's layout: images [B, H, W, 3] in
-[0, 1].  The trunk runs contiguous NCHW: float32 cuDNN convolutions have
+size; in train mode (rcnn.py:156-178) RPN proposals, the RPN loss, the
+RoI sampling and the RoI loss instead.  The batch keeps the JAX package's
+layout: images [B, H, W, 3] in [0, 1], in the compute dtype.  The trunk runs contiguous NCHW: float32 cuDNN convolutions have
 NCHW kernels only, and a channels_last trunk spends more in their layout
 transposes than the NHWC copy of P2-P5 for the RoIAlign kernel costs.
 """
@@ -20,7 +21,7 @@ from hnd_ghnd_tpu_torch.models.bottleneck import Bottleneck4LargeResNet
 from hnd_ghnd_tpu_torch.models.fpn import FPN
 from hnd_ghnd_tpu_torch.models.resnet import ResNetBody
 from hnd_ghnd_tpu_torch.models.roi_heads import RoIHeads
-from hnd_ghnd_tpu_torch.models.rpn import RPN
+from hnd_ghnd_tpu_torch.models.rpn import RPN, Draw
 
 IMAGE_MEAN = (0.485, 0.456, 0.406)
 IMAGE_STD = (0.229, 0.224, 0.225)
@@ -68,22 +69,47 @@ class RCNN(nn.Module):
         fpn = self.backbone.fpn([body[f"layer{i}"] for i in (1, 2, 3, 4)])
         return body, fpn
 
-    @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor],
+                targets: Optional[Dict[str, torch.Tensor]] = None,
+                draw: Optional[Draw] = None,
                 use_bottleneck_transformer: bool = False) -> Dict[str, torch.Tensor]:
         """batch: images [B, H, W, 3] in [0, 1], image_sizes [B, 2] valid
-        (h, w) inside the bucket, original_sizes [B, 2].  Returns
-        fixed-shape detections in original-image coordinates (``boxes``)
-        and bucket coordinates (``boxes_model``)."""
+        (h, w) inside the bucket, original_sizes [B, 2].
+
+        In eval mode: fixed-shape detections in original-image coordinates
+        (``boxes``) and bucket coordinates (``boxes_model``), without
+        autograd.  In train mode: the loss dict {loss_classifier,
+        loss_box_reg, loss_objectness, loss_rpn_box_reg}; ``targets`` holds
+        boxes [B, G, 4], labels [B, G] and boxes_valid [B, G] (padded to a
+        fixed G), and ``draw`` the samplers' uniform draws."""
         if self.training:
-            raise NotImplementedError(
-                "the detection losses are not ported yet (ROADMAP A7); "
-                "distillation trains through distill.box; call .eval()")
+            if targets is None or draw is None:
+                raise ValueError("training forward needs targets and draw")
+            return self.losses(batch, targets, draw)
+        with torch.no_grad():
+            return self.detect(batch, use_bottleneck_transformer)
+
+    def losses(self, batch: Dict[str, torch.Tensor],
+               targets: Dict[str, torch.Tensor],
+               draw: Draw) -> Dict[str, torch.Tensor]:
+        images = batch["images"]
+        image_shape = (images.shape[1], images.shape[2])
+        _, feats = self.backbone_features(images)
+        proposals, prop_valid, raw = self.rpn.propose(
+            feats, batch["image_sizes"], image_shape, training=True)
+        rpn_losses = self.rpn.loss(raw, targets, draw)
+        sampled = self.roi_heads.select_training_samples(
+            proposals, prop_valid, targets, draw)
+        roi_losses = self.roi_heads.loss(feats, image_shape, sampled)
+        return {**roi_losses, **rpn_losses}
+
+    def detect(self, batch: Dict[str, torch.Tensor],
+               use_bottleneck_transformer: bool) -> Dict[str, torch.Tensor]:
         images = batch["images"]
         image_shape = (images.shape[1], images.shape[2])
         _, feats = self.backbone_features(images, use_bottleneck_transformer)
-        proposals, prop_valid = self.rpn.propose(feats, batch["image_sizes"],
-                                                 image_shape)
+        proposals, prop_valid, _ = self.rpn.propose(
+            feats, batch["image_sizes"], image_shape)
         dets = self.roi_heads.infer(feats, proposals, prop_valid,
                                     batch["image_sizes"], image_shape)
         scale = (batch["original_sizes"].float()

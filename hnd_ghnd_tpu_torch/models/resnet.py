@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hnd_ghnd_tpu_torch.models.layers import FrozenBatchNorm2d
+from hnd_ghnd_tpu_torch.models.layers import Conv2d, FrozenBatchNorm2d
 from hnd_ghnd_tpu_torch.ops import stem_kernels
 from hnd_ghnd_tpu_torch.ops.stem import stem_supported
 
@@ -37,14 +37,14 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int,
                  downsample: bool):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = FrozenBatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = FrozenBatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, planes * EXPANSION, 1, bias=False)
+        self.conv3 = Conv2d(planes, planes * EXPANSION, 1, bias=False)
         self.bn3 = FrozenBatchNorm2d(planes * EXPANSION)
         self.downsample = (nn.Sequential(
-            nn.Conv2d(inplanes, planes * EXPANSION, 1, stride, bias=False),
+            Conv2d(inplanes, planes * EXPANSION, 1, stride, bias=False),
             FrozenBatchNorm2d(planes * EXPANSION)) if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -75,7 +75,7 @@ class ResNetBody(nn.Module):
 
     def __init__(self, layer1: Optional[nn.Module] = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)
         self.injected = layer1 is not None
         self.layer1 = layer1 if self.injected else _stage(_PLANES[0], 0)
@@ -86,6 +86,11 @@ class ResNetBody(nn.Module):
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         if use_fused_stem() and stem_supported(x):
+            if x.dtype != self.conv1.weight.dtype:
+                raise TypeError(f"HND_TPU_PALLAS_STEM=1: the fused stem "
+                                f"runs in its weights' dtype, not {x.dtype} "
+                                f"activations (bfloat16 training: switch "
+                                f"it off)")
             scale, bias = self.bn1.folded()
             y = stem_kernels.stem_conv_bn_relu(x, self.conv1.weight, scale,
                                                bias)

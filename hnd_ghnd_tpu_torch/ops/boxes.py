@@ -30,6 +30,36 @@ def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
 
 
+def encode(reference_boxes: torch.Tensor, proposals: torch.Tensor,
+           weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
+           ) -> torch.Tensor:
+    """Regression targets [..., 4] (dx, dy, dw, dh) of ``reference_boxes``
+    relative to ``proposals``; degenerate widths and heights (padding)
+    divide by 1 and are masked downstream."""
+    wx, wy, ww, wh = weights
+    ex_w = proposals[..., 2] - proposals[..., 0]
+    ex_h = proposals[..., 3] - proposals[..., 1]
+    ex_cx = proposals[..., 0] + 0.5 * ex_w
+    ex_cy = proposals[..., 1] + 0.5 * ex_h
+
+    gt_w = reference_boxes[..., 2] - reference_boxes[..., 0]
+    gt_h = reference_boxes[..., 3] - reference_boxes[..., 1]
+    gt_cx = reference_boxes[..., 0] + 0.5 * gt_w
+    gt_cy = reference_boxes[..., 1] + 0.5 * gt_h
+
+    one = torch.ones((), dtype=ex_w.dtype, device=ex_w.device)
+    safe_w = torch.where(ex_w > 0, ex_w, one)
+    safe_h = torch.where(ex_h > 0, ex_h, one)
+    safe_gw = torch.where(gt_w > 0, gt_w, one)
+    safe_gh = torch.where(gt_h > 0, gt_h, one)
+
+    dx = wx * (gt_cx - ex_cx) / safe_w
+    dy = wy * (gt_cy - ex_cy) / safe_h
+    dw = ww * torch.log(safe_gw / safe_w)
+    dh = wh * torch.log(safe_gh / safe_h)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
+
+
 def decode(deltas: torch.Tensor, boxes: torch.Tensor,
            weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
            ) -> torch.Tensor:

@@ -6,6 +6,18 @@ legacy non-aligned sampling, roi size clamped to >= 1, samples outside
 [-1, size] contribute 0, the FPN level per RoI by the canonical heuristic.
 Layout is the JAX package's: levels [B, H, W, C], boxes [B, N, 4],
 output [B, N, P, P, C].  Float tables only: the int8 tables are ROADMAP B3.
+
+bfloat16 levels are upcast to float32, pooled by the float32 program and
+rounded once to bfloat16: the TPU kernel's arithmetic (bf16 windows,
+float32 accumulation, one cast at the end, pallas_roi.py:300-304,
+335-339).  Both JAX programs also round the bilinear weights to bfloat16
+(the kernel for its single-pass MXU dot, the XLA path for all of them,
+roi_align.py:168-173); that rounding serves the MXU, so the weights here
+stay float32 and the result is closer to the exact one.
+
+The function is differentiable in the levels: its autograd is the plain
+backward (a scatter-add of the cotangent through the same weights, into a
+float32 table that is rounded once to the levels' dtype).
 """
 from __future__ import annotations
 
@@ -70,10 +82,13 @@ def multiscale_roi_align_batch(
     b, n = boxes.shape[:2]
     c = features[0].shape[-1]
     dev = boxes.device
+    out_dtype = features[0].dtype
     heights, widths, scales, offsets = (
         torch.as_tensor(a, device=dev) for a in level_geometry(
             [tuple(f.shape[1:3]) for f in features], image_size))
-    tables = torch.cat([f.reshape(b, -1, c) for f in features], dim=1)
+    # bfloat16 tables accumulate in float32; float64 ones stay float64
+    cdt = torch.promote_types(out_dtype, torch.float32)
+    tables = torch.cat([f.reshape(b, -1, c).to(cdt) for f in features], dim=1)
     hw = tables.shape[1]
     table = tables.reshape(b * hw, c)
     fb = boxes.reshape(-1, 4)
@@ -128,4 +143,4 @@ def multiscale_roi_align_batch(
     out = out.reshape(b, n, output_size, output_size, c)
     if boxes_valid is not None:
         out = out * boxes_valid.to(out.dtype)[:, :, None, None, None]
-    return out
+    return out.to(out_dtype)

@@ -1,22 +1,33 @@
-"""Optimizer, schedule and the distill step.
+"""Optimizer, schedule, the distill step and the detection step.
 
 Counterpart of hnd_ghnd_tpu/parallel/mesh.py: ``build_schedule`` and
 ``build_optimizer`` (the reference's train.optimizer/scheduler schema:
 Adam, SGD with momentum and weight decay, MultiStepLR, and the linear
-warmup of src/utils/main_util.py), ``images_to_compute`` (the uint8 pixel
-wire) and ``make_distill_train_step``.  One card runs the step: there is
-no mesh, no ``steps_per_dispatch`` and no buffer donation.
+warmup of src/utils/main_util.py), ``images_to_compute`` (the pixel cast to
+the compute dtype), ``make_distill_train_step`` and
+``make_detection_train_step`` (the single-device branch of mesh.py:322-396).
+One card runs the step: there is no mesh, no ``steps_per_dispatch`` and no
+buffer donation.
+
+The optimizer holds only the parameters that ``requires_grad``: frozen
+ones have no gradient and stay bit-identical, as in the reference.  The
+JAX package instead zeroes their gradients and its SGD chain still decays
+them by lr * weight_decay * p per step (ROADMAP C7).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from hnd_ghnd_tpu_torch.distill.box import DistillationBox
+from hnd_ghnd_tpu_torch.models.rcnn import RCNN
+from hnd_ghnd_tpu_torch.models.rpn import Draw
 
 WARMUP_FACTOR = 1.0 / 1000.0
+# the reference's warmup: min(MAX_WARMUP, steps_per_epoch - 1) steps
+MAX_WARMUP = 1000
 
 
 def build_schedule(base_lr: float, scheduler_cfg: Optional[dict],
@@ -72,25 +83,23 @@ def build_optimizer(params, optimizer_cfg: dict,
     raise ValueError(f"unsupported optimizer `{otype}`")
 
 
-def images_to_compute(images: torch.Tensor) -> torch.Tensor:
+def images_to_compute(images: torch.Tensor,
+                      compute_dtype: torch.dtype) -> torch.Tensor:
     """uint8 pixels (the loader's ``pixel_dtype: uint8`` wire) become
-    float * 1/255; float pixels are already in [0, 1]."""
+    ``compute_dtype`` * 1/255 (in that dtype, as mesh.py:168-176 does);
+    float pixels, already in [0, 1], are cast."""
     if images.dtype == torch.uint8:
-        return images.float() * torch.tensor(1.0 / 255.0, dtype=torch.float32)
-    return images.float()
+        return images.to(compute_dtype) * torch.tensor(1.0 / 255.0,
+                                                       dtype=compute_dtype)
+    return images.to(compute_dtype)
 
 
-class DistillStep:
-    """One HND/GHND step on the student's trainable parameters:
-    zero grads, loss, backward, lr = schedule(step), optimizer step.
+class _Step:
+    """Shared by the steps: lr = schedule(step) before each optimizer
+    update.  ``step`` counts the updates from 0, as optax's count does."""
 
-    ``__call__`` returns the loss and its terms as device tensors and never
-    waits for the device.  ``step`` counts the updates from 0, as optax's
-    count does."""
-
-    def __init__(self, box: DistillationBox, optimizer: torch.optim.Optimizer,
+    def __init__(self, optimizer: torch.optim.Optimizer,
                  schedule: Callable[[int], float]):
-        self.box = box
         self.optimizer = optimizer
         self.schedule = schedule
         self.step = 0
@@ -103,12 +112,52 @@ class DistillStep:
         self.optimizer.step()
         self.step += 1
 
+
+class DistillStep(_Step):
+    """One HND/GHND step on the student's trainable parameters:
+    zero grads, loss, backward, lr = schedule(step), optimizer step.
+
+    ``__call__`` returns the loss and its terms as device tensors and never
+    waits for the device."""
+
+    def __init__(self, box: DistillationBox, optimizer: torch.optim.Optimizer,
+                 schedule: Callable[[int], float]):
+        super().__init__(optimizer, schedule)
+        self.box = box
+
     def __call__(self, images: torch.Tensor):
         self.optimizer.zero_grad(set_to_none=True)
-        loss, terms = self.box.loss(images_to_compute(images))
+        loss, terms = self.box.loss(images_to_compute(images, torch.float32))
         loss.backward()
         self.apply_update()
         return loss.detach(), {k: v.detach() for k, v in terms.items()}
+
+
+class DetectionStep(_Step):
+    """One supervised detector step (the coco_runner path): zero grads, the
+    model's four-term loss dict in ``compute_dtype``, their sum, backward,
+    lr = schedule(step), optimizer step.  ``draw`` gives the samplers'
+    uniform draws.  Returns the loss and its terms as device tensors,
+    without waiting for the device."""
+
+    def __init__(self, model: RCNN, optimizer: torch.optim.Optimizer,
+                 schedule: Callable[[int], float], compute_dtype: torch.dtype,
+                 draw: Draw):
+        super().__init__(optimizer, schedule)
+        self.model = model
+        self.compute_dtype = compute_dtype
+        self.draw = draw
+
+    def __call__(self, batch: Dict[str, torch.Tensor],
+                 targets: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        self.optimizer.zero_grad(set_to_none=True)
+        images = images_to_compute(batch["images"], self.compute_dtype)
+        losses = self.model(dict(batch, images=images), targets, self.draw)
+        loss = sum(losses.values())
+        loss.backward()
+        self.apply_update()
+        return loss.detach(), {k: v.detach() for k, v in losses.items()}
 
 
 def make_distill_train_step(box: DistillationBox, optimizer_cfg: dict,
@@ -122,3 +171,29 @@ def make_distill_train_step(box: DistillationBox, optimizer_cfg: dict,
                                           scheduler_cfg, steps_per_epoch,
                                           warmup_iters)
     return DistillStep(box, optimizer, schedule)
+
+
+def uniform_draw(generator: torch.Generator) -> Draw:
+    """The samplers' uniform draws from ``generator``, on its device."""
+    return lambda shape: torch.rand(shape, generator=generator,
+                                    device=generator.device)
+
+
+def make_detection_train_step(model: RCNN, optimizer_cfg: dict,
+                              scheduler_cfg: Optional[dict] = None,
+                              steps_per_epoch: int = 1,
+                              warmup_iters: int = 0,
+                              compute_dtype: torch.dtype = torch.bfloat16,
+                              draw: Optional[Draw] = None,
+                              seed: int = 0) -> DetectionStep:
+    """The step over the model's parameters that ``requires_grad``; the
+    samplers draw from a ``torch.Generator`` seeded with ``seed`` on the
+    model's device unless ``draw`` is given."""
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    optimizer, schedule = build_optimizer(trainable, optimizer_cfg,
+                                          scheduler_cfg, steps_per_epoch,
+                                          warmup_iters)
+    if draw is None:
+        device = next(model.parameters()).device
+        draw = uniform_draw(torch.Generator(device=device).manual_seed(seed))
+    return DetectionStep(model, optimizer, schedule, compute_dtype, draw)

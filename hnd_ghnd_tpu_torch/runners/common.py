@@ -6,9 +6,11 @@ as parallel/mesh.py:images_to_compute does), and ``evaluate`` is the lag-1
 device loop of its ``evaluate``: batch k's detections are copied to pinned
 host memory behind a CUDA event while batch k+1 is dispatched, and only then
 turned into numpy.  The CocoEvaluator step of that loop waits for ROADMAP
-A6 (the host data and eval modules still import jax).  ``StepMetrics``
-is its counterpart for the distill loop: each step's loss and terms go to
-pinned host memory behind a CUDA event and are read one step later.
+A6 (the host data and eval modules still import jax).  The forward runs
+in float32 whatever the config's compute dtype, as JAX's eval forward does
+(runners/common.py:180-184).  ``StepMetrics`` is its counterpart for the
+training loops: each step's loss and terms go to pinned host memory behind
+a CUDA event and are read one step later.
 """
 from __future__ import annotations
 
@@ -22,42 +24,57 @@ from hnd_ghnd_tpu_torch.models.rcnn import RCNN
 from hnd_ghnd_tpu_torch.parallel.train_step import images_to_compute
 
 
-def configure_precision(compute_dtype: str) -> None:
-    """Honour the config's ``tpu.compute_dtype``.  float32 means full f32:
-    cuDNN convolutions default to TF32, which computes another function."""
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {compute_dtype}: only float32 serving is ported")
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def compute_dtype_from_config(config: Dict[str, Any]) -> torch.dtype:
+    """``tpu.compute_dtype``: bfloat16 (the JAX package's default) or
+    float32."""
+    name = (config.get("tpu", {}) or {}).get("compute_dtype", "bfloat16")
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"tpu.compute_dtype `{name}` is not one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+def configure_precision(compute_dtype: torch.dtype) -> None:
+    """Honour the compute dtype.  TF32 stays off: it would compute the
+    float32 parts (bfloat16 training's float32 losses and the float32
+    eval) as another function."""
+    if compute_dtype not in COMPUTE_DTYPES.values():
+        raise NotImplementedError(f"compute dtype {compute_dtype}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def eval_forward(model: RCNN, batch: Dict[str, torch.Tensor],
                  use_bottleneck_transformer: bool) -> Dict[str, torch.Tensor]:
-    batch = dict(batch, images=images_to_compute(batch["images"]))
+    batch = dict(batch, images=images_to_compute(batch["images"],
+                                                 torch.float32))
     return model(batch, use_bottleneck_transformer=use_bottleneck_transformer)
 
 
-def _to_device(batch: Dict[str, Any], device: torch.device):
+def to_device(batch: Dict[str, Any], device: torch.device):
+    """A dict of arrays as tensors on ``device``; host arrays go to the
+    card through pinned memory, without blocking the host."""
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(v)
-        if device.type == "cuda":
+        if device.type == "cuda" and t.device.type == "cpu":
             t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t
+        out[k] = t.to(device)
     return out
 
 
 def evaluate(model: RCNN, batches: Iterable[Dict[str, Any]],
-             use_bottleneck_transformer: bool = False,
-             compute_dtype: str = "float32") -> List[Dict[str, Any]]:
+             use_bottleneck_transformer: bool = False) -> List[Dict[str, Any]]:
     """Serve ``batches`` (dicts of arrays: images [B, H, W, 3] uint8 or
     float in [0, 1], image_sizes, original_sizes) on the model's device.
 
     Returns one record per batch: ``dets`` (numpy arrays) and ``ms``, the
     time from the batch's dispatch to its detections on the host (CUDA
     events on the card, the host clock on the CPU)."""
-    configure_precision(compute_dtype)
+    configure_precision(torch.float32)
     device = next(model.parameters()).device
     cuda = device.type == "cuda"
     records: List[Dict[str, Any]] = []
@@ -80,7 +97,7 @@ def evaluate(model: RCNN, batches: Iterable[Dict[str, Any]],
             start = torch.cuda.Event(enable_timing=True)
             done = torch.cuda.Event(enable_timing=True)
             start.record()
-        dets = eval_forward(model, _to_device(batch, device),
+        dets = eval_forward(model, to_device(batch, device),
                             use_bottleneck_transformer)
         if cuda:
             host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)

@@ -20,18 +20,12 @@ import torch
 
 from hnd_ghnd_tpu_torch.distill.box import DistillationBox
 from hnd_ghnd_tpu_torch.models.rcnn import RCNN
-from hnd_ghnd_tpu_torch.parallel.train_step import make_distill_train_step
+from hnd_ghnd_tpu_torch.parallel.train_step import (MAX_WARMUP,
+                                                    make_distill_train_step)
 from hnd_ghnd_tpu_torch.runners.common import (StepMetrics,
-                                               configure_precision, evaluate)
-
-MAX_WARMUP = 1000
-
-
-def _images_on(batch: Dict[str, Any], device: torch.device) -> torch.Tensor:
-    images = torch.as_tensor(batch["images"])
-    if device.type == "cuda" and images.device.type == "cpu":
-        images = images.pin_memory().to(device, non_blocking=True)
-    return images.to(device)
+                                               compute_dtype_from_config,
+                                               configure_precision, evaluate,
+                                               to_device)
 
 
 def distill(teacher: RCNN, student: RCNN, config: Dict[str, Any],
@@ -49,8 +43,11 @@ def distill(teacher: RCNN, student: RCNN, config: Dict[str, Any],
     records of ``evaluate`` for each epoch]}; ms is the step's time between
     CUDA events (None on the CPU)."""
     train_cfg = config["train"]
-    compute_dtype = (config.get("tpu", {}) or {}).get("compute_dtype",
-                                                      "float32")
+    compute_dtype = compute_dtype_from_config(config)
+    if compute_dtype != torch.float32:
+        raise NotImplementedError(
+            f"distillation in {compute_dtype} is not ported (ROADMAP A4): "
+            "set tpu.compute_dtype: float32")
     configure_precision(compute_dtype)
     device = next(student.parameters()).device
     if next(teacher.parameters()).device != device:
@@ -68,7 +65,7 @@ def distill(teacher: RCNN, student: RCNN, config: Dict[str, Any],
         student.train()
         metrics = StepMetrics()
         for batch in train_batches:
-            images = _images_on(batch, device)
+            images = to_device({"images": batch["images"]}, device)["images"]
             start = None
             if cuda:
                 start = torch.cuda.Event(enable_timing=True)
@@ -77,7 +74,6 @@ def distill(teacher: RCNN, student: RCNN, config: Dict[str, Any],
             history["steps"] += metrics.push(step.step - 1, loss, terms, start)
         history["steps"] += metrics.drain()
         history["evals"].append(evaluate(
-            student.eval(), val_batches, use_bottleneck_transformer=True,
-            compute_dtype=compute_dtype))
+            student.eval(), val_batches, use_bottleneck_transformer=True))
         student.train()
     return history

@@ -70,13 +70,70 @@ def test_roi_align_kernel_vs_plain(cuda, c, pool):
     assert err <= ROI_TOL * float(want.abs().max())
 
 
+def _bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
+def _train_inputs(cuda, dtype, c, seed):
+    rng = np.random.RandomState(seed)
+    b, n, h, w = 2, 120, 256, 512
+    feats = [torch.from_numpy(rng.randn(b, h // s, w // s, c)
+                              .astype(np.float32)).to(cuda, dtype)
+             for s in (4, 8, 16, 32)]
+    boxes = torch.from_numpy(_boxes(rng, b, n, h, w)).to(cuda)
+    valid = torch.from_numpy(rng.rand(b, n) > 0.2).to(cuda)
+    cot = torch.from_numpy(rng.randn(b, n, 7, 7, c).astype(np.float32)
+                           ).to(cuda, dtype)
+    return feats, boxes, valid, cot, (h, w)
+
+
+@pytest.mark.parametrize("c,pool", [(256, 7), (40, 7), (256, 14)])
+def test_roi_align_bf16_kernel_vs_plain(cuda, c, pool):
+    feats, boxes, valid, _, size = _train_inputs(cuda, torch.bfloat16, c, 15)
+    launches = RK.roi_align.launches_bf16
+    got = RK.roi_align(feats, boxes, size, pool, 2, valid)
+    assert RK.roi_align.launches_bf16 == launches + 1
+    want = tra.multiscale_roi_align_batch(feats, boxes, size, pool, 2, valid)
+    assert got.dtype == want.dtype == torch.bfloat16
+    # the plain float32 program rounded once, as the kernel rounds
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_roi_align_backward_kernel_vs_plain_autograd(cuda, dtype):
+    feats, boxes, valid, cot, size = _train_inputs(cuda, dtype, 256, 16)
+    ref = [f.clone().requires_grad_(True) for f in feats]
+    want = torch.autograd.grad(tra.multiscale_roi_align_batch(
+        ref, boxes, size, 7, 2, valid), ref, cot)
+    got_in = [f.clone().requires_grad_(True) for f in feats]
+    counts = (RK.roi_align.launches, RK.roi_align.launches_bf16,
+              RK.roi_align_backward.launches)
+    out = RK.roi_align_train(got_in, boxes, size, 7, 2, valid)
+    got = torch.autograd.grad(out, got_in, cot)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    assert (RK.roi_align.launches, RK.roi_align.launches_bf16,
+            RK.roi_align_backward.launches) == (counts[0] + f32,
+                                                counts[1] + (not f32),
+                                                counts[2] + 1)
+    top = max(float(g.float().abs().max()) for g in want)
+    # atomics add in another order: f32 within 1e-5 of the largest
+    # gradient, bf16 within one bf16 ulp of it
+    tol = ROI_TOL * top if f32 else _bf16_ulp(top)
+    for g, r in zip(got, want):
+        assert g.dtype == dtype
+        assert float((g.float() - r.float()).abs().max()) <= tol
+
+
 def test_roi_align_kernel_rejects_what_it_does_not_take(cuda):
     boxes = torch.zeros(1, 2, 4, device=cuda)
     sizes = (8, 4, 2, 1)
-    bf16 = [torch.zeros(1, s, s, 16, device=cuda, dtype=torch.bfloat16)
-            for s in sizes]
+    f16 = [torch.zeros(1, s, s, 16, device=cuda, dtype=torch.float16)
+           for s in sizes]
     with pytest.raises(TypeError):
-        RK.roi_align(bf16, boxes, (32, 32), 7)
+        RK.roi_align(f16, boxes, (32, 32), 7)
     strided = [torch.zeros(1, 16, s, s, device=cuda).permute(0, 2, 3, 1)
                for s in sizes]
     with pytest.raises(ValueError):

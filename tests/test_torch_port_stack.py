@@ -150,7 +150,7 @@ def test_rpn_head_and_proposals(setup, jax_fpn, jax_rpn):
     for lv, (op, oj, dp, dj) in enumerate(zip(obj_p, obj_j, delta_p, delta_j)):
         _close(op.numpy(), np.asarray(oj).reshape(2, -1), f"objectness P{lv + 2}")
         _close(dp.numpy(), np.asarray(dj).reshape(2, -1, 4), f"deltas P{lv + 2}")
-    props_p, valid_p = pm.rpn.propose(feats, torch.from_numpy(SIZES), SHAPE)
+    props_p, valid_p, _ = pm.rpn.propose(feats, torch.from_numpy(SIZES), SHAPE)
     np.testing.assert_array_equal(valid_p.numpy(), np.asarray(valid_j))
     props_p, props_j = props_p.numpy(), np.asarray(props_j)
     bound = TOL * np.abs(props_j).max()

@@ -1,11 +1,12 @@
 """Weights and configuration of the port against the JAX package.
 
 ``state_dict_from_jax`` is the inverse of the JAX package's
-``convert_state_dict``: a JAX-initialised b3ch student and ResNet-50
-teacher cross to the port and back bit for bit, with their init's identity
-BNs and with the live BNs of ``live_models``.  The config literals of
-chip_smoke.py are the parsed YAML, every schema feature the port does not
-run raises, and ``get_model`` builds on the CPU only when asked.
+``convert_state_dict``: a JAX-initialised b3ch student, ResNet-50 teacher
+and org Faster R-CNN cross to the port and back bit for bit, with their
+init's identity BNs and with the live BNs of ``live_models``.  The config
+literals of chip_smoke.py are the parsed YAML, every schema feature the
+port does not run raises, ``freeze_layers`` freezes the trunk's conv1, bn1
+and layer1, and ``get_model`` builds on the CPU only when asked.
 
 ``live_models`` is the pair of models the other port tests compare."""
 import copy
@@ -16,14 +17,17 @@ import pytest
 import torch
 import yaml
 
-from chip_smoke import STUDENT_MODEL, TEACHER_MODEL, TRAIN, live_norms_
+from chip_smoke import (ORG_MODEL, ORG_TPU, ORG_TRAIN, STUDENT_MODEL,
+                        TEACHER_MODEL, TRAIN, live_norms_)
 from hnd_ghnd_tpu.models.convert import convert_state_dict, torch_path_to_ours
 from hnd_ghnd_tpu.models.factory import build_model as jax_build_model
 from hnd_ghnd_tpu.models.factory import init_model as jax_init_model
 from hnd_ghnd_tpu_torch.models.convert import state_dict_from_jax
-from hnd_ghnd_tpu_torch.models.factory import build_model, get_model
+from hnd_ghnd_tpu_torch.models.factory import (FREEZE_LAYERS, build_model,
+                                               get_model)
 
 CONFIG = "config/ghnd/faster_rcnn-backbone_resnet50-b3ch.yaml"
+ORG_CONFIG = "config/org/faster_rcnn-backbone_resnet50.yaml"
 
 
 def live_models(seed: int = 0):
@@ -82,6 +86,52 @@ def test_config_literal_is_the_yaml():
     assert cfg["teacher_model"] == TEACHER_MODEL
     assert cfg["train"] == TRAIN
     assert cfg["tpu"]["compute_dtype"] == "float32"
+
+
+def test_org_config_literal_is_the_yaml():
+    with open(ORG_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    assert cfg["model"] == ORG_MODEL
+    assert cfg["train"] == ORG_TRAIN
+    assert cfg["tpu"] == ORG_TPU
+    assert cfg["tpu"]["compute_dtype"] == "bfloat16"
+
+
+def test_org_weights_round_trip_both_ways():
+    """JAX -> port -> JAX, and the port's live BNs -> JAX -> port, for the
+    whole org model, RPN and RoI heads included."""
+    params, state = jax_init_model(jax_build_model(ORG_MODEL), 0)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    state = jax.tree_util.tree_map(np.asarray, state)
+    model = build_model(ORG_MODEL)
+    model.load_state_dict(state_dict_from_jax(params, state), strict=True)
+    back_params, _ = convert_state_dict(model.state_dict())
+    _assert_trees_equal(params, back_params)
+    assert "roi_heads" in back_params and "rpn" in back_params
+    sd = live_norms_(model, 0).state_dict()
+    again = build_model(ORG_MODEL)
+    again.load_state_dict(state_dict_from_jax(*convert_state_dict(sd)),
+                          strict=True)
+    for k, v in again.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            continue  # folded into weight and bias by the JAX converter
+        want = sd[k]
+        if k.endswith(".weight") and k[:-len("weight")] + "running_var" in sd:
+            prefix = k[:-len("weight")]
+            want = (sd[k] * torch.rsqrt(sd[prefix + "running_var"]))
+        elif k.endswith(".bias") and k[:-len("bias")] + "running_var" in sd:
+            prefix = k[:-len("bias")]
+            scale = sd[prefix + "weight"] * torch.rsqrt(sd[prefix + "running_var"])
+            want = sd[k] - sd[prefix + "running_mean"] * scale
+        torch.testing.assert_close(v, want, rtol=0, atol=1e-6, msg=k)
+
+
+def test_freeze_layers_freezes_conv1_bn1_layer1():
+    model = build_model(ORG_MODEL)
+    assert ORG_MODEL["backbone"]["params"]["freeze_layers"]
+    for name, p in model.named_parameters():
+        frozen = any(name.startswith(f + ".") for f in FREEZE_LAYERS)
+        assert p.requires_grad != frozen, name
 
 
 def test_jax_weights_round_trip_exactly(jax_weights):
@@ -161,11 +211,3 @@ def test_unported_features_raise(cfg):
     with pytest.raises(NotImplementedError):
         build_model(cfg)
 
-
-def test_training_raises():
-    model = build_model(STUDENT_MODEL).train()
-    batch = {"images": torch.zeros(1, 64, 64, 3),
-             "image_sizes": torch.tensor([[64, 64]]),
-             "original_sizes": torch.tensor([[64, 64]])}
-    with pytest.raises(NotImplementedError):
-        model(batch)
