@@ -9,6 +9,10 @@ paths, at full width with random weights and BN statistics from a seed:
   * serving: seeded batches through the GHND b3ch Faster R-CNN student
     (batch 8 at 832x1344 and 1344x832, batch 1 at 832x1344), compared with
     the CPU on the batch-1 input;
+  * the heads: the same batches through the GHND b3ch Mask R-CNN and
+    Keypoint R-CNN students, with int8_roi_pool off and then on (the level
+    quantizer and the int8 RoIAlign), their heads compared with the CPU's
+    on the CPU's FPN maps and detections;
   * distillation: ``mimic_runner.distill`` of the student from the ResNet-50
     teacher, batch 4 on both buckets, with the fused stem switched on
     (HND_TPU_PALLAS_STEM=1), then its per-epoch eval on a batch-8 serving
@@ -72,6 +76,22 @@ STUDENT_MODEL = {
     "ckpt": "./resource/ckpt/ghnd/coco2017-faster_rcnn-backbone_custom_"
             "resnet50_from_faster_rcnn-backbone_resnet50-b3ch.pt",
 }
+# student_model of config/ghnd/mask_rcnn-backbone_resnet50-b3ch.yaml and of
+# config/ghnd/keypoint_rcnn-backbone_resnet50-b3ch.yaml: the same trunk,
+# bottleneck and frozen modules as STUDENT_MODEL, another head
+MASK_STUDENT_MODEL = dict(
+    STUDENT_MODEL, name="mask_rcnn",
+    experiment="coco2017-mask_rcnn-backbone_custom_resnet50_from_mask_rcnn-"
+               "backbone_resnet50-b3ch",
+    ckpt="./resource/ckpt/ghnd/coco2017-mask_rcnn-backbone_custom_resnet50_"
+         "from_mask_rcnn-backbone_resnet50-b3ch.pt")
+KEYPOINT_STUDENT_MODEL = dict(
+    STUDENT_MODEL, name="keypoint_rcnn",
+    params={"num_classes": 2, "pretrained": True, "num_keypoints": 17},
+    experiment="coco2017-keypoint_rcnn-backbone_custom_resnet50_from_"
+               "keypoint_rcnn-backbone_resnet50-b3ch",
+    ckpt="./resource/ckpt/ghnd/coco2017-keypoint_rcnn-backbone_custom_"
+         "resnet50_from_keypoint_rcnn-backbone_resnet50-b3ch.pt")
 TEACHER_MODEL = {
     "name": "faster_rcnn",
     "backbone": {"name": "resnet50",
@@ -694,6 +714,228 @@ def roi_train_kernels_phase(dev: torch.device, kernels: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def int8_kernels_phase(dev: torch.device, kernels: dict) -> None:
+    """The level quantizer and the int8 RoIAlign against their plain
+    versions at the eval's shapes: P2-P5 of a batch-8 832x1344 bucket
+    (C=256, NCHW maps as the FPN gives them), 8x1000 RoIs at 7x7 (the box
+    head) and 8x100 at 14x14 (the mask and keypoint heads); the int8 pool
+    against the f32 pool of the same float levels; the f32 kernel at
+    14x14; and what the int8 box pool with its quantize costs against the
+    f32 box pool with its NHWC copy."""
+    from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
+    from hnd_ghnd_tpu_torch.ops.roi_align import (assign_levels,
+                                                  multiscale_roi_align_batch,
+                                                  quantize_fpn_levels)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    h, w = BUCKETS[0]
+    size = (h, w)
+    # levels of different ranges; the last image's lower half is padding
+    nchw = []
+    for i, s in enumerate((4, 8, 16, 32)):
+        f = torch.randn((EVAL_BATCH, 256, h // s, w // s), generator=gen,
+                        device=dev) * (1.0 + i)
+        f[-1, :, h // s // 2:] = 0.0
+        nchw.append(f)
+    views = [f.permute(0, 2, 3, 1) for f in nchw]
+    nhwc = [v.contiguous() for v in views]
+    codes, scales = RK.quantize_levels(views)
+    plain_q, plain_s = quantize_fpn_levels(views)
+    cpu_q, cpu_s = quantize_fpn_levels([v.cpu() for v in nhwc])
+    again_q, again_s = RK.quantize_levels(nhwc)
+    for what, (q, s) in (("plain on the card", (plain_q, plain_s)),
+                         ("the CPU", (cpu_q, cpu_s)),
+                         ("the NHWC route", (again_q, again_s))):
+        check(torch.equal(scales.cpu(), s.cpu())
+              and all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(codes, q)),
+              f"quantize_levels codes or scales differ from {what}")
+    log(f"[kernels] quantize_levels P2-P5 of {tuple(views[0].shape)}: codes "
+        f"and scales bit-exact vs plain (card and CPU), from NCHW and NHWC; "
+        f"scales {[float(v) for v in scales]}")
+    del cpu_q, again_q, plain_q
+    tables = (codes, scales)
+    rng = np.random.RandomState(SEED + 9)
+    for n, pool in ((1000, 7), (100, 14)):
+        boxes = torch.from_numpy(box_mix(rng, EVAL_BATCH, n, h, w)).to(dev)
+        valid = torch.from_numpy(rng.rand(EVAL_BATCH, n) > 0.3).to(dev)
+        got = RK.roi_align(views, boxes, size, pool, 2, valid, quant=tables)
+        want = multiscale_roi_align_batch(views, boxes, size, pool, 2, valid,
+                                          quant=tables)
+        err = float((got - want).abs().max())
+        log(f"[kernels] roi_align_int8 {tuple(got.shape)}: max abs err {err} "
+            f"(bit-identical: {torch.equal(got, want)})")
+        # the plain float32 program, the same operations in the same order
+        check(torch.equal(got, want), f"roi_align_int8 at {pool}x{pool} is "
+              "not bit-identical to its plain version")
+        # each bin is a mean (weights summing to at most 1) of values within
+        # half a step of their floats: half its level's step, plus rounding
+        f32 = RK.roi_align(nhwc, boxes, size, pool, 2, valid)
+        step = scales[assign_levels(boxes.reshape(-1, 4)).long()]
+        gap = (got - f32).abs().reshape(EVAL_BATCH * n, -1).max(1).values
+        limit = 0.5 * step + ROI_TOL * float(f32.abs().max())
+        check(bool((gap <= limit).all()), "the int8 pool is farther than "
+              "half a quantization step from the f32 pool")
+        log(f"[kernels] int8 vs f32 pool {pool}x{pool}: largest gap "
+            f"{float(gap.max()):.4e}, {float((gap / limit).max()):.3f} of "
+            f"its half step + rounding")
+        if pool == 14:
+            plain = multiscale_roi_align_batch(nhwc, boxes, size, 14, 2, valid)
+            e14 = float((f32 - plain).abs().max())
+            log(f"[kernels] roi_align f32 {tuple(f32.shape)}: max abs err "
+                f"{e14} (max |plain| {float(plain.abs().max())}, bound "
+                f"{ROI_TOL} x max)")
+            check(e14 <= ROI_TOL * float(plain.abs().max()),
+                  f"roi_align f32 at 14x14: {e14}")
+            ms14 = time_ms(lambda: RK.roi_align(views, boxes, size, 14, 2,
+                                                valid, quant=tables))
+            f32_14 = time_ms(lambda: RK.roi_align(nhwc, boxes, size, 14, 2,
+                                                  valid))
+            log(f"[kernels] 8x100 RoIs at 14x14: int8 {ms14:.4f} ms, f32 "
+                f"{f32_14:.4f} ms (median of {REPS})")
+            continue
+        n_valid = int(valid.sum())
+        kernels["roi_align_int8"] = dict(
+            source="hnd_ghnd_tpu_torch/csrc/roi_align.cu",
+            replaces="hnd_ghnd_tpu/ops/pallas_roi.py:231", max_abs_err=err,
+            ms=time_ms(lambda: RK.roi_align(views, boxes, size, 7, 2, valid,
+                                            quant=tables)),
+            plain_ms=time_ms(lambda: multiscale_roi_align_batch(
+                views, boxes, size, 7, 2, valid, quant=tables)),
+            library_ms=None,
+            **bound(nbytes(*codes, scales, boxes, valid, got),
+                    33.0 * n_valid * 49 * 256))
+        # the box pool from the FPN's NCHW maps, both ways
+        f32_way = time_ms(lambda: RK.roi_align(
+            [v.contiguous() for v in views], boxes, size, 7, 2, valid))
+        int8_way = time_ms(lambda: RK.roi_align(
+            views, boxes, size, 7, 2, valid, quant=RK.quantize_levels(views)))
+        log(f"[kernels] box pool 8x1000 7x7 from NCHW P2-P5: f32 (NHWC copy "
+            f"+ pool) {f32_way:.4f} ms, int8 (quantize + pool) {int8_way:.4f} "
+            f"ms (median of {REPS})")
+    # abs, max, divide, round and two clamps per element
+    n_el = sum(f.numel() for f in views)
+    kernels["quantize_levels"] = dict(
+        source="hnd_ghnd_tpu_torch/csrc/fpn_quant.cu",
+        replaces="hnd_ghnd_tpu/ops/roi_align.py:201", max_abs_err=0.0,
+        ms=time_ms(lambda: RK.quantize_levels(views)),
+        plain_ms=time_ms(lambda: quantize_fpn_levels(views)), library_ms=None,
+        **bound(nbytes(*views, *codes, scales), 6.0 * n_el))
+    del nchw, views, nhwc, codes, tables, got, want, f32
+    torch.cuda.empty_cache()
+
+
+def heads_phase(dev: torch.device, serving, fpn_cpu, props, pvalid,
+                one: dict, served: list) -> dict:
+    """The GHND b3ch Mask and Keypoint R-CNN students (the serving model's
+    trunk, FPN and RPN, their own seeded heads, live BNs, class logits x300)
+    serve ``served`` through ``runners.common.evaluate`` with int8_roi_pool
+    off, then on; then card against CPU at batch 1 with the switch on, on
+    the CPU's FPN maps and proposals (``fpn_cpu``, ``props``, ``pvalid`` of
+    ``one``) and the CPU's detections.  Returns the kernels' launches in
+    the switched-on runs."""
+    from hnd_ghnd_tpu_torch.models.factory import build_model, get_model
+    from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
+    from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
+    from hnd_ghnd_tpu_torch.runners.common import evaluate
+    shared = {k: v for k, v in serving.state_dict().items()
+              if k.startswith(("backbone.", "rpn."))}
+    n = len(served)
+    total = {"roi_align_int8": 0, "quantize_levels": 0}
+    for cfg, head in ((MASK_STUDENT_MODEL, "mask_probs"),
+                      (KEYPOINT_STUDENT_MODEL, "keypoint_logits")):
+        kind = cfg["name"]
+        off = live_norms_(get_model(cfg, seed=SEED, device=dev), SEED)
+        off.load_state_dict(shared, strict=False)
+        off.roi_heads.box_predictor.cls_score.weight.data.mul_(300.0)
+        on_cfg = dict(cfg, params=dict(cfg["params"], int8_roi_pool=True))
+        on = build_model(on_cfg)
+        on.load_state_dict(off.state_dict())
+        models = {"off": off.requires_grad_(False),
+                  "on": on.to(dev).requires_grad_(False)}
+        dets = {}
+        for tag, model in models.items():
+            QK.quantize.launches = QK.dequantize.launches = 0
+            RK.roi_align.launches = RK.roi_align.launches_int8 = 0
+            RK.quantize_levels.launches = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            records = evaluate(model, served, use_bottleneck_transformer=True)
+            wall = time.perf_counter() - t0
+            got = {"quantize": QK.quantize.launches,
+                   "dequantize": QK.dequantize.launches,
+                   "roi_align": RK.roi_align.launches,
+                   "roi_align_int8": RK.roi_align.launches_int8,
+                   "quantize_levels": RK.quantize_levels.launches}
+            want = ({"quantize": n, "dequantize": n, "roi_align": 2 * n,
+                     "roi_align_int8": 0, "quantize_levels": 0}
+                    if tag == "off" else
+                    {"quantize": n, "dequantize": n, "roi_align": 0,
+                     "roi_align_int8": 2 * n, "quantize_levels": n})
+            log(f"[heads] {kind} int8 {tag}: {n} batches in {wall:.3f} s; "
+                f"launches {got}; peak memory "
+                f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+            check(got == want, f"{kind} int8 {tag}: launches {got}, want "
+                  f"{want}")
+            if tag == "on":
+                for k in total:
+                    total[k] += got[k]
+            for i, (batch, rec) in enumerate(zip(served, records)):
+                b = batch["images"].shape[0]
+                out = rec["dets"][head]
+                shape = ((b, 100, 28, 28) if head == "mask_probs"
+                         else (b, 100, 56, 56, 17))
+                check(out.shape == shape, f"{kind} {head} shape {out.shape}")
+                check(bool(np.isfinite(out).all()), f"{kind} non-finite {head}")
+                if head == "mask_probs":
+                    check(bool(((out >= 0) & (out <= 1)).all()),
+                          "mask_probs outside [0, 1]")
+                check(bool(np.isfinite(rec["dets"]["boxes"]).all()),
+                      "non-finite boxes")
+                log(f"[heads] {kind} int8 {tag} batch {i} "
+                    f"{tuple(batch['images'].shape)}: {rec['ms']:.2f} ms, "
+                    f"{int(rec['dets']['valid'].sum())} detections")
+            dets[tag] = [r["dets"] for r in records[-3:]]
+        # how many of the f32 tables' detections the int8 tables keep
+        kept = total_f32 = 0
+        for a, b in zip(dets["off"], dets["on"]):
+            for i in range(a["valid"].shape[0]):
+                for j in np.flatnonzero(a["valid"][i]):
+                    total_f32 += 1
+                    kept += bool((b["valid"][i]
+                                  & (b["labels"][i] == a["labels"][i, j])
+                                  & (np.abs(b["boxes"][i] - a["boxes"][i, j])
+                                     .max(1) < 0.5)).any())
+        log(f"[heads] {kind}: the int8 forward shares {kept} of the f32 "
+            f"forward's {total_f32} detections (label, box within 0.5 px)")
+        # card vs CPU, switch on: the CPU's maps, proposals and detections
+        cpu = build_model(on_cfg).requires_grad_(False)
+        cpu.load_state_dict({k: v.cpu() for k, v in off.state_dict().items()})
+        shape_ = BUCKETS[0]
+        sizes = torch.from_numpy(one["image_sizes"])
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            det_c = cpu.roi_heads.infer(fpn_cpu, props, pvalid, sizes, shape_)
+        cpu_s = time.perf_counter() - t0
+        on_gpu = [f.to(dev) for f in fpn_cpu]
+        with torch.no_grad():
+            tables = on.roi_heads.pool_tables(on_gpu, True)
+            cpu_tables = cpu.roi_heads.pool_tables(fpn_cpu, True)
+            check(torch.equal(tables[1][1].cpu(), cpu_tables[1][1])
+                  and all(torch.equal(a.cpu(), b) for a, b in
+                          zip(tables[1][0], cpu_tables[1][0])),
+                  "the card's int8 tables differ from the CPU's")
+            out_g = on.roi_heads.head_outputs(
+                tables, det_c["boxes"].to(dev), det_c["valid"].to(dev),
+                det_c["labels"].to(dev), shape_)
+        e = rel_err(out_g[head], det_c[head])
+        log(f"[heads] {kind} card vs CPU (int8 tables, the CPU's "
+            f"{int(det_c['valid'].sum())} detections): {head} rel err "
+            f"{e:.2e} (CPU heads forward {cpu_s:.2f} s)")
+        check(e <= STAGE_TOL, f"{kind} {head} card vs CPU: {e}")
+        del off, on, models, cpu, on_gpu, tables, out_g
+        torch.cuda.empty_cache()
+    return total
+
+
 def org_targets(rng: np.random.RandomState, sizes: np.ndarray):
     """1-8 GT boxes per image inside its valid size, labels 1-90, padded to
     MAX_GT with ``boxes_valid``, like the JAX loader's targets."""
@@ -993,6 +1235,7 @@ def main() -> int:
     del levels, nchw, cl, got, want, z, q
     stem_kernels_phase(dev, kernels)
     roi_train_kernels_phase(dev, kernels)
+    int8_kernels_phase(dev, kernels)
     for name, k in kernels.items():
         lib = "" if k["library_ms"] is None else \
             f", {k['library_ms']:.4f} ms library"
@@ -1096,7 +1339,13 @@ def main() -> int:
         f"found on the card (label and box within 0.5 px); card has "
         f"{int(det_g['valid'][0].sum())}")
 
-    del model, cpu_model, fpn, on_gpu, heads, body, x, z
+    del cpu_model, on_gpu, heads, body, x, z
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 5b. heads
+    launches.update(heads_phase(dev, model, fpn["cpu"], props, pvalid, one,
+                                served))
+    del model, fpn
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 6. distill

@@ -35,11 +35,12 @@ _SIGNATURES = {
     "hnd_quantize_partials_size": [_I64],
     "hnd_quantize_u8": [_P, _P, _P, _P, _I64, _I, _P],
     "hnd_dequantize_u8": [_P, _P, _P, _P, _I64, _P],
-    "hnd_roi_align_fwd": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
-                          _I, _P],
+    "hnd_roi_align_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                          _I, _I, _P],
     "hnd_roi_align_bwd": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                           _I, _P],
     "hnd_f32_to_bf16": [_P, _P, _I64, _P],
+    "hnd_quantize_levels": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "hnd_stem_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hnd_stem_dw_partials_size": [_I, _I, _I],
     "hnd_stem_dw": [_P, _P, _P, _P, _I, _I, _I, _P],

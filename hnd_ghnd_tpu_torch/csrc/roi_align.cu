@@ -1,9 +1,10 @@
 // Multi-level RoIAlign (torchvision 0.4.2 semantics) for sm_90a: the forward
-// on float32 or bfloat16 levels, and its backward with respect to the levels.
+// on float32, bfloat16 or int8 levels, and its backward with respect to the
+// levels.
 //
 // Forward: replaces hnd_ghnd_tpu/ops/pallas_roi.py:
-// pallas_multiscale_roi_align_batch (_roi_kernel with its _prep), f32 and
-// bf16 tables.  The TPU kernel's window-DMA classes, 8-row snapping and MXU
+// pallas_multiscale_roi_align_batch (_roi_kernel with its _prep), f32, bf16
+// and int8 tables (table_scale, pallas_roi.py:208-209, 373-377).  The TPU kernel's window-DMA classes, 8-row snapping and MXU
 // y-contraction exist because of Mosaic's limits and are not carried over.
 // Backward: replaces the backward of pallas_roi.py:_make_vjp_pool, which is
 // jax.linear_transpose of the XLA gather program (a scatter-add), not a
@@ -14,7 +15,8 @@
 // of 1 KB: 8000 * 196 * 4 * 1 KB = 6.4 GB of loads, largely served from the
 // 50 MB L2 because neighbouring samples share corners and the P2-P5 maps of
 // one image are ~32 MB.  The output is 8000 * 49 KB = 400 MB.  The train
-// step's forward (2 x 512 RoIs on bf16 levels) reads half the bytes per row.
+// step's forward (2 x 512 RoIs on bf16 levels) reads half the bytes per row,
+// and the int8 tables of an eval with int8_roi_pool a quarter.
 //
 // Forward design: one block per (RoI, output row); threads walk the
 // channels, so the four corner rows of each sample are read as contiguous
@@ -32,7 +34,12 @@
 // bf16, converted exactly to float, and the finished bin is rounded once
 // (round to nearest even), as the plain version's float32 program followed
 // by one cast.  The JAX kernels round the weights to bf16 for the MXU; the
-// weights here stay float32.  The per-RoI FPN level comes from the caller
+// weights here stay float32.  int8 levels are converted exactly to float and
+// the level's dequant scale (a device array, written by the level quantizer
+// of fpn_quant.cu, so the host never reads it) folds into the sample-mean
+// factor once per RoI: inv_count * scale[lvl], exact because inv_count is a
+// power of two, so the weight is ((wy*oky) * (wx*okx)) * (inv_count*scale)
+// as in the plain version; the output is float32.  The per-RoI FPN level comes from the caller
 // (computed with the same torch ops as the plain version) so an ulp of
 // log2/sqrt on the device cannot move a RoI to another level.
 //
@@ -53,9 +60,13 @@ namespace {
 
 // P2-P5: the caller's level indices are 0..3
 constexpr int kLevels = 4;
+// the forward's level types (hnd_roi_align_fwd's dtype)
+constexpr int kF32 = 0;
+constexpr int kBF16 = 1;
+constexpr int kS8 = 2;
 
 struct Levels {
-  const void* ptr[kLevels];  // [B, H_l, W_l, C] contiguous, f32 or bf16
+  const void* ptr[kLevels];  // [B, H_l, W_l, C] contiguous, f32, bf16 or s8
   int h[kLevels];
   int w[kLevels];
   float scale[kLevels];
@@ -77,6 +88,7 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(int8_t v) { return (float)v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
@@ -134,12 +146,15 @@ __device__ __forceinline__ RoiGeom roi_geom(const float* __restrict__ boxes,
   return g;
 }
 
-template <typename T>
+// T: the levels' type; O: the output's (T, or float for int8 levels).
+// table_scale: [kLevels] dequant scales on the device (int8), else null.
+template <typename T, typename O>
 __global__ void roi_align_fwd_kernel(Levels levels,
                                      const float* __restrict__ boxes,
                                      const int* __restrict__ box_level,
                                      const float* __restrict__ box_weight,
-                                     T* __restrict__ out, int n_per_image,
+                                     const float* __restrict__ table_scale,
+                                     O* __restrict__ out, int n_per_image,
                                      int C, int P, int S, float inv_count) {
   const int m = blockIdx.x / P;
   const int py = blockIdx.x % P;
@@ -152,8 +167,10 @@ __global__ void roi_align_fwd_kernel(Levels levels,
   // the box's validity weight multiplies the finished bin, as
   // `out * boxes_valid` does in the plain version
   const float valid = box_weight == nullptr ? 1.0f : box_weight[m];
+  const float inv =
+      table_scale == nullptr ? inv_count : __fmul_rn(inv_count, table_scale[lvl]);
 
-  T* __restrict__ out_row = out + ((int64_t)m * P + py) * P * C;
+  O* __restrict__ out_row = out + ((int64_t)m * P + py) * P * C;
 
   for (int px = 0; px < P; ++px) {
     for (int c = threadIdx.x; c < C; c += blockDim.x) {
@@ -174,8 +191,7 @@ __global__ void roi_align_fwd_kernel(Levels levels,
           for (int cy = 0; cy < 2; ++cy) {
 #pragma unroll
             for (int cx = 0; cx < 2; ++cx) {
-              const float wgt =
-                  __fmul_rn(__fmul_rn(wys[cy], wxs[cx]), inv_count);
+              const float wgt = __fmul_rn(__fmul_rn(wys[cy], wxs[cx]), inv);
               const float v =
                   to_float(feat[((int64_t)ys[cy] * g.W + xs[cx]) * C + c]);
               acc = __fadd_rn(acc, __fmul_rn(v, wgt));
@@ -260,15 +276,18 @@ extern "C" {
 
 // level_ptrs: kLevels device pointers; level_hw: [h0, w0, h1, w1, ...];
 // level_scales: kLevels floats (host arrays, copied into the launch).
-// boxes [M, 4] f32, box_level [M] i32, box_weight [M] f32 or null,
-// out [M, P, P, C] in the levels' type (bf16 != 0: bfloat16, else f32);
-// RoI m belongs to image m / n_per_image.
+// boxes [M, 4] f32, box_level [M] i32, box_weight [M] f32 or null;
+// dtype: kF32, kBF16 or kS8, the levels' type; table_scale: kLevels f32
+// dequant scales on the device for kS8, else null; out [M, P, P, C] in the
+// levels' type, float32 for kS8.  RoI m belongs to image m / n_per_image.
 int hnd_roi_align_fwd(const void* const* level_ptrs, const int* level_hw,
                       const float* level_scales, const float* boxes,
                       const int* box_level, const float* box_weight,
-                      void* out, int64_t M, int n_per_image, int C, int P,
-                      int sampling_ratio, int bf16, void* stream) {
-  if (bad_sizes(M, n_per_image, C, P, sampling_ratio))
+                      const float* table_scale, void* out, int64_t M,
+                      int n_per_image, int C, int P, int sampling_ratio,
+                      int dtype, void* stream) {
+  if (bad_sizes(M, n_per_image, C, P, sampling_ratio) ||
+      (dtype == kS8) != (table_scale != nullptr))
     return (int)cudaErrorInvalidValue;
   Levels levels;
   for (int l = 0; l < kLevels; ++l) {
@@ -280,15 +299,24 @@ int hnd_roi_align_fwd(const void* const* level_ptrs, const int* level_hw,
   const float inv_count = 1.0f / (float)(sampling_ratio * sampling_ratio);
   const dim3 grid((unsigned)(M * P));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    roi_align_fwd_kernel<__nv_bfloat16><<<grid, threads_for(C), 0, s>>>(
-        levels, boxes, box_level, box_weight,
-        static_cast<__nv_bfloat16*>(out), n_per_image, C, P, sampling_ratio,
+  if (dtype == kBF16)
+    roi_align_fwd_kernel<__nv_bfloat16, __nv_bfloat16>
+        <<<grid, threads_for(C), 0, s>>>(
+            levels, boxes, box_level, box_weight, nullptr,
+            static_cast<__nv_bfloat16*>(out), n_per_image, C, P,
+            sampling_ratio, inv_count);
+  else if (dtype == kS8)
+    roi_align_fwd_kernel<int8_t, float><<<grid, threads_for(C), 0, s>>>(
+        levels, boxes, box_level, box_weight, table_scale,
+        static_cast<float*>(out), n_per_image, C, P, sampling_ratio,
+        inv_count);
+  else if (dtype == kF32)
+    roi_align_fwd_kernel<float, float><<<grid, threads_for(C), 0, s>>>(
+        levels, boxes, box_level, box_weight, nullptr,
+        static_cast<float*>(out), n_per_image, C, P, sampling_ratio,
         inv_count);
   else
-    roi_align_fwd_kernel<float><<<grid, threads_for(C), 0, s>>>(
-        levels, boxes, box_level, box_weight, static_cast<float*>(out),
-        n_per_image, C, P, sampling_ratio, inv_count);
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

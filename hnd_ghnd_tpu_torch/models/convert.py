@@ -11,7 +11,15 @@ pytrees as numpy and returns the state_dict of models/rcnn.RCNN.
   * bottleneck BN {gamma, beta} + state {mean, var} -> nn.BatchNorm2d fields
     at the reference's Sequential indices;
   * a stock layer1 (the teacher's: ``layer1.0.conv1``,
-    ``layer1.0.downsample.0``, ...) keeps its path, like layer2-4.
+    ``layer1.0.downsample.0``, ...) keeps its path, like layer2-4;
+  * the mask head: ``mask_head.mask_fcnN`` keeps its path,
+    ``mask_head.conv5_mask`` and ``mask_head.mask_fcn_logits`` go to
+    ``roi_heads.mask_predictor``; the keypoint head: ``keypoint_head.{i}``
+    goes to the Sequential index ``roi_heads.keypoint_head.{2i}`` and
+    ``keypoint_head.kps_score_lowres`` to ``roi_heads.keypoint_predictor``;
+  * transposed-conv kernels (``conv5_mask``, ``kps_score_lowres``) HWIO
+    with I the input channels -> torch's [in, out, kh, kw]: the inverse of
+    the JAX converter's (I, O, kh, kw) -> (kh, kw, I, O).
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ _ENC_IDX = {"conv0": "0", "bn0": "1", "conv1": "2", "bn1": "3",
 _DEC_IDX = {"bn_in": "0", "conv0": "2", "bn0": "3", "conv1": "4", "bn1": "5",
             "conv2": "7", "bn2": "8", "conv3": "9", "bn3": "10"}
 _LAYER1 = ("backbone", "body", "layer1")
+_TRANSPOSED = ("conv5_mask", "kps_score_lowres")
 
 
 def _leaves(tree: Dict[str, Any], path=()) -> Iterator[Tuple[tuple, Dict]]:
@@ -43,6 +52,13 @@ def _torch_prefix(path: tuple) -> str:
         idx = (_ENC_IDX if part == "encoder" else _DEC_IDX)[name]
         inner = "encoder.encoder" if part == "encoder" else "decoder"
         return ".".join(_LAYER1 + (inner, idx))
+    if path[:2] == ("roi_heads", "mask_head") and path[2] in (
+            "conv5_mask", "mask_fcn_logits"):
+        return f"roi_heads.mask_predictor.{path[2]}"
+    if path[:2] == ("roi_heads", "keypoint_head"):
+        if path[2] == "kps_score_lowres":
+            return "roi_heads.keypoint_predictor.kps_score_lowres"
+        return f"roi_heads.keypoint_head.{2 * int(path[2])}"
     return ".".join(path)
 
 
@@ -57,8 +73,13 @@ def state_dict_from_jax(params: Dict[str, Any],
         prefix = _torch_prefix(path)
         if "w" in node:
             w = np.asarray(node["w"])
-            sd[f"{prefix}.weight"] = _t(w.transpose(3, 2, 0, 1) if w.ndim == 4
-                                        else w.T)
+            if w.ndim != 4:
+                w = w.T
+            elif path[-1] in _TRANSPOSED:
+                w = w.transpose(2, 3, 0, 1)
+            else:
+                w = w.transpose(3, 2, 0, 1)
+            sd[f"{prefix}.weight"] = _t(w)
             if "b" in node:
                 sd[f"{prefix}.bias"] = _t(node["b"])
         elif "scale" in node:

@@ -1,10 +1,12 @@
 """Config-driven construction of the models (reference YAML schema).
 
 Counterpart of hnd_ghnd_tpu/models/factory.py for the slices this package
-runs: a ``faster_rcnn`` with the stock ResNet-50 trunk (the org model of
-config/org and the distillation teacher), and a ``faster_rcnn`` student
+runs: a ``faster_rcnn``, ``mask_rcnn`` or ``keypoint_rcnn`` (``num_classes``
+and ``num_keypoints`` from ``params``) with the stock ResNet-50 trunk (the
+org model of config/org and the distillation teacher), or as a student
 whose ``layer1`` is a Bottleneck4LargeResNet, with an optional [quantizer,
-dequantizer] bottleneck transformer.  Every other feature of the schema
+dequantizer] bottleneck transformer; ``params.int8_roi_pool`` turns on the
+eval's int8 pooling tables.  Every other feature of the schema
 raises NotImplementedError naming the ROADMAP item that ports it; nothing
 falls back silently.  ``frozen_modules``, and the trunk's conv1, bn1 and
 layer1 under ``backbone.params.freeze_layers`` (the reference's
@@ -19,6 +21,7 @@ weights that ``params.pretrained`` asks for are not in the repository:
 from __future__ import annotations
 
 import logging
+import math
 from typing import Any, Dict, List
 
 import torch
@@ -31,7 +34,13 @@ from hnd_ghnd_tpu_torch.utils.params import set_trainable
 
 logger = logging.getLogger(__name__)
 
+KINDS = ("faster_rcnn", "mask_rcnn", "keypoint_rcnn")
 BOTTLENECK_NAMES = {"Bottleneck4LargeResNet", "Bottleneck4SmallResNet"}
+# the mask head's convs: normal(std sqrt(2 / (kh * kw * cout))); the
+# keypoint head's: normal(std sqrt(2 / fan_in)) (roi_heads.py:137-147,
+# 165-180); zero biases
+_HEAD_PREFIXES = ("roi_heads.mask_head.", "roi_heads.mask_predictor.",
+                  "roi_heads.keypoint_head.", "roi_heads.keypoint_predictor.")
 # what the reference's freeze_layers leaves out of training: the trunk
 # except layer2-4 (src/models/org/rcnn.py:399-404)
 FREEZE_LAYERS = ["backbone.body.conv1", "backbone.body.bn1",
@@ -64,9 +73,7 @@ def build_model(model_config: Dict[str, Any]) -> RCNN:
     """An RCNN in eval mode on the CPU from a ``model``, ``teacher_model``
     or ``student_model`` block, with ``frozen_modules`` frozen."""
     kind = model_config["name"]
-    if kind in ("mask_rcnn", "keypoint_rcnn"):
-        raise NotImplementedError(f"{kind}: mask/keypoint heads are ROADMAP A8")
-    if kind != "faster_rcnn":
+    if kind not in KINDS:
         raise KeyError(f"model name `{kind}` is not expected")
     backbone_cfg = model_config["backbone"]
     if backbone_cfg["name"] not in ("resnet50", "custom_resnet50"):
@@ -78,8 +85,9 @@ def build_model(model_config: Dict[str, Any]) -> RCNN:
     if layer1_cfg is not None and layer1_cfg["name"] not in BOTTLENECK_NAMES:
         raise ValueError(f"layer1 name `{layer1_cfg['name']}` is not expected")
     params_cfg = model_config.get("params", {}) or {}
-    if params_cfg.get("int8_roi_pool"):
-        raise NotImplementedError("int8_roi_pool tables are ROADMAP B3")
+    if params_cfg.get("kp_decode", "host") != "host":
+        raise NotImplementedError(
+            "kp_decode: device: the on-device keypoint decode is ROADMAP A8")
     if params_cfg.get("roi_pool_impl", "auto") not in ("auto", "pallas"):
         raise NotImplementedError(
             "roi_pool_impl: the port has one RoIAlign (the CUDA kernel, its "
@@ -88,7 +96,10 @@ def build_model(model_config: Dict[str, Any]) -> RCNN:
     bottleneck = None if layer1_cfg is None else Bottleneck4LargeResNet(
         int(layer1_cfg["bottleneck_channel"]),
         quant_bits=_quant_bits(model_config.get("bottleneck_transformer")))
-    model = RCNN(bottleneck, num_classes=int(params_cfg.get("num_classes", 91)))
+    model = RCNN(bottleneck, num_classes=int(params_cfg.get("num_classes", 91)),
+                 kind=kind,
+                 num_keypoints=int(params_cfg.get("num_keypoints", 17)),
+                 int8_pool=bool(params_cfg.get("int8_roi_pool", False)))
     set_trainable(model, frozen_modules(model_config))
     return model.eval()
 
@@ -96,11 +107,19 @@ def build_model(model_config: Dict[str, Any]) -> RCNN:
 def init_model(model: RCNN, generator: torch.Generator) -> RCNN:
     """Seeded init in place, with the JAX package's distributions: trunk
     convs kaiming-normal(fan_out), bottleneck convs and linears torch's
-    default uniform, FPN uniform(a=1) with zero bias, RPN normal(0.01),
-    identity frozen BN except a zero scale on each block's last BN."""
+    default uniform, FPN uniform(a=1) with zero bias, RPN normal(0.01), the
+    mask and keypoint heads' MSRA normals with zero bias, identity frozen
+    BN except a zero scale on each block's last BN."""
     injected = model.backbone.body.injected
     for name, m in model.named_modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) \
+                and name.startswith(_HEAD_PREFIXES):
+            kh, kw = m.kernel_size
+            n = (m.out_channels if name.startswith("roi_heads.mask_")
+                 else m.in_channels)
+            L.normal_(m.weight, math.sqrt(2.0 / (kh * kw * n)), generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Conv2d):
             if injected and name.startswith("backbone.body.layer1."):
                 L.kaiming_uniform_(m.weight, generator)
             elif name.startswith("backbone.body."):

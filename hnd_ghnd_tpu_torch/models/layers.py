@@ -20,8 +20,9 @@ biased variance and updates the running variance with the unbiased one,
 as hnd_ghnd_tpu/models/layers.py:batch_norm does.
 
 The compute dtype follows the input, as in the JAX package
-(layers.py:70, 79, 87, 112-113, 127-128, 158-175): ``Conv2d`` and
-``Linear`` cast their float32 weight and bias to ``x.dtype``; the frozen BN
+(layers.py:70, 79, 87, 112-113, 127-128, 158-175): ``Conv2d``,
+``ConvTranspose2d`` and ``Linear`` cast their float32 weight and bias to
+``x.dtype``; the frozen BN
 folds in float32 and casts scale and bias; the trainable BN computes in
 float32 and returns ``x.dtype``.  A bfloat16 image therefore runs the
 whole network in bfloat16 with float32 parameters, without
@@ -43,6 +44,17 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` whose weight and bias are cast to the input's
+    dtype; torch's geometry, out = (in - 1) * stride - 2 * pad + kernel, as
+    hnd_ghnd_tpu/models/layers.py:conv_transpose2d computes it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
+                                  self.stride, self.padding)
 
 
 class Linear(nn.Linear):

@@ -1,9 +1,11 @@
-"""Faster R-CNN meta-architecture: eval forward and training losses.
+"""Faster, Mask and Keypoint R-CNN meta-architecture: eval forward and the
+Faster R-CNN training losses.
 
 Counterpart of hnd_ghnd_tpu/models/rcnn.py (the reference's CustomRCNN):
 normalize -> trunk (with the bottleneck as layer1) -> FPN -> RPN -> RoI
-heads -> boxes rescaled from the padded bucket to each image's original
-size; in train mode (rcnn.py:156-178) RPN proposals, the RPN loss, the
+heads (with the mask or keypoint branch) -> boxes rescaled from the padded
+bucket to each image's original size, ``boxes_model`` keeping the bucket's
+coordinates for the host keypoint decode; in train mode (rcnn.py:156-178) RPN proposals, the RPN loss, the
 RoI sampling and the RoI loss instead.  The batch keeps the JAX package's
 layout: images [B, H, W, 3] in [0, 1], in the compute dtype.  The trunk runs contiguous NCHW: float32 cuDNN convolutions have
 NCHW kernels only, and a channels_last trunk spends more in their layout
@@ -44,16 +46,23 @@ class Backbone(nn.Module):
 
 class RCNN(nn.Module):
     """Module paths are the reference's: backbone.body.*, backbone.fpn.*,
-    rpn.head.*, roi_heads.box_head.*, roi_heads.box_predictor.*.  A
-    student has the bottleneck as layer1, a teacher (``bottleneck`` None)
-    the stock ResNet-50 layer1."""
+    rpn.head.*, roi_heads.box_head.*, roi_heads.box_predictor.*, and
+    roi_heads.mask_head.* with roi_heads.mask_predictor.* (``kind``
+    mask_rcnn) or roi_heads.keypoint_head.* with
+    roi_heads.keypoint_predictor.* (keypoint_rcnn).  A student has the
+    bottleneck as layer1, a teacher (``bottleneck`` None) the stock
+    ResNet-50 layer1.  ``int8_pool``: the eval pools int8 tables."""
 
     def __init__(self, bottleneck: Optional[Bottleneck4LargeResNet],
-                 num_classes: int = 91):
+                 num_classes: int = 91, kind: str = "faster_rcnn",
+                 num_keypoints: int = 17, int8_pool: bool = False):
         super().__init__()
+        self.kind = kind
         self.backbone = Backbone(bottleneck)
         self.rpn = RPN()
-        self.roi_heads = RoIHeads(num_classes)
+        self.roi_heads = RoIHeads(num_classes, kind=kind,
+                                  num_keypoints=num_keypoints,
+                                  int8_pool=int8_pool)
 
     @staticmethod
     def normalize(images: torch.Tensor) -> torch.Tensor:
@@ -77,7 +86,8 @@ class RCNN(nn.Module):
         (h, w) inside the bucket, original_sizes [B, 2].
 
         In eval mode: fixed-shape detections in original-image coordinates
-        (``boxes``) and bucket coordinates (``boxes_model``), without
+        (``boxes``) and bucket coordinates (``boxes_model``), with
+        ``mask_probs`` or ``keypoint_logits`` for those kinds, without
         autograd.  In train mode: the loss dict {loss_classifier,
         loss_box_reg, loss_objectness, loss_rpn_box_reg}; ``targets`` holds
         boxes [B, G, 4], labels [B, G] and boxes_valid [B, G] (padded to a
@@ -92,6 +102,9 @@ class RCNN(nn.Module):
     def losses(self, batch: Dict[str, torch.Tensor],
                targets: Dict[str, torch.Tensor],
                draw: Draw) -> Dict[str, torch.Tensor]:
+        if self.kind != "faster_rcnn":
+            raise NotImplementedError(f"{self.kind}: the mask and keypoint "
+                                      "training losses are ROADMAP A8")
         images = batch["images"]
         image_shape = (images.shape[1], images.shape[2])
         _, feats = self.backbone_features(images)

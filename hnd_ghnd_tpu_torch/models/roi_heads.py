@@ -1,4 +1,5 @@
-"""RoI heads, box branch: eval and training.
+"""RoI heads: the box branch (eval and training) and the eval of the mask
+and keypoint branches.
 
 Counterpart of hnd_ghnd_tpu/models/roi_heads.py (torchvision 0.4.2
 RoIHeads as the reference configures it): 7x7 RoIAlign over P2..P5,
@@ -6,6 +7,16 @@ TwoMLPHead 12544 -> 1024 -> 1024 on the channel-major flatten, the
 FastRCNNPredictor, then per image softmax, box decode (10, 10, 5, 5),
 clip, score > 0.05 and small-box masks, a stable top-4096 trim, per-class
 NMS at 0.5 and the top 100 detections.
+
+Mask R-CNN and Keypoint R-CNN (roi_heads.py:122-189, 298-327) pool the top
+100 detections at 14x14 (invalid slots weighted 0) and run their heads
+NCHW on cuDNN: the mask head's 4x (3x3 conv 256 + ReLU), deconv 2x2/2 +
+ReLU and 1x1 conv give ``mask_probs`` [B, 100, 28, 28], the sigmoid of
+each detection's label channel; the keypoint head's 8x (3x3 conv 512 +
+ReLU), deconv 4x4/2 and a 2x bilinear resize give ``keypoint_logits``
+[B, 100, 56, 56, K] for the host decode.  With ``int8_pool`` the levels are
+quantized once per forward and every pooling call shares those tables
+(roi_heads.py:242).  Their training losses are ROADMAP A8.
 
 Training (roi_heads.py:332-421): the GT boxes are appended to the
 proposals, matched at IoU 0.5/0.5, 512 sampled per image at 25% positive
@@ -22,11 +33,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hnd_ghnd_tpu_torch.models.layers import Linear
+from hnd_ghnd_tpu_torch.models.layers import Conv2d, ConvTranspose2d, Linear
 from hnd_ghnd_tpu_torch.models.rpn import Draw, balanced_sample, smooth_l1
 from hnd_ghnd_tpu_torch.ops import boxes as box_ops
 from hnd_ghnd_tpu_torch.ops import nms as nms_ops
-from hnd_ghnd_tpu_torch.ops.roi_align_kernels import roi_align, roi_align_train
+from hnd_ghnd_tpu_torch.ops.roi_align_kernels import (quantize_levels,
+                                                      roi_align,
+                                                      roi_align_train)
 
 # the reference's eval settings (torchvision 0.4.2 RoIHeads, rcnn.py)
 BOX_CODER_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
@@ -34,6 +47,8 @@ SCORE_THRESH = 0.05
 NMS_THRESH = 0.5
 DETECTIONS_PER_IMG = 100
 BOX_POOL_SIZE = 7
+MASK_POOL_SIZE = 14
+KEYPOINT_POOL_SIZE = 14
 # candidates kept before the O(N^2) class NMS (as in the JAX package)
 NMS_CANDIDATES = 4096
 # the reference's training settings (rcnn.py:152-158)
@@ -65,36 +80,148 @@ class FastRCNNPredictor(nn.Module):
         return self.cls_score(x), self.bbox_pred(x)
 
 
+class MaskHead(nn.Module):
+    """roi_heads.mask_head: 4x (3x3 conv 256 + ReLU)."""
+
+    def __init__(self, in_channels: int):
+        super().__init__()
+        for i in range(4):
+            self.add_module(f"mask_fcn{i + 1}",
+                            Conv2d(in_channels if i == 0 else 256, 256, 3,
+                                   padding=1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv in self.children():
+            x = F.relu(conv(x))
+        return x
+
+
+class MaskPredictor(nn.Module):
+    """roi_heads.mask_predictor: deconv 2x2/2 + ReLU, then a 1x1 conv to
+    the classes: [R, 256, 14, 14] -> [R, K, 28, 28]."""
+
+    def __init__(self, num_classes: int):
+        super().__init__()
+        self.conv5_mask = ConvTranspose2d(256, 256, 2, stride=2)
+        self.mask_fcn_logits = Conv2d(256, num_classes, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mask_fcn_logits(F.relu(self.conv5_mask(x)))
+
+
+def keypoint_head(in_channels: int) -> nn.Sequential:
+    """roi_heads.keypoint_head: 8x (3x3 conv 512 + ReLU), the convs at the
+    even indices of one Sequential, as torchvision's KeypointRCNNHeads."""
+    mods = []
+    for i in range(8):
+        mods += [Conv2d(in_channels if i == 0 else 512, 512, 3, padding=1),
+                 nn.ReLU()]
+    return nn.Sequential(*mods)
+
+
+class KeypointPredictor(nn.Module):
+    """roi_heads.keypoint_predictor: deconv 4x4/2 pad 1 to the keypoints,
+    then a 2x bilinear resize (align_corners=False): [R, 512, 14, 14] ->
+    [R, K, 56, 56]."""
+
+    def __init__(self, num_keypoints: int):
+        super().__init__()
+        self.kps_score_lowres = ConvTranspose2d(512, num_keypoints, 4,
+                                                stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.interpolate(self.kps_score_lowres(x), scale_factor=2,
+                             mode="bilinear", align_corners=False)
+
+
 class RoIHeads(nn.Module):
-    def __init__(self, num_classes: int = 91, out_channels: int = 256):
+    """``kind`` faster_rcnn, mask_rcnn or keypoint_rcnn; ``int8_pool``:
+    the eval pools int8 tables of P2-P5 (``params.int8_roi_pool``)."""
+
+    def __init__(self, num_classes: int = 91, out_channels: int = 256,
+                 kind: str = "faster_rcnn", num_keypoints: int = 17,
+                 int8_pool: bool = False):
         super().__init__()
         self.num_classes = num_classes
+        self.kind = kind
+        self.int8_pool = int8_pool
         self.box_head = TwoMLPHead(out_channels * BOX_POOL_SIZE ** 2)
         self.box_predictor = FastRCNNPredictor(1024, num_classes)
+        if kind == "mask_rcnn":
+            self.mask_head = MaskHead(out_channels)
+            self.mask_predictor = MaskPredictor(num_classes)
+        elif kind == "keypoint_rcnn":
+            self.keypoint_head = keypoint_head(out_channels)
+            self.keypoint_predictor = KeypointPredictor(num_keypoints)
+        elif kind != "faster_rcnn":
+            raise KeyError(f"model name `{kind}` is not expected")
+
+    def pool_tables(self, feats: Sequence[torch.Tensor], int8: bool):
+        """(levels, quant) for pooling P2..P5 (NCHW maps): the levels as
+        NHWC, one copy per map, and quant None; with ``int8`` the NHWC
+        views uncopied (the pooling reads only their dtype) and the int8
+        tables quantized from them."""
+        views = [f.permute(0, 2, 3, 1) for f in feats[:4]]
+        if int8:
+            return views, quantize_levels(views)
+        return [v.contiguous() for v in views], None
 
     def box_logits(self, feats: Sequence[torch.Tensor], proposals: torch.Tensor,
                    prop_valid: torch.Tensor, image_shape: Tuple[int, int],
-                   pool=roi_align):
-        """Pool P2..P5 (NCHW maps) at the proposals with ``pool`` and run
-        the box head: (class logits [B, R, K], box deltas [B, R, 4K])."""
+                   pool=roi_align, tables=None):
+        """Pool P2..P5 (NCHW maps; or ``tables`` made of them by
+        ``pool_tables``) at the proposals with ``pool`` and run the box
+        head: (class logits [B, R, K], box deltas [B, R, 4K])."""
         b, r = proposals.shape[:2]
-        # NHWC for the kernel: one copy per NCHW map
-        levels = [f.permute(0, 2, 3, 1).contiguous() for f in feats[:4]]
+        levels, quant = (self.pool_tables(feats, int8=False) if tables is None
+                         else tables)
+        kw = {} if quant is None else {"quant": quant}
         pooled = pool(levels, proposals, image_shape, BOX_POOL_SIZE,
-                      boxes_valid=prop_valid)
+                      boxes_valid=prop_valid, **kw)
         rep = self.box_head(pooled.reshape((b * r,) + pooled.shape[2:]))
         cls, deltas = self.box_predictor(rep)
         return cls.reshape(b, r, -1), deltas.reshape(b, r, -1)
+
+    def head_outputs(self, tables, boxes: torch.Tensor, valid: torch.Tensor,
+                     labels: torch.Tensor, image_shape: Tuple[int, int]
+                     ) -> Dict[str, torch.Tensor]:
+        """The mask or keypoint branch on detections ``boxes`` [B, D, 4]
+        (``valid`` [B, D], ``labels`` [B, D]) over ``pool_tables``:
+        {mask_probs [B, D, 28, 28]} or {keypoint_logits [B, D, 56, 56, K]};
+        {} for a Faster R-CNN."""
+        if self.kind == "faster_rcnn":
+            return {}
+        levels, quant = tables
+        b, d = boxes.shape[:2]
+        size = (MASK_POOL_SIZE if self.kind == "mask_rcnn"
+                else KEYPOINT_POOL_SIZE)
+        pooled = roi_align(levels, boxes, image_shape, size,
+                           boxes_valid=valid, quant=quant)
+        # one NCHW copy of the pooled RoIs for cuDNN
+        x = pooled.reshape((b * d,) + pooled.shape[2:]).permute(0, 3, 1, 2)
+        x = x.contiguous()
+        if self.kind == "mask_rcnn":
+            logits = self.mask_predictor(self.mask_head(x))  # [BD, K, 28, 28]
+            idx = labels.reshape(-1).long()[:, None, None, None].expand(
+                -1, 1, *logits.shape[2:])
+            sel = torch.gather(logits, 1, idx)[:, 0]
+            return {"mask_probs": torch.sigmoid(sel).reshape(
+                (b, d) + sel.shape[1:])}
+        kp = self.keypoint_predictor(self.keypoint_head(x))  # [BD, K, 56, 56]
+        return {"keypoint_logits": kp.permute(0, 2, 3, 1).reshape(
+            (b, d) + kp.shape[2:] + kp.shape[1:2])}
 
     def infer(self, feats: Sequence[torch.Tensor], proposals: torch.Tensor,
               prop_valid: torch.Tensor, image_sizes: torch.Tensor,
               image_shape: Tuple[int, int]):
         """Fixed-shape detections: boxes [B, D, 4], scores [B, D],
-        labels [B, D], valid [B, D]."""
+        labels [B, D], valid [B, D], and ``head_outputs``."""
         b, r = proposals.shape[:2]
         ncls = self.num_classes
+        # the int8 tables are quantized once and shared by every pooling
+        tables = self.pool_tables(feats, self.int8_pool)
         all_cls, all_deltas = self.box_logits(feats, proposals, prop_valid,
-                                              image_shape)
+                                              image_shape, tables=tables)
         scores = torch.softmax(all_cls, dim=-1)  # [B, R, K]
         boxes = box_ops.decode(all_deltas.reshape(b, r, ncls, 4),
                                proposals[:, :, None, :], BOX_CODER_WEIGHTS)
@@ -127,8 +254,11 @@ class RoIHeads(nn.Module):
                                  torch.zeros_like(keep_ok, dtype=trim_scores.dtype))
         det_labels = torch.where(keep_ok, torch.gather(t_labels, 1, keep_idx),
                                  torch.zeros_like(keep_idx))
+        det_labels = det_labels.to(torch.int32)
         return {"boxes": det_boxes, "scores": det_scores,
-                "labels": det_labels.to(torch.int32), "valid": keep_ok}
+                "labels": det_labels, "valid": keep_ok,
+                **self.head_outputs(tables, det_boxes, keep_ok, det_labels,
+                                    image_shape)}
 
     def select_training_samples(self, proposals: torch.Tensor,
                                 prop_valid: torch.Tensor,

@@ -5,7 +5,13 @@ JAX runs on the CPU), operation for operation: torchvision 0.4.2 semantics,
 legacy non-aligned sampling, roi size clamped to >= 1, samples outside
 [-1, size] contribute 0, the FPN level per RoI by the canonical heuristic.
 Layout is the JAX package's: levels [B, H, W, C], boxes [B, N, 4],
-output [B, N, P, P, C].  Float tables only: the int8 tables are ROADMAP B3.
+output [B, N, P, P, C].
+
+int8 tables (roi_align.py:201-271): ``quantize_fpn_levels`` codes each
+level symmetrically with one batch-global scale, and ``quant`` pools those
+codes, converted exactly to float32, with the level's scale folded into the
+bilinear weights as JAX folds it: ((wy*oky) * (wx*okx)) * (0.25*scale).
+The output keeps the dtype of the unquantized levels.
 
 bfloat16 levels are upcast to float32, pooled by the float32 program and
 rounded once to bfloat16: the TPU kernel's arithmetic (bf16 windows,
@@ -70,6 +76,25 @@ def level_geometry(shapes: Sequence[Tuple[int, int]],
     return heights, widths, scales, offsets.astype(np.int64)
 
 
+def quantize_fpn_levels(features: Sequence[torch.Tensor]):
+    """Symmetric int8 codes per level: (codes [B, Hl, Wl, C] int8, scales
+    [L] float32).  s = max|f| / 127 (1 where that max is 0) over the whole
+    level, batch and padding included (ROADMAP C3); q = clamp(round-half-
+    even(f / s), -127, 127)."""
+    codes, scales = [], []
+    for f in features:
+        f = f.float()
+        amax = f.abs().max()
+        # tensor divisors: PyTorch's CUDA division by a Python number
+        # multiplies by its reciprocal, not the IEEE quotient (ROADMAP C1)
+        s = torch.where(amax > 0, amax / torch.tensor(127.0, device=f.device),
+                        torch.ones_like(amax))
+        codes.append(torch.round(f / s).clamp(-127, 127).to(torch.int8)
+                     .contiguous())
+        scales.append(s)
+    return codes, torch.stack(scales)
+
+
 def multiscale_roi_align_batch(
     features: Sequence[torch.Tensor],
     boxes: torch.Tensor,
@@ -77,16 +102,27 @@ def multiscale_roi_align_batch(
     output_size: int,
     sampling_ratio: int = 2,
     boxes_valid: torch.Tensor | None = None,
+    quant: str | tuple | None = None,
 ) -> torch.Tensor:
-    """Levels [B, Hl, Wl, C], boxes [B, N, 4] -> [B, N, P, P, C]."""
+    """Levels [B, Hl, Wl, C], boxes [B, N, 4] -> [B, N, P, P, C].
+
+    ``quant``: None; "int8" to pool int8 codes of ``features``; or the
+    (codes, scales) of ``quantize_fpn_levels``, shared by several calls."""
     b, n = boxes.shape[:2]
     c = features[0].shape[-1]
     dev = boxes.device
     out_dtype = features[0].dtype
+    table_scale = None
+    if quant == "int8":
+        features, table_scale = quantize_fpn_levels(features)
+    elif isinstance(quant, tuple):
+        features, table_scale = quant
+    elif quant is not None:
+        raise ValueError(f"unknown roi-pool quant mode `{quant}`")
     heights, widths, scales, offsets = (
         torch.as_tensor(a, device=dev) for a in level_geometry(
             [tuple(f.shape[1:3]) for f in features], image_size))
-    # bfloat16 tables accumulate in float32; float64 ones stay float64
+    # bfloat16 and int8 tables accumulate in float32; float64 ones in float64
     cdt = torch.promote_types(out_dtype, torch.float32)
     tables = torch.cat([f.reshape(b, -1, c).to(cdt) for f in features], dim=1)
     hw = tables.shape[1]
@@ -126,6 +162,9 @@ def multiscale_roi_align_batch(
     ok_y = y_ok.float()
     ok_x = x_ok.float()
     inv = 1.0 / float(s * s)
+    if table_scale is not None:
+        # the level's dequant scale folds into the sample-mean factor
+        inv = inv * table_scale.to(cdt)[lvl][:, None, None]
     w_stride = lvl_w.long()[:, None, None]
     base = lvl_off[:, None, None]
     out = None

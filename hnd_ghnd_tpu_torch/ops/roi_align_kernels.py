@@ -1,22 +1,27 @@
 """Multi-level RoIAlign over the CUDA kernels of csrc/roi_align.cu: the
-forward on float32 or bfloat16 levels, and the backward of training.
+forward on float32, bfloat16 or int8 levels, and the backward of training;
+and the int8 level quantizer of csrc/fpn_quant.cu.
 
 Replaces hnd_ghnd_tpu/ops/pallas_roi.py: ``pallas_multiscale_roi_align_batch``
-(f32 and bf16 tables) and ``pallas_multiscale_roi_align_batch_vjp`` (the
-forward kernel with the transposed gather program as its backward); what
-bounds the kernels and how they are laid out is noted in the CUDA source.
-The plain version is ops/roi_align.py's ``multiscale_roi_align_batch``, and
-its autograd for the backward: a CPU tensor goes to it, a CUDA tensor to
-the kernels, and anything the kernels do not take raises (the int8 tables
-are ROADMAP B3).
+(f32, bf16 and int8 tables) and ``pallas_multiscale_roi_align_batch_vjp``
+(the forward kernel with the transposed gather program as its backward),
+and hnd_ghnd_tpu/ops/roi_align.py's ``quantize_fpn_levels`` (XLA ops); what
+bounds the kernels and how they are laid out is noted in the CUDA sources.
+The plain versions are ops/roi_align.py's ``multiscale_roi_align_batch``
+(with its autograd for the backward) and ``quantize_fpn_levels``: a CPU
+tensor goes to them, a CUDA tensor to the kernels, and anything the kernels
+do not take raises.
 
 Launches are counted per kernel: ``roi_align.launches`` (f32 levels),
-``roi_align.launches_bf16`` (bf16 levels) and ``roi_align_backward.launches``
-(the scatter and, for bf16 levels, its rounding pass: one launch).
+``roi_align.launches_bf16`` (bf16 levels), ``roi_align.launches_int8``
+(int8 levels), ``roi_align_backward.launches`` (the scatter and, for bf16
+levels, its rounding pass: one launch) and ``quantize_levels.launches``
+(abs-max and codes: one launch).
 
-The kernels read NHWC levels.  The trunk runs NCHW, so the caller pays one
-copy per level; a channels_last map would hand over for free
-(``permute(0, 2, 3, 1)`` of it is already contiguous).
+The RoIAlign kernels read NHWC levels.  The trunk runs NCHW, so the caller
+pays one copy per float level; a channels_last map would hand over for free
+(``permute(0, 2, 3, 1)`` of it is already contiguous).  The quantizer reads
+the NHWC view of the NCHW maps as it is and writes NHWC codes.
 """
 from __future__ import annotations
 
@@ -27,17 +32,21 @@ import torch
 
 from hnd_ghnd_tpu_torch import _build
 from hnd_ghnd_tpu_torch.ops.roi_align import (assign_levels, level_geometry,
-                                              multiscale_roi_align_batch)
+                                              multiscale_roi_align_batch,
+                                              quantize_fpn_levels)
 
 # P2-P5: the levels assign_levels routes RoIs to
 LEVELS = 4
-_DTYPES = (torch.float32, torch.bfloat16)
+# the forward's level types, by hnd_roi_align_fwd's dtype code
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def checked_inputs(features: Sequence[torch.Tensor], boxes: torch.Tensor,
-                   boxes_valid: torch.Tensor | None):
+                   boxes_valid: torch.Tensor | None,
+                   table_scale: torch.Tensor | None = None):
     """Validate the kernels' inputs; -> (contiguous boxes, box levels [M]
-    int32, validity weights [M] f32 or None)."""
+    int32, validity weights [M] f32 or None).  int8 levels come with their
+    [4] float32 scales on the device (``table_scale``), and only they."""
     if boxes.device.type != "cuda":
         raise ValueError(f"roi_align: unsupported device {boxes.device}")
     if len(features) != LEVELS:
@@ -51,16 +60,25 @@ def checked_inputs(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     c = features[0].shape[-1]
     dtype = features[0].dtype
     for f in features:
-        if f.dtype not in _DTYPES or f.dtype != dtype:
-            raise TypeError(f"roi_align kernel takes float32 or bfloat16 "
-                            f"levels of one dtype, got {f.dtype} (int8 "
-                            f"tables: ROADMAP B3)")
+        if f.dtype not in _DTYPE_CODES or f.dtype != dtype:
+            raise TypeError(f"roi_align kernel takes float32, bfloat16 or "
+                            f"int8 levels of one dtype, got {f.dtype}")
         if f.device != boxes.device or f.dim() != 4 or f.shape[0] != b \
                 or f.shape[-1] != c or not f.is_contiguous():
             raise ValueError("roi_align kernel takes contiguous [B, H, W, C] "
                              "levels on the boxes' device with one B and C")
     if boxes.dtype != torch.float32:
         raise TypeError(f"roi_align kernel takes float32 boxes, got {boxes.dtype}")
+    if (dtype == torch.int8) != (table_scale is not None):
+        raise TypeError("roi_align kernel takes int8 levels together with "
+                        "their scales, and scales only with int8 levels")
+    if table_scale is not None and (
+            tuple(table_scale.shape) != (LEVELS,)
+            or table_scale.dtype != torch.float32
+            or table_scale.device != boxes.device
+            or not table_scale.is_contiguous()):
+        raise ValueError(f"roi_align: the int8 tables' scales must be "
+                         f"[{LEVELS}] float32 on the boxes' device")
     boxes = boxes.contiguous()
     level = assign_levels(boxes.reshape(-1, 4)).contiguous()
     weight = None
@@ -85,21 +103,25 @@ def _stream(device: torch.device) -> int:
 
 
 def _forward(features, boxes, level, weight, image_size, output_size,
-             sampling_ratio) -> torch.Tensor:
+             sampling_ratio, table_scale=None) -> torch.Tensor:
     b, n = boxes.shape[:2]
     c = features[0].shape[-1]
-    bf16 = features[0].dtype == torch.bfloat16
+    dtype = features[0].dtype
     hw, scales = _geometry([tuple(f.shape[1:3]) for f in features], image_size)
     ptrs = (ctypes.c_void_p * LEVELS)(*[f.data_ptr() for f in features])
     out = torch.empty((b, n, output_size, output_size, c),
-                      dtype=features[0].dtype, device=boxes.device)
+                      dtype=torch.float32 if dtype == torch.int8 else dtype,
+                      device=boxes.device)
     _build.check(_build.load().hnd_roi_align_fwd(
         ptrs, hw, scales, boxes.data_ptr(), level.data_ptr(),
-        None if weight is None else weight.data_ptr(), out.data_ptr(),
-        b * n, n, c, int(output_size), int(sampling_ratio), int(bf16),
-        _stream(boxes.device)), "hnd_roi_align_fwd")
-    if bf16:
+        None if weight is None else weight.data_ptr(),
+        None if table_scale is None else table_scale.data_ptr(),
+        out.data_ptr(), b * n, n, c, int(output_size), int(sampling_ratio),
+        _DTYPE_CODES[dtype], _stream(boxes.device)), "hnd_roi_align_fwd")
+    if dtype == torch.bfloat16:
         roi_align.launches_bf16 += 1
+    elif dtype == torch.int8:
+        roi_align.launches_int8 += 1
     else:
         roi_align.launches += 1
     return out
@@ -108,20 +130,83 @@ def _forward(features, boxes, level, weight, image_size, output_size,
 def roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
               image_size: Tuple[int, int], output_size: int,
               sampling_ratio: int = 2,
-              boxes_valid: torch.Tensor | None = None) -> torch.Tensor:
+              boxes_valid: torch.Tensor | None = None,
+              quant: str | tuple | None = None) -> torch.Tensor:
     """Levels [B, Hl, Wl, C], boxes [B, N, 4] -> [B, N, P, P, C] in the
-    levels' dtype; same semantics as ``multiscale_roi_align_batch``."""
+    levels' dtype; same semantics as ``multiscale_roi_align_batch``, the
+    ``quant`` modes included ("int8", or the (codes, scales) of
+    ``quantize_levels``: the int8 kernel, for float32 levels)."""
     if boxes.device.type == "cpu":
         return multiscale_roi_align_batch(features, boxes, image_size,
                                           output_size, sampling_ratio,
-                                          boxes_valid)
-    boxes, level, weight = checked_inputs(features, boxes, boxes_valid)
+                                          boxes_valid, quant)
+    table_scale = None
+    if quant is not None:
+        if features[0].dtype != torch.float32:
+            raise TypeError(f"roi_align kernel pools int8 tables into "
+                            f"float32, got {features[0].dtype} levels")
+        if quant == "int8":
+            quant = quantize_levels(features)
+        elif not isinstance(quant, tuple):
+            raise ValueError(f"unknown roi-pool quant mode `{quant}`")
+        features, table_scale = quant
+    boxes, level, weight = checked_inputs(features, boxes, boxes_valid,
+                                          table_scale)
     return _forward(features, boxes, level, weight, image_size, output_size,
-                    sampling_ratio)
+                    sampling_ratio, table_scale)
 
 
 roi_align.launches = 0
 roi_align.launches_bf16 = 0
+roi_align.launches_int8 = 0
+
+
+def quantize_levels(levels: Sequence[torch.Tensor]
+                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Float32 levels [B, Hl, Wl, C] -> (contiguous int8 codes of the same
+    shape, scales [4] float32 on the device); bit-exact with
+    ``quantize_fpn_levels``.  The levels are contiguous NHWC, or all NHWC
+    views of contiguous NCHW maps (``f.permute(0, 2, 3, 1)``)."""
+    if levels[0].device.type == "cpu":
+        return quantize_fpn_levels(levels)
+    dev = levels[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"quantize_levels: unsupported device {dev}")
+    if len(levels) != LEVELS:
+        raise ValueError(f"quantize_levels takes the {LEVELS} levels P2-P5, "
+                         f"got {len(levels)}")
+    b, c = levels[0].shape[0], levels[0].shape[-1]
+    for f in levels:
+        if f.dtype != torch.float32:
+            raise TypeError(f"quantize_levels takes float32 levels, got "
+                            f"{f.dtype}")
+        if f.device != dev or f.dim() != 4 or f.shape[0] != b \
+                or f.shape[-1] != c or f.numel() == 0:
+            raise ValueError("quantize_levels takes non-empty [B, H, W, C] "
+                             "levels on one device with one B and C")
+    if all(f.is_contiguous() for f in levels):
+        nchw = False
+    elif all(f.permute(0, 3, 1, 2).is_contiguous() for f in levels):
+        nchw = True
+    else:
+        raise ValueError("quantize_levels takes contiguous NHWC levels or "
+                         "the NHWC views of contiguous NCHW maps")
+    codes = [torch.empty(f.shape, dtype=torch.int8, device=dev)
+             for f in levels]
+    amax = torch.empty(LEVELS, dtype=torch.int32, device=dev)
+    scales = torch.empty(LEVELS, dtype=torch.float32, device=dev)
+    hw = (ctypes.c_int * (2 * LEVELS))(
+        *[int(v) for f in levels for v in f.shape[1:3]])
+    _build.check(_build.load().hnd_quantize_levels(
+        (ctypes.c_void_p * LEVELS)(*[f.data_ptr() for f in levels]),
+        (ctypes.c_void_p * LEVELS)(*[q.data_ptr() for q in codes]),
+        hw, b, c, int(nchw), amax.data_ptr(), scales.data_ptr(),
+        _stream(dev)), "hnd_quantize_levels")
+    quantize_levels.launches += 1
+    return codes, scales
+
+
+quantize_levels.launches = 0
 
 
 def roi_align_backward(grad_out: torch.Tensor,

@@ -70,6 +70,82 @@ def test_roi_align_kernel_vs_plain(cuda, c, pool):
     assert err <= ROI_TOL * float(want.abs().max())
 
 
+def _int8_inputs(cuda, c, seed, nchw):
+    """Float32 P2-P5 of a 256x512 bucket, as contiguous NHWC or as the NHWC
+    views of contiguous NCHW maps, the last image's lower half zero."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for s in (4, 8, 16, 32):
+        f = rng.randn(2, 256 // s, 512 // s, c).astype(np.float32) * s
+        f[1, 128 // s:] = 0.0
+        t = torch.from_numpy(f).to(cuda)
+        out.append(t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+                   if nchw else t)
+    return out
+
+
+@pytest.mark.parametrize("c,nchw", [(256, True), (256, False), (40, True),
+                                    (3, False)])
+def test_quantize_levels_kernel_bit_exact(cuda, c, nchw):
+    levels = _int8_inputs(cuda, c, 17, nchw)
+    n = RK.quantize_levels.launches
+    codes, scales = RK.quantize_levels(levels)
+    assert RK.quantize_levels.launches == n + 1
+    for want_q, want_s in (tra.quantize_fpn_levels(levels),
+                           tra.quantize_fpn_levels([f.cpu() for f in levels])):
+        assert torch.equal(scales.cpu(), want_s.cpu())
+        for q, w in zip(codes, want_q):
+            assert q.dtype == torch.int8 and q.is_contiguous()
+            assert torch.equal(q.cpu(), w.cpu())
+
+
+def test_quantize_levels_kernel_zero_level(cuda):
+    levels = _int8_inputs(cuda, 16, 18, True)
+    levels[3] = torch.zeros_like(levels[3])
+    codes, scales = RK.quantize_levels(levels)
+    assert float(scales[3]) == 1.0 and int(codes[3].abs().max()) == 0
+
+
+@pytest.mark.parametrize("c,pool", [(256, 7), (40, 7), (256, 14)])
+def test_roi_align_int8_kernel_vs_plain(cuda, c, pool):
+    feats = _int8_inputs(cuda, c, 19, True)
+    rng = np.random.RandomState(19)
+    boxes = torch.from_numpy(_boxes(rng, 2, 150, 256, 512)).to(cuda)
+    valid = torch.from_numpy(rng.rand(2, 150) > 0.3).to(cuda)
+    tables = tra.quantize_fpn_levels(feats)
+    counts = (RK.roi_align.launches, RK.roi_align.launches_int8)
+    got = RK.roi_align(feats, boxes, (256, 512), pool, 2, valid, quant=tables)
+    assert (RK.roi_align.launches, RK.roi_align.launches_int8) == (
+        counts[0], counts[1] + 1)
+    want = tra.multiscale_roi_align_batch(feats, boxes, (256, 512), pool, 2,
+                                          valid, quant=tables)
+    assert got.dtype == want.dtype == torch.float32
+    # the plain float32 program, the same operations in the same order
+    assert torch.equal(got, want)
+
+
+def test_int8_kernels_reject_what_they_do_not_take(cuda):
+    feats = _int8_inputs(cuda, 8, 20, False)
+    boxes = torch.zeros(2, 3, 4, device=cuda)
+    codes, scales = RK.quantize_levels(feats)
+    with pytest.raises(TypeError):      # int8 levels without their scales
+        RK.roi_align(codes, boxes, (256, 512), 7)
+    with pytest.raises(TypeError):      # scales with float levels
+        RK.roi_align(feats, boxes, (256, 512), 7, quant=(feats, scales))
+    with pytest.raises(TypeError):      # int8 tables for bf16 levels
+        RK.roi_align([f.bfloat16() for f in feats], boxes, (256, 512), 7,
+                     quant=(codes, scales))
+    with pytest.raises(ValueError):
+        RK.roi_align(feats, boxes, (256, 512), 7, quant=(codes, scales[:3]))
+    with pytest.raises(TypeError):
+        RK.quantize_levels([f.double() for f in feats])
+    mixed = [feats[0].permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)]
+    with pytest.raises(ValueError):
+        RK.quantize_levels(mixed + feats[1:])
+    with pytest.raises(ValueError):
+        RK.quantize_levels(feats[:3])
+
+
 def _bf16_ulp(x: float) -> float:
     """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
     return 2.0 ** (np.floor(np.log2(abs(x))) - 7)

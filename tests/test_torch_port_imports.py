@@ -1,11 +1,13 @@
 """The port runs on torch and numpy alone, and chip_smoke.py refuses to run
 without a GPU or without the package beside it.
 
-Each check runs in a fresh interpreter: the serving, distill and
-supervised-training slices are imported, built and run once on a tiny input
-(one distill epoch of one step, one coco_runner epoch of one bfloat16 step,
-each with its eval), then jax, the JAX package, PIL, cv2 and yaml must be
-absent from ``sys.modules`` (the GPU host has none of them)."""
+Each check runs in a fresh interpreter: the serving, distill,
+supervised-training and heads slices are imported, built and run once on a
+tiny input (one distill epoch of one step, one coco_runner epoch of one
+bfloat16 step, each with its eval, and the eval of the Mask and Keypoint
+R-CNN students with int8 pooling tables), then jax, the JAX package, PIL,
+cv2 and yaml must be absent from ``sys.modules`` (the GPU host has none of
+them)."""
 import os
 import shutil
 import subprocess
@@ -28,7 +30,8 @@ from hnd_ghnd_tpu_torch.distill import box, losses
 from hnd_ghnd_tpu_torch.parallel import train_step
 from hnd_ghnd_tpu_torch.runners import coco_runner, common, mimic_runner
 from hnd_ghnd_tpu_torch.utils import params
-from chip_smoke import ORG_MODEL, ORG_TRAIN, STUDENT_MODEL, TEACHER_MODEL, TRAIN
+from chip_smoke import (KEYPOINT_STUDENT_MODEL, MASK_STUDENT_MODEL, ORG_MODEL,
+    ORG_TRAIN, STUDENT_MODEL, TEACHER_MODEL, TRAIN)
 model = factory.get_model(STUDENT_MODEL, seed=0, device="cpu")
 batch = {"images": np.zeros((1, 64, 64, 3), np.uint8),
          "image_sizes": np.array([[64, 64]], np.int32),
@@ -48,6 +51,12 @@ hist = coco_runner.train(org, {"model": ORG_MODEL,
                                "train": dict(ORG_TRAIN, num_epochs=1)},
                          [(batch, targets)], [batch], 1)
 assert len(hist["steps"]) == 1 and len(hist["evals"]) == 1
+for cfg, head in ((MASK_STUDENT_MODEL, "mask_probs"),
+                  (KEYPOINT_STUDENT_MODEL, "keypoint_logits")):
+    cfg = dict(cfg, params=dict(cfg["params"], int8_roi_pool=True))
+    m = factory.get_model(cfg, seed=3, device="cpu")
+    (rec,) = common.evaluate(m, [batch], use_bottleneck_transformer=True)
+    assert rec["dets"][head].shape[:2] == (1, 100)
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "hnd_ghnd_tpu", "PIL",
                                  "cv2", "yaml")]

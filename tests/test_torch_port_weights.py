@@ -5,7 +5,7 @@
 and org Faster R-CNN cross to the port and back bit for bit, with their
 init's identity BNs and with the live BNs of ``live_models``.  The config
 literals of chip_smoke.py are the parsed YAML, every schema feature the
-port does not run raises, ``freeze_layers`` freezes the trunk's conv1, bn1
+port does not run raises (and those it ports build), ``freeze_layers`` freezes the trunk's conv1, bn1
 and layer1, and ``get_model`` builds on the CPU only when asked.
 
 ``live_models`` is the pair of models the other port tests compare."""
@@ -17,7 +17,8 @@ import pytest
 import torch
 import yaml
 
-from chip_smoke import (ORG_MODEL, ORG_TPU, ORG_TRAIN, STUDENT_MODEL,
+from chip_smoke import (KEYPOINT_STUDENT_MODEL, MASK_STUDENT_MODEL,
+                        ORG_MODEL, ORG_TPU, ORG_TRAIN, STUDENT_MODEL,
                         TEACHER_MODEL, TRAIN, live_norms_)
 from hnd_ghnd_tpu.models.convert import convert_state_dict, torch_path_to_ours
 from hnd_ghnd_tpu.models.factory import build_model as jax_build_model
@@ -153,8 +154,9 @@ def test_teacher_weights_round_trip_exactly(teacher_weights):
     _assert_trees_equal(params, back_params)
 
 
-@pytest.mark.parametrize("cfg", [STUDENT_MODEL, TEACHER_MODEL],
-                         ids=["student", "teacher"])
+@pytest.mark.parametrize("cfg", [STUDENT_MODEL, TEACHER_MODEL,
+                                 MASK_STUDENT_MODEL, KEYPOINT_STUDENT_MODEL],
+                         ids=["student", "teacher", "mask", "keypoint"])
 def test_every_port_key_is_a_reference_path(cfg):
     sd = get_model(cfg, seed=0, device="cpu").state_dict()
     for key in sd:
@@ -197,17 +199,27 @@ def _with(path, value):
 
 
 @pytest.mark.parametrize("cfg", [
-    _with(("name",), "mask_rcnn"),
-    _with(("name",), "keypoint_rcnn"),
     _with(("backbone", "ext_config"), {"threshold": 0.5}),
     _with(("bottleneck_transformer", "order"),
           ["quantizer", "jpeg_compressor", "jpeg_decompressor", "dequantizer"]),
-    _with(("params", "int8_roi_pool"), True),
     _with(("params", "roi_pool_impl"), "xla"),
     _with(("backbone", "name"), "resnet101"),
-], ids=["mask", "keypoint", "ext", "jpeg", "int8_pool", "xla_pool",
-        "resnet101"])
+    dict(KEYPOINT_STUDENT_MODEL, params=dict(KEYPOINT_STUDENT_MODEL["params"],
+                                             kp_decode="device")),
+], ids=["ext", "jpeg", "xla_pool", "resnet101", "kp_decode_device"])
 def test_unported_features_raise(cfg):
     with pytest.raises(NotImplementedError):
         build_model(cfg)
+
+
+@pytest.mark.parametrize("cfg,kind,head,int8", [
+    (_with(("name",), "mask_rcnn"), "mask_rcnn", "mask_predictor", False),
+    (_with(("name",), "keypoint_rcnn"), "keypoint_rcnn",
+     "keypoint_predictor", False),
+    (_with(("params", "int8_roi_pool"), True), "faster_rcnn", None, True),
+], ids=["mask", "keypoint", "int8_pool"])
+def test_ported_features_build(cfg, kind, head, int8):
+    model = build_model(cfg)
+    assert model.kind == kind and model.roi_heads.int8_pool == int8
+    assert head is None or hasattr(model.roi_heads, head)
 
