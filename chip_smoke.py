@@ -28,7 +28,8 @@ Each path checks that every kernel it runs was launched.  Any failed check
 raises.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
-it lists each kernel's route, launches, error, time and bound.  Without a
+it lists each kernel's route, launches, error, times (as its caller sees
+it, ``ms``, and on the card alone, ``device_ms``) and bound.  Without a
 GPU, or without the package beside it, the script exits nonzero and prints
 no result.  It imports nothing of JAX.
 """
@@ -155,6 +156,9 @@ ROI_TOL = 1e-5                 # RoIAlign: identical arithmetic, order only
 STEM_FWD_TOL = 1e-5            # x max |plain output|
 STEM_DW_TOL = 1e-4             # x max |plain dW|
 REPS = 25                      # timed runs per kernel; the median is kept
+# ~5 ms of the card's clock: longer than the host takes to enqueue any
+# kernel's call with its wrapper's checks (time_ms's device reading)
+SPIN_CYCLES = 10_000_000
 # the card's peaks for the bound of a kernel (H100 SXM data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12        # float32 outside the tensor cores
@@ -202,8 +206,13 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn) -> float:
-    """Median of REPS CUDA-event timings of ``fn`` after a warm-up."""
+def time_ms(fn, spin: bool = False) -> float:
+    """Median of REPS CUDA-event timings of ``fn`` after a warm-up.  With
+    ``spin`` each timing starts behind a spin of the card (SPIN_CYCLES)
+    that outlasts the host's enqueueing of ``fn``, so it reads the card's
+    time for ``fn``'s work; without it, the card may wait on the host's
+    launching (a wrapper's checks and small torch ops can take longer on
+    the host than a fast kernel on the card)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -211,12 +220,20 @@ def time_ms(fn) -> float:
     for _ in range(REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timings(fn) -> dict:
+    """``fn``'s time both ways: ``ms`` as the caller sees it, ``device_ms``
+    on the card alone (time_ms)."""
+    return {"ms": time_ms(fn), "device_ms": time_ms(fn, spin=True)}
 
 
 def box_mix(rng: np.random.RandomState, b: int, n: int, h: int, w: int):
@@ -317,6 +334,21 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def tapped_bytes(levels, boxes, valid, image_size, pool: int) -> int:
+    """The bytes of P2-P5 that a RoIAlign of ``boxes`` reads at least: the
+    cells a valid RoI taps with a nonzero weight, times C and the element
+    size (a tighter bound than whole levels, which ``bound_ms`` counts).
+    They are the nonzero entries of the plain version's gradient at one
+    channel (its weights are >= 0, so they never cancel)."""
+    from hnd_ghnd_tpu_torch.ops.roi_align import multiscale_roi_align_batch
+    ones = [torch.zeros((f.shape[0], f.shape[1], f.shape[2], 1),
+                        device=f.device, requires_grad=True) for f in levels]
+    out = multiscale_roi_align_batch(ones, boxes, image_size, pool, 2, valid)
+    grads = torch.autograd.grad(out.sum(), ones)
+    cells = sum(int((g != 0).sum()) for g in grads)
+    return cells * levels[0].shape[-1] * levels[0].element_size()
+
+
 def bound(n_bytes: float, n_ops: float) -> dict:
     """The least time the card could take: the larger of the bytes over
     the memory rate and the float32 operations over their peak rate."""
@@ -374,14 +406,14 @@ def stem_kernels_phase(dev: torch.device, kernels: dict) -> None:
                   f"{scale_}")
         if shape != shapes[2]:
             times = {
-                "stem_fwd": (time_ms(lambda: SK.stem_fwd(x, w, scale, bias)),
+                "stem_fwd": (timings(lambda: SK.stem_fwd(x, w, scale, bias)),
                              time_ms(lambda: ts.stem_forward(x, w, scale,
                                                              bias))),
                 "stem_fwd_res": (
-                    time_ms(lambda: SK.stem_fwd_res(x, w, scale, bias)),
+                    timings(lambda: SK.stem_fwd_res(x, w, scale, bias)),
                     time_ms(lambda: ts.stem_forward(x, w, scale, bias,
                                                     with_conv=True))),
-                "stem_dw": (time_ms(lambda: SK.stem_dw(x, g)),
+                "stem_dw": (timings(lambda: SK.stem_dw(x, g)),
                             time_ms(lambda: ts.stem_weight_grad(x, g))),
             }
             # one PyTorch call each: the conv alone (no affine, no ReLU)
@@ -389,10 +421,11 @@ def stem_kernels_phase(dev: torch.device, kernels: dict) -> None:
             conv_ms = time_ms(lambda: F.conv2d(x, w, stride=2, padding=3))
             dw_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
                 x, w.shape, g, stride=2, padding=3))
-            for name, (k_ms, p_ms) in times.items():
+            for name, (k, p_ms) in times.items():
                 lib = dw_ms if name == "stem_dw" else conv_ms
-                log(f"[stem] {name} {shape}: {k_ms:.4f} ms kernel, {p_ms:.4f} "
-                    f"ms plain, {lib:.4f} ms library (median of {REPS})")
+                log(f"[stem] {name} {shape}: {k['ms']:.4f} ms kernel "
+                    f"({k['device_ms']:.4f} on the card), {p_ms:.4f} ms plain, "
+                    f"{lib:.4f} ms library (median of {REPS})")
         if shape == shapes[0]:
             macs = 2.0 * 147 * conv.numel()
             bounds = {
@@ -407,7 +440,7 @@ def stem_kernels_phase(dev: torch.device, kernels: dict) -> None:
                 kernels[name] = dict(
                     source="hnd_ghnd_tpu_torch/csrc/stem.cu",
                     replaces=f"hnd_ghnd_tpu/ops/pallas_stem.py:{line}",
-                    max_abs_err=errs[name][0], ms=times[name][0],
+                    max_abs_err=errs[name][0], **times[name][0],
                     plain_ms=times[name][1],
                     library_ms=dw_ms if name == "stem_dw" else conv_ms,
                     **bounds[name])
@@ -680,35 +713,42 @@ def roi_train_kernels_phase(dev: torch.device, kernels: dict) -> None:
             f"{'agree' if same else 'differ'} bit for bit (float atomics: "
             "the order of the adds is not fixed)")
         check(bwd_err <= tol, f"roi_align_bwd {tag}: {bwd_err} > {tol}")
-        bwd_ms = time_ms(lambda: RK.roi_align_backward(
+        bwd_t = timings(lambda: RK.roi_align_backward(
             cot, shapes, dtype, boxes, level, weight, size, 2))
         plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
             plain_out, ref, cot, retain_graph=True))
         # 2 x 2 samples of 4 taps, a multiply and an add each, and the
         # validity weight, per (valid RoI, bin, channel)
         n_ops = 33.0 * n_valid * 49 * 256
-        fwd_bound = bound(nbytes(*levels, boxes, valid, got), n_ops)
+        fwd_bound = dict(
+            bound(nbytes(*levels, boxes, valid, got), n_ops),
+            tapped_bound_ms=bound(tapped_bytes(levels, boxes, valid, size, 7)
+                                  + nbytes(boxes, valid, got),
+                                  n_ops)["bound_ms"])
         bwd_bound = bound(nbytes(cot, boxes, valid, *got_g), n_ops)
-        fwd_ms = time_ms(lambda: RK.roi_align(levels, boxes, size, 7, 2,
-                                              valid))
+        fwd_t = timings(lambda: RK.roi_align(levels, boxes, size, 7, 2,
+                                             valid))
         plain_fwd_ms = time_ms(lambda: multiscale_roi_align_batch(
             levels, boxes, size, 7, 2, valid))
-        log(f"[roi-train] forward {tag}: {fwd_ms:.4f} ms kernel, "
-            f"{plain_fwd_ms:.4f} ms plain; backward {bwd_ms:.4f} ms kernel, "
-            f"{plain_bwd_ms:.4f} ms plain autograd (median of {REPS}); "
-            f"bounds {fwd_bound['bound_ms']:.4f} / "
+        log(f"[roi-train] forward {tag}: {fwd_t['ms']:.4f} ms kernel "
+            f"({fwd_t['device_ms']:.4f} on the card), {plain_fwd_ms:.4f} ms "
+            f"plain; backward {bwd_t['ms']:.4f} ms kernel "
+            f"({bwd_t['device_ms']:.4f} on the card), {plain_bwd_ms:.4f} ms "
+            f"plain autograd (median of {REPS}); bounds "
+            f"{fwd_bound['bound_ms']:.4f} (tapped cells "
+            f"{fwd_bound['tapped_bound_ms']:.4f}) / "
             f"{bwd_bound['bound_ms']:.4f} ms by {fwd_bound['bound_by']}")
         # no single PyTorch call computes either function (no torchvision)
         if dtype == torch.bfloat16:
             kernels["roi_align_bf16"] = dict(
                 source="hnd_ghnd_tpu_torch/csrc/roi_align.cu",
                 replaces="hnd_ghnd_tpu/ops/pallas_roi.py:231",
-                max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_fwd_ms,
+                max_abs_err=fwd_err, **fwd_t, plain_ms=plain_fwd_ms,
                 library_ms=None, **fwd_bound)
             kernels["roi_align_bwd"] = dict(
                 source="hnd_ghnd_tpu_torch/csrc/roi_align.cu",
                 replaces="hnd_ghnd_tpu/ops/pallas_roi.py:446",
-                max_abs_err=bwd_err, ms=bwd_ms, plain_ms=plain_bwd_ms,
+                max_abs_err=bwd_err, **bwd_t, plain_ms=plain_bwd_ms,
                 library_ms=None, **bwd_bound)
         del levels, cot, got, want, ref, plain_out, plain, got_g, again
     torch.cuda.empty_cache()
@@ -785,24 +825,46 @@ def int8_kernels_phase(dev: torch.device, kernels: dict) -> None:
                 f"{ROI_TOL} x max)")
             check(e14 <= ROI_TOL * float(plain.abs().max()),
                   f"roi_align f32 at 14x14: {e14}")
-            ms14 = time_ms(lambda: RK.roi_align(views, boxes, size, 14, 2,
-                                                valid, quant=tables))
-            f32_14 = time_ms(lambda: RK.roi_align(nhwc, boxes, size, 14, 2,
-                                                  valid))
-            log(f"[kernels] 8x100 RoIs at 14x14: int8 {ms14:.4f} ms, f32 "
-                f"{f32_14:.4f} ms (median of {REPS})")
+            # the heads' pooling: kernel, plain version and bounds (whole
+            # levels and tapped cells) per table
+            n_ops = 33.0 * int(valid.sum()) * 196 * 256
+            for tag, kernel, plain, levels, rest in (
+                    ("f32", lambda: RK.roi_align(nhwc, boxes, size, 14, 2,
+                                                 valid),
+                     lambda: multiscale_roi_align_batch(nhwc, boxes, size, 14,
+                                                        2, valid),
+                     nhwc, nbytes(boxes, valid, f32)),
+                    ("int8", lambda: RK.roi_align(views, boxes, size, 14, 2,
+                                                  valid, quant=tables),
+                     lambda: multiscale_roi_align_batch(
+                         views, boxes, size, 14, 2, valid, quant=tables),
+                     codes, nbytes(scales, boxes, valid, got))):
+                t, plain_ms = timings(kernel), time_ms(plain)
+                b14 = bound(nbytes(*levels) + rest, n_ops)
+                tapped = bound(tapped_bytes(levels, boxes, valid, size, 14)
+                               + rest, n_ops)["bound_ms"]
+                log(f"[kernels] roi_align {tag} 8x100 RoIs at 14x14: "
+                    f"{t['ms']:.4f} ms kernel ({t['device_ms']:.4f} on the "
+                    f"card), {plain_ms:.4f} ms plain (median of {REPS}); "
+                    f"bound {b14['bound_ms']:.4f} ms by {b14['bound_by']}, "
+                    f"{b14['bound_ms'] / t['ms']:.1%} of it; tapped cells "
+                    f"{tapped:.4f} ms, {tapped / t['device_ms']:.1%} of the "
+                    "card's time")
             continue
         n_valid = int(valid.sum())
         kernels["roi_align_int8"] = dict(
             source="hnd_ghnd_tpu_torch/csrc/roi_align.cu",
             replaces="hnd_ghnd_tpu/ops/pallas_roi.py:231", max_abs_err=err,
-            ms=time_ms(lambda: RK.roi_align(views, boxes, size, 7, 2, valid,
-                                            quant=tables)),
+            **timings(lambda: RK.roi_align(views, boxes, size, 7, 2, valid,
+                                           quant=tables)),
             plain_ms=time_ms(lambda: multiscale_roi_align_batch(
                 views, boxes, size, 7, 2, valid, quant=tables)),
             library_ms=None,
             **bound(nbytes(*codes, scales, boxes, valid, got),
-                    33.0 * n_valid * 49 * 256))
+                    33.0 * n_valid * 49 * 256),
+            tapped_bound_ms=bound(tapped_bytes(codes, boxes, valid, size, 7)
+                                  + nbytes(scales, boxes, valid, got),
+                                  33.0 * n_valid * 49 * 256)["bound_ms"])
         # the box pool from the FPN's NCHW maps, both ways
         f32_way = time_ms(lambda: RK.roi_align(
             [v.contiguous() for v in views], boxes, size, 7, 2, valid))
@@ -816,7 +878,7 @@ def int8_kernels_phase(dev: torch.device, kernels: dict) -> None:
     kernels["quantize_levels"] = dict(
         source="hnd_ghnd_tpu_torch/csrc/fpn_quant.cu",
         replaces="hnd_ghnd_tpu/ops/roi_align.py:201", max_abs_err=0.0,
-        ms=time_ms(lambda: RK.quantize_levels(views)),
+        **timings(lambda: RK.quantize_levels(views)),
         plain_ms=time_ms(lambda: quantize_fpn_levels(views)), library_ms=None,
         **bound(nbytes(*views, *codes, scales), 6.0 * n_el))
     del nchw, views, nhwc, codes, tables, got, want, f32
@@ -1186,7 +1248,7 @@ def main() -> int:
         replaces="hnd_ghnd_tpu/ops/pallas_quant.py:46",
         max_abs_err=float((q.tensor.int() - quantize_tensor(z, 8).tensor.int())
                           .abs().max()),
-        ms=time_ms(lambda: QK.quantize(z, 8)),
+        **timings(lambda: QK.quantize(z, 8)),
         plain_ms=time_ms(lambda: quantize_tensor(z, 8)), library_ms=None,
         **bound(nbytes(z, q.tensor), 7.0 * z.numel()))
     kernels["dequantize"] = dict(
@@ -1194,7 +1256,7 @@ def main() -> int:
         replaces="hnd_ghnd_tpu/ops/pallas_quant.py:61",
         max_abs_err=float((QK.dequantize(q) - dequantize_tensor(q))
                           .abs().max()),
-        ms=time_ms(lambda: QK.dequantize(q)),
+        **timings(lambda: QK.dequantize(q)),
         plain_ms=time_ms(lambda: dequantize_tensor(q)), library_ms=None,
         **bound(nbytes(q.tensor, z), 2.0 * z.numel()))
 
@@ -1217,11 +1279,15 @@ def main() -> int:
     kernels["roi_align"] = dict(
         source="hnd_ghnd_tpu_torch/csrc/roi_align.cu",
         replaces="hnd_ghnd_tpu/ops/pallas_roi.py:231", max_abs_err=err,
-        ms=time_ms(lambda: RK.roi_align(levels, boxes, (h, w), 7, 2, valid)),
+        **timings(lambda: RK.roi_align(levels, boxes, (h, w), 7, 2, valid)),
         plain_ms=time_ms(lambda: multiscale_roi_align_batch(
             levels, boxes, (h, w), 7, 2, valid)), library_ms=None,
         **bound(nbytes(*levels, boxes, valid, got),
-                33.0 * n_valid * 49 * levels[0].shape[-1]))
+                33.0 * n_valid * 49 * levels[0].shape[-1]),
+        tapped_bound_ms=bound(tapped_bytes(levels, boxes, valid, (h, w), 7)
+                              + nbytes(boxes, valid, got),
+                              33.0 * n_valid * 49 * levels[0].shape[-1]
+                              )["bound_ms"])
     # what the NHWC hand-over costs from the served NCHW maps, and from
     # channels_last ones
     nchw = [f.permute(0, 3, 1, 2).contiguous() for f in levels]
@@ -1239,9 +1305,13 @@ def main() -> int:
     for name, k in kernels.items():
         lib = "" if k["library_ms"] is None else \
             f", {k['library_ms']:.4f} ms library"
-        log(f"[kernels] {name}: {k['ms']:.4f} ms kernel, "
-            f"{k['plain_ms']:.4f} ms plain{lib} (median of {REPS}); bound "
-            f"{k['bound_ms']:.4f} ms by {k['bound_by']}")
+        tapped = "" if "tapped_bound_ms" not in k else \
+            f"; tapped cells {k['tapped_bound_ms']:.4f} ms, " \
+            f"{k['tapped_bound_ms'] / k['device_ms']:.1%} of the card's time"
+        log(f"[kernels] {name}: {k['ms']:.4f} ms kernel "
+            f"({k['device_ms']:.4f} on the card), {k['plain_ms']:.4f} ms "
+            f"plain{lib} (median of {REPS}); bound {k['bound_ms']:.4f} ms by "
+            f"{k['bound_by']}, {k['bound_ms'] / k['ms']:.1%} of it{tapped}")
 
     # ---------------------------------------------------------- 4. serving
     os.environ["HND_TPU_PALLAS_STEM"] = "0"  # the serving path's default

@@ -18,6 +18,10 @@ Launches are counted per kernel: ``roi_align.launches`` (f32 levels),
 levels, its rounding pass: one launch) and ``quantize_levels.launches``
 (abs-max and codes: one launch).
 
+Each thread of the RoIAlign kernels owns a vector of channels of one bin;
+``vector_width`` picks its width per call from C, the element size and the
+pointers' alignment, and every width is the same kernel.
+
 The RoIAlign kernels read NHWC levels.  The trunk runs NCHW, so the caller
 pays one copy per float level; a channels_last map would hand over for free
 (``permute(0, 2, 3, 1)`` of it is already contiguous).  The quantizer reads
@@ -39,6 +43,41 @@ from hnd_ghnd_tpu_torch.ops.roi_align import (assign_levels, level_geometry,
 LEVELS = 4
 # the forward's level types, by hnd_roi_align_fwd's dtype code
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the RoIAlign kernels' channel vectors in bytes, widest first; after them
+# one element
+VECTOR_BYTES = (16, 8, 4)
+
+
+def vector_width(c: int, itemsize: int, addresses: Sequence[int],
+                 out_itemsize: int, out_addresses: Sequence[int]) -> int:
+    """Channels per thread of the RoIAlign kernels: the widest vector of
+    16, 8 or 4 bytes of the tables' type (else one element) whose count of
+    elements divides ``c``, with every table address (the levels, or the
+    backward's cotangent) aligned to the vector and every output address
+    to the pieces of at most 16 bytes the output is written in (the
+    forward's bins of ``out_itemsize``-byte elements, the backward's
+    float atomics)."""
+    for nb in VECTOR_BYTES:
+        v = nb // itemsize
+        if v >= 1 and c % v == 0 and all(a % nb == 0 for a in addresses) \
+                and all(a % min(16, v * out_itemsize) == 0
+                        for a in out_addresses):
+            return v
+    return 1
+
+
+# the backward adds one float4 per thread and tap, so that the lanes of a
+# warp's atomic cover 512 contiguous bytes: 8 channels per thread would put
+# them 32 bytes apart, touching twice the sectors (PERF.md)
+ATOMIC_FLOATS = 4
+
+
+def backward_width(c: int, itemsize: int, cot_address: int,
+                   grad_addresses: Sequence[int]) -> int:
+    """Channels per thread of the backward: ``vector_width`` of the
+    cotangent into float32 gradients, at most ``ATOMIC_FLOATS``."""
+    return min(vector_width(c, itemsize, [cot_address], 4, grad_addresses),
+               ATOMIC_FLOATS)
 
 
 def checked_inputs(features: Sequence[torch.Tensor], boxes: torch.Tensor,
@@ -112,12 +151,14 @@ def _forward(features, boxes, level, weight, image_size, output_size,
     out = torch.empty((b, n, output_size, output_size, c),
                       dtype=torch.float32 if dtype == torch.int8 else dtype,
                       device=boxes.device)
+    vec = vector_width(c, features[0].element_size(), list(ptrs),
+                       out.element_size(), [out.data_ptr()])
     _build.check(_build.load().hnd_roi_align_fwd(
         ptrs, hw, scales, boxes.data_ptr(), level.data_ptr(),
         None if weight is None else weight.data_ptr(),
         None if table_scale is None else table_scale.data_ptr(),
         out.data_ptr(), b * n, n, c, int(output_size), int(sampling_ratio),
-        _DTYPE_CODES[dtype], _stream(boxes.device)), "hnd_roi_align_fwd")
+        _DTYPE_CODES[dtype], vec, _stream(boxes.device)), "hnd_roi_align_fwd")
     if dtype == torch.bfloat16:
         roi_align.launches_bf16 += 1
     elif dtype == torch.int8:
@@ -231,12 +272,14 @@ def roi_align_backward(grad_out: torch.Tensor,
     views = list(torch.split(acc, sizes))
     hw, scales = _geometry(shapes, image_size)
     ptrs = (ctypes.c_void_p * LEVELS)(*[v.data_ptr() for v in views])
+    vec = backward_width(c, grad_out.element_size(), grad_out.data_ptr(),
+                         list(ptrs))
     lib = _build.load()
     bf16 = dtype == torch.bfloat16
     _build.check(lib.hnd_roi_align_bwd(
         ptrs, hw, scales, boxes.data_ptr(), level.data_ptr(),
         None if weight is None else weight.data_ptr(), grad_out.data_ptr(),
-        b * n, n, c, p, int(sampling_ratio), int(bf16), _stream(dev)),
+        b * n, n, c, p, int(sampling_ratio), int(bf16), vec, _stream(dev)),
         "hnd_roi_align_bwd")
     if bf16:
         out = torch.empty(acc.shape, dtype=torch.bfloat16, device=dev)

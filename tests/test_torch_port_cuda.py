@@ -203,6 +203,112 @@ def test_roi_align_backward_kernel_vs_plain_autograd(cuda, dtype):
         assert float((g.float() - r.float()).abs().max()) <= tol
 
 
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` one element past an aligned address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _edge_boxes(rng, b, n, h, w):
+    """The box mix with, in every image, RoIs fully off the image (both
+    sides), sub-pixel RoIs whose samples all fall in one cell of P2, and
+    the last 16 RoIs on one spot (the backward's atomics all hit the same
+    cells)."""
+    boxes = _boxes(rng, b, n, h, w)
+    boxes[:, 0] = (w + 60, h + 60, w + 140, h + 120)
+    boxes[:, 1] = (-300, -260, -200, -230)
+    boxes[:, 2] = (8.0, 12.0, 8.1, 12.05)     # P2 (x, y) = (2.0, 3.0)
+    boxes[:, 3] = (40.0, 20.0, 40.5, 20.5)
+    boxes[:, -16:] = (30.0, 30.0, 90.0, 70.0)
+    return boxes
+
+
+# (dtype, C, misaligned levels and cotangent, channels per thread)
+WIDTH_CASES = [
+    (torch.float32, 256, False, 4), (torch.float32, 40, False, 4),
+    (torch.float32, 3, False, 1), (torch.float32, 256, True, 1),
+    (torch.bfloat16, 256, False, 8), (torch.bfloat16, 40, False, 8),
+    (torch.bfloat16, 3, False, 1), (torch.bfloat16, 256, True, 1),
+    (torch.int8, 256, False, 16), (torch.int8, 40, False, 8),
+    (torch.int8, 3, False, 1), (torch.int8, 256, True, 1),
+]
+
+
+def _width_inputs(cuda, dtype, c, misaligned, seed):
+    rng = np.random.RandomState(seed)
+    b, n, h, w = 2, 96, 256, 512
+    f32 = [torch.from_numpy(rng.randn(b, h // s, w // s, c)
+                            .astype(np.float32) * s).to(cuda)
+           for s in (4, 8, 16, 32)]
+    boxes = torch.from_numpy(_edge_boxes(rng, b, n, h, w)).to(cuda)
+    valid = rng.rand(b, n) > 0.3
+    valid[:, 1] = False
+    valid = torch.from_numpy(valid).to(cuda)
+    if dtype == torch.int8:
+        feats, scales = tra.quantize_fpn_levels(f32)
+    else:
+        feats, scales = [f.to(dtype) for f in f32], None
+    if misaligned:
+        feats = [_misaligned(f) for f in feats]
+    return feats, scales, boxes, valid, (h, w)
+
+
+@pytest.mark.parametrize("dtype,c,misaligned,vec", WIDTH_CASES)
+@pytest.mark.parametrize("pool", [7, 14])
+def test_roi_align_kernel_widths_vs_plain(cuda, dtype, c, misaligned, vec,
+                                          pool):
+    feats, scales, boxes, valid, size = _width_inputs(cuda, dtype, c,
+                                                      misaligned, 21)
+    out_size = 4 if dtype == torch.int8 else feats[0].element_size()
+    assert RK.vector_width(c, feats[0].element_size(),
+                           [f.data_ptr() for f in feats], out_size,
+                           [1 << 20]) == vec
+    quant = None if scales is None else (feats, scales)
+    plain_in = [f.float() for f in feats] if quant else feats
+    got = (RK.roi_align(plain_in, boxes, size, pool, 2, valid, quant=quant)
+           if quant else RK.roi_align(feats, boxes, size, pool, 2, valid))
+    want = tra.multiscale_roi_align_batch(plain_in, boxes, size, pool, 2,
+                                          valid, quant=quant)
+    assert got.dtype == want.dtype
+    # off-image and invalid RoIs pool to zero
+    assert float(got[:, :2].float().abs().max()) == 0.0
+    if dtype == torch.float32:
+        err = float((got - want).abs().max())
+        assert err <= ROI_TOL * float(want.abs().max())
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,c,misaligned,vec",
+                         [case for case in WIDTH_CASES
+                          if case[0] != torch.int8])
+def test_roi_align_backward_widths_vs_plain_autograd(cuda, dtype, c,
+                                                     misaligned, vec):
+    feats, _, boxes, valid, size = _width_inputs(cuda, dtype, c, misaligned,
+                                                 22)
+    rng = np.random.RandomState(23)
+    cot = torch.from_numpy(rng.randn(2, 96, 7, 7, c).astype(np.float32)
+                           ).to(cuda, dtype)
+    if misaligned:
+        cot = _misaligned(cot)
+    assert RK.backward_width(c, cot.element_size(), cot.data_ptr(),
+                             [1 << 20]) == min(vec, RK.ATOMIC_FLOATS)
+    ref = [f.clone().requires_grad_(True) for f in feats]
+    want = torch.autograd.grad(tra.multiscale_roi_align_batch(
+        ref, boxes, size, 7, 2, valid), ref, cot)
+    boxes_c, level, weight = RK.checked_inputs(feats, boxes, valid)
+    got = RK.roi_align_backward(cot, [tuple(f.shape[1:3]) for f in feats],
+                                dtype, boxes_c, level, weight, size, 2)
+    torch.cuda.synchronize()
+    top = max(float(g.float().abs().max()) for g in want)
+    tol = ROI_TOL * top if dtype == torch.float32 else _bf16_ulp(top)
+    for g, r in zip(got, want):
+        assert g.dtype == dtype
+        assert float((g.float() - r.float()).abs().max()) <= tol
+
+
 def test_roi_align_kernel_rejects_what_it_does_not_take(cuda):
     boxes = torch.zeros(1, 2, 4, device=cuda)
     sizes = (8, 4, 2, 1)
