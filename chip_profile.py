@@ -22,8 +22,9 @@ in the 832x1344 bucket and measures:
 Then the GHND distill step of chip_smoke.py (teacher and student, batch 4
 at 832x1344, the fused stem switched on): its stages between device syncs
 (teacher forward, student forward and loss, backward, Adam update), the
-same unprofiled-latency / profiler breakdown per step, and the step with
-the stem switch on against off, interleaved (on, off, off, on).
+same unprofiled-latency / profiler breakdown per step with the stem
+kernels' device time and their share of the step's kernel time, and the
+step with the stem switch on against off, interleaved (on, off, off, on).
 
 Last, the supervised bfloat16 step of the org Faster R-CNN (chip_smoke.py's
 training phase, batch 2 at 832x1344): its stages between device syncs
@@ -212,6 +213,9 @@ def device_profile(unit_fn, unit: str = "forward"):
         "idle_share": 1.0 - busy / latency,
         f"kernel_ms_per_{unit}": sum(groups.values()) / 1e3 / FORWARDS,
         f"launches_per_{unit}": len(device) / FORWARDS})
+    # the fused stem's kernels (under HND_TPU_PALLAS_STEM=1), by name
+    out["stem_kernels_ms"] = {k: v / 1e3 / FORWARDS
+                              for k, (_, v) in kernels.items() if "stem_" in k}
     out.update(
         groups_ms={g: v / 1e3 / FORWARDS for g, v in
                    sorted(groups.items(), key=lambda kv: -kv[1])},
@@ -432,6 +436,12 @@ def main() -> int:
     for name, ms in d["stages_ms"].items():
         log(f"[distill] {name}: {ms:.3f} ms")
     log_profile(d["profile"], "step")
+    stem = d["profile"].get("stem_kernels_ms", {})
+    if stem:
+        total = sum(stem.values())
+        log(f"[distill] stem kernels {total:.4f} ms per step, "
+            f"{total / d['profile']['kernel_ms_per_step']:.4%} of the kernel "
+            "time: " + ", ".join(f"{k[:60]} {v:.4f}" for k, v in stem.items()))
     log("[distill] stem switch: " + ", ".join(
         f"{k} {v['median_ms']:.3f} ms ({v['min_ms']:.3f}-{v['max_ms']:.3f})"
         for k, v in d["stem_switch_ab"].items()))

@@ -1,4 +1,5 @@
-"""The RoIAlign kernels of two checkouts of the repository, in turns, on one GPU.
+"""The RoIAlign and stem kernels of two checkouts of the repository, in turns,
+on one GPU.
 
     python3 chip_roi_ab.py --old-tree OLD --out DIR/ab.json
 
@@ -14,14 +15,21 @@ at the main path's shapes:
     keypoint heads); the same on their int8 tables (``quantize_levels``);
   * ``roi_align`` on bfloat16 P2-P5 of a batch-2 bucket, 2x512 RoIs at 7x7
     (the supervised step), and ``roi_align_backward`` there on bfloat16 and
-    float32 levels.
+    float32 levels;
+  * the stem's ``stem_fwd``, ``stem_fwd_res`` and ``stem_dw`` on a batch-4
+    input of each bucket (the distill step's), [4, 3, 832, 1344] and
+    [4, 3, 1344, 832].
 
 Each time is a median of chip_smoke.REPS CUDA-event timings, read both ways
 chip_smoke reads them (``chip_smoke.timings``): ``ms`` as the caller sees
 it, ``device_ms`` on the card alone; a forward's ``checked_inputs`` (its
 checks and level assignment) is also timed alone on the card.  Each process holds every output
 against the plain version (ops/roi_align.py) with chip_smoke's tolerances;
-the forwards' bits must also agree between the checkouts.  In the last
+the RoIAlign forwards' bits must also agree between the checkouts.  The
+stem outputs are held to their plain versions with chip_smoke's
+STEM_FWD_TOL and STEM_DW_TOL, dW must repeat bit for bit, and the new
+checkout's forwards must agree with the old one's (saved by the first
+turn to a temporary directory) within STEM_FWD_TOL.  In the last
 turn of the new checkout, if its wrapper picks a channel width
 (``vector_width``), each case is timed again at every width its kernel
 takes, and the backward's passes are timed apart: the zeroing of its
@@ -40,14 +48,16 @@ import hashlib
 import json
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from chip_smoke import (BUCKETS, EVAL_BATCH, ORG_BATCH, ROI_TOL, SEED,
-                        TRAIN_ROIS, bf16_ulp, box_mix, gpu_name_and_power,
-                        log, time_ms, timings)
+                        STEM_DW_TOL, STEM_FWD_TOL, TRAIN_BATCH, TRAIN_ROIS,
+                        bf16_ulp, box_mix, gpu_name_and_power, log,
+                        stem_inputs, time_ms, timings)
 
 HERE = Path(__file__).resolve().parent
 TURNS = ("old", "new", "new", "old")
@@ -115,8 +125,65 @@ def backward_cases(dev: torch.device):
         yield f"backward {tag}", levels, cot, boxes, valid
 
 
-def turn(tree: Path, out: Path, sweep: bool) -> int:
-    """One turn: the RoIAlign wrappers of the checkout at ``tree``."""
+def stem_cases(tree: Path, dev: torch.device, saved: Path):
+    """The stem wrappers of the checkout at ``tree`` on seeded batch-4
+    inputs of both buckets: each held to its plain version, dW repeated,
+    the forwards saved to ``saved`` when the other checkout's are not
+    there yet and held to them when they are.  Yields the records."""
+    from hnd_ghnd_tpu_torch.ops import stem as ts
+    from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
+    for bucket in BUCKETS:
+        shape = (TRAIN_BATCH, 3) + bucket
+        gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+        x, w, scale, bias = stem_inputs(gen, shape, dev)
+        want, conv = ts.stem_forward(x, w, scale, bias, with_conv=True)
+        g = torch.randn(conv.shape, generator=gen, device=dev)
+        want_dw = ts.stem_weight_grad(x, g)
+        got = SK.stem_fwd(x, w, scale, bias)
+        got_res, got_conv = SK.stem_fwd_res(x, w, scale, bias)
+        dw = SK.stem_dw(x, g)
+        if not torch.equal(SK.stem_dw(x, g), dw):
+            raise AssertionError(f"stem_dw {shape} is not repeatable")
+        outs = {"stem_fwd": (got, want, STEM_FWD_TOL),
+                "stem_fwd_res": (got_res, want, STEM_FWD_TOL),
+                "stem_fwd_res conv": (got_conv, conv, STEM_FWD_TOL),
+                "stem_dw": (dw, want_dw, STEM_DW_TOL)}
+        errs = {}
+        for name, (a, b, tol) in outs.items():
+            errs[name] = float((a - b).abs().max())
+            if errs[name] > tol * float(b.abs().max()):
+                raise AssertionError(f"{name} {shape}: {errs[name]} from the "
+                                     "plain version")
+        file = saved / f"stem_{bucket[0]}x{bucket[1]}.pt"
+        if file.is_file():
+            other = torch.load(file, map_location=dev)
+            for name in ("stem_fwd", "stem_fwd_res conv"):
+                gap = float((outs[name][0] - other[name]).abs().max())
+                if gap > STEM_FWD_TOL * float(outs[name][1].abs().max()):
+                    raise AssertionError(f"{name} {shape}: the checkouts "
+                                         f"differ by {gap}")
+                errs[f"{name} vs other checkout"] = gap
+        else:
+            torch.save({"stem_fwd": got, "stem_fwd_res conv": got_conv},
+                       file)
+        del want, conv, got_res, got_conv, want_dw
+        calls = {"stem_fwd": lambda: SK.stem_fwd(x, w, scale, bias),
+                 "stem_fwd_res": lambda: SK.stem_fwd_res(x, w, scale, bias),
+                 "stem_dw": lambda: SK.stem_dw(x, g)}
+        for name, call in calls.items():
+            rec = dict(name=f"{name} {bucket[0]}x{bucket[1]}",
+                       shape=list(shape), errs=errs, **timings(call))
+            log(f"[ab {tree.name}] {rec['name']}: {rec['ms']:.4f} ms "
+                f"({rec['device_ms']:.4f} on the card)")
+            yield rec
+        log(f"[ab {tree.name}] stem {shape} max abs errors: {errs}")
+        del x, g, got, dw
+        torch.cuda.empty_cache()
+
+
+def turn(tree: Path, out: Path, sweep: bool, saved: Path) -> int:
+    """One turn: the RoIAlign and stem wrappers of the checkout at
+    ``tree``."""
     sys.path.insert(0, str(tree))
     from hnd_ghnd_tpu_torch import _build
     from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
@@ -125,6 +192,9 @@ def turn(tree: Path, out: Path, sweep: bool) -> int:
         raise RuntimeError(f"imported {RK.__file__}, not from {tree}")
     sweep = sweep and hasattr(RK, "vector_width")
     dev = torch.device("cuda", 0)
+    # the plain convolutions in float32, not TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     size = BUCKETS[0]
     cases = []
     for name, levels, quant, boxes, valid, pool in forward_cases(dev):
@@ -216,6 +286,7 @@ def turn(tree: Path, out: Path, sweep: bool) -> int:
                          "round_device_ms")))
         del levels, cot, plain
         torch.cuda.empty_cache()
+    cases += list(stem_cases(tree, dev, saved))
     out.write_text(json.dumps({"tree": str(tree), "cases": cases}, indent=1))
     return 0
 
@@ -226,13 +297,14 @@ def main() -> int:
     ap.add_argument("--out", required=True, type=Path, help="the JSON result")
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--sweep", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--saved", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_roi_ab: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
     if args.turn is not None:
-        return turn(args.turn.resolve(), args.out, args.sweep)
+        return turn(args.turn.resolve(), args.out, args.sweep, args.saved)
     if args.old_tree is None:
         ap.error("--old-tree is required")
     trees = {"old": args.old_tree.resolve(), "new": HERE}
@@ -241,12 +313,14 @@ def main() -> int:
         f"{torch.version.cuda}; old {trees['old']}, new {trees['new']}")
     args.out.parent.mkdir(parents=True, exist_ok=True)
     runs = []
-    for i, side in enumerate(TURNS):
-        part = args.out.with_name(f"{args.out.stem}.turn{i}.{side}.json")
-        subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--turn", str(trees[side]), "--out", str(part)]
-                       + (["--sweep"] if i == 2 else []), check=True)
-        runs.append(json.loads(part.read_text())["cases"])
+    with tempfile.TemporaryDirectory(prefix="chip_roi_ab.") as saved:
+        for i, side in enumerate(TURNS):
+            part = args.out.with_name(f"{args.out.stem}.turn{i}.{side}.json")
+            subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--turn", str(trees[side]), "--out", str(part),
+                            "--saved", saved]
+                           + (["--sweep"] if i == 2 else []), check=True)
+            runs.append(json.loads(part.read_text())["cases"])
     results = []
     for k, rec in enumerate(runs[1]):
         name = rec["name"]

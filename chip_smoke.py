@@ -372,14 +372,16 @@ def stem_inputs(gen: torch.Generator, shape, device: torch.device):
 
 def stem_kernels_phase(dev: torch.device, kernels: dict) -> None:
     """The three stem kernels against their plain versions at the distill
-    step's shapes (batch 4 on both buckets) and on a ragged shape (33 x 50
-    outputs: a partial tile in each direction), timed at 832x1344."""
+    step's shapes (batch 4 on both buckets), on a ragged shape (33 x 50
+    outputs: a partial tile in each direction) and on one with W/2 odd
+    whose tiles no persistent grid divides (65 x 673 outputs, 594 tiles),
+    timed at both buckets."""
     import torch.nn.functional as F
     from hnd_ghnd_tpu_torch.ops import stem as ts
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
     gen = torch.Generator(device=dev).manual_seed(SEED)
     shapes = [(TRAIN_BATCH, 3) + BUCKETS[0], (TRAIN_BATCH, 3) + BUCKETS[1],
-              (2, 3, 66, 100)]
+              (2, 3, 66, 100), (3, 3, 130, 1346)]
     for shape in shapes:
         x, w, scale, bias = stem_inputs(gen, shape, dev)
         want, conv = ts.stem_forward(x, w, scale, bias, with_conv=True)
@@ -404,7 +406,7 @@ def stem_kernels_phase(dev: torch.device, kernels: dict) -> None:
                 f"{scale_:.3e}, bound {tol} x max)")
             check(err <= tol * scale_, f"{name} {shape}: {err} > {tol} x "
                   f"{scale_}")
-        if shape != shapes[2]:
+        if shape in shapes[:2]:
             times = {
                 "stem_fwd": (timings(lambda: SK.stem_fwd(x, w, scale, bias)),
                              time_ms(lambda: ts.stem_forward(x, w, scale,
@@ -510,8 +512,11 @@ def distill_phase(dev: torch.device, eval_batch: dict):
             c.launches = 0
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
+        # the -transform_bottleneck run: the eval round-trips the
+        # bottleneck through the quantizer kernels
         hist = distill(teacher, student, config, batches,
-                       [eval_batch] if switch == "1" else [], n)
+                       [eval_batch] if switch == "1" else [], n,
+                       use_bottleneck_transformer=True)
         wall = time.perf_counter() - t0
         launches = {k: c.launches for k, c in counters.items()}
         peak = torch.cuda.max_memory_allocated(dev) / 2**30

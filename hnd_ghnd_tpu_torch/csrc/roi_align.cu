@@ -84,12 +84,16 @@
 // The backward multiplies (g * valid) * weight per tap as the plain
 // autograd does, but the taps of a bin on one cell add once, with their
 // summed weight (g*(w_u + w_t) where the plain autograd adds g*w_u + g*w_t:
-// another rounding, within the backward's tolerance), and taps of weight 0
-// add nothing.  For a finite cotangent that skip changes no sum; a NaN or
-// infinite cotangent on a RoI whose samples all fall off its level reaches
-// no cell here, where the plain autograd spreads NaN (inf * 0) into the
-// clamped cells.  The atomics add in an order that changes from run to run
-// (as torchvision's CUDA roi_align backward does), so the result is not
+// another rounding, within the backward's tolerance).  A tap of weight 0
+// adds nothing to a finite cotangent and is skipped then; under a NaN or
+// infinite cotangent it adds its product, g * 0 = NaN, to its clamped cell,
+// as the plain autograd does (a RoI whose samples all fall off its level
+// spreads NaN there).  A tap merged into an earlier one on its cell keeps
+// that rule: it is marked +0 when it or the taps before it on that cell
+// weigh 0 (the plain sum on the cell is NaN then) and -0 otherwise (the
+// merged product, +-inf, is the plain sum), and a -0 tap is always
+// skipped.  The atomics add in an order that changes from run to run (as
+// torchvision's CUDA roi_align backward does), so the result is not
 // bit-repeatable.
 
 #include <cstdint>
@@ -319,11 +323,12 @@ __device__ Taps taps_for(const RoiGeom& g, int row0, int rows, int rows_max,
 }
 
 // The backward's tap tables: each bin's taps on one cell summed, in tap
-// order, into the first of them, and the others' weights zeroed; a tap of
-// weight 0 then adds nothing and is skipped (the same sum for a finite
-// cotangent; see the header for a non-finite one).  Neighbouring samples share corners and a bin under a cell
-// wide has its samples in one or two cells, so this saves atomics, the
-// backward's bound.  Ends with a block barrier.
+// order, into the first of them, and the others' weights zeroed: +0 when
+// the tap or the sum before it weighs 0, else -0 (see the header: a
+// non-finite cotangent adds NaN through a +0 tap, never through a -0 one).
+// Neighbouring samples share corners and a bin under a cell wide has its
+// samples in one or two cells, so this saves atomics, the backward's
+// bound.  Ends with a block barrier.
 __device__ void merge_taps(const Taps& taps, int bins) {
   for (int bin = threadIdx.x; bin < bins; bin += blockDim.x) {
     float* w = taps.w + bin * taps.nt;
@@ -331,8 +336,9 @@ __device__ void merge_taps(const Taps& taps, int bins) {
     for (int t = 1; t < taps.nt; ++t)
       for (int u = 0; u < t; ++u)
         if (cell[u] == cell[t]) {
+          const bool zero = w[u] == 0.0f || w[t] == 0.0f;
           w[u] = __fadd_rn(w[u], w[t]);
-          w[t] = 0.0f;
+          w[t] = zero ? 0.0f : -0.0f;
           break;
         }
   }
@@ -421,14 +427,19 @@ __global__ void __launch_bounds__(kThreads)
     const float* w = taps.w + bin * taps.nt;
     const int* cell = taps.cell + bin * taps.nt;
     // (g * valid) * weight per tap as the plain autograd multiplies, with
-    // the merged taps' summed weight; taps of weight 0 are skipped
+    // the merged taps' summed weight; taps of weight 0 are skipped while
+    // the cotangent is finite, and +0 taps add g * 0 = NaN when it is not
     float gv[V];
     load_vec<T, V>(g_band + (int64_t)bin * C + c, gv);
+    bool finite = true;
 #pragma unroll
-    for (int j = 0; j < V; ++j) gv[j] = __fmul_rn(gv[j], valid);
+    for (int j = 0; j < V; ++j) {
+      gv[j] = __fmul_rn(gv[j], valid);
+      finite = finite && isfinite(gv[j]);
+    }
 #pragma unroll 4
     for (int t = 0; t < taps.nt; ++t)
-      if (w[t] != 0.0f)
+      if (w[t] != 0.0f || (!finite && !signbit(w[t])))
         atomic_add_vec<V>(dfeat + (int64_t)cell[t] * C + c, gv, w[t]);
   }
 }

@@ -4,10 +4,11 @@ Counterpart of hnd_ghnd_tpu/runners/mimic_runner.py:distill (reference
 src/mimic_runner.py): the frozen teacher and the student run the distill
 step over each epoch's batches, with the reference's warmup of
 min(1000, steps_per_epoch - 1) steps and its MultiStepLR; after each epoch
-the student is evaluated through the serving path (8-bit bottleneck round
-trip on), then put back in train mode.  Step scalars are read one step
-late (``StepMetrics``), so the loop never waits on the step it just
-queued.
+the student is evaluated through the serving path, with the 8-bit
+bottleneck round trip only when asked (``use_bottleneck_transformer``, JAX's
+``-transform_bottleneck`` flag, off by default), then put back in train
+mode.  Step scalars are read one step late (``StepMetrics``), so the loop
+never waits on the step it just queued.
 
 The YAML, the COCO loader, COCOeval and the checkpoints wait for ROADMAP
 A6: batches come in as dicts of arrays, and the eval returns detections.
@@ -31,13 +32,16 @@ from hnd_ghnd_tpu_torch.runners.common import (StepMetrics,
 def distill(teacher: RCNN, student: RCNN, config: Dict[str, Any],
             train_batches: Iterable[Dict[str, Any]],
             val_batches: Iterable[Dict[str, Any]],
-            steps_per_epoch: int) -> Dict[str, List]:
+            steps_per_epoch: int,
+            use_bottleneck_transformer: bool = False) -> Dict[str, List]:
     """Distil ``student`` from ``teacher`` for ``train.num_epochs`` epochs,
     each over ``train_batches`` (dicts with ``images`` [B, H, W, 3], uint8
     or float in [0, 1], on the host or on the models' device).  Both models
     are on one device, the card unless the caller put them on the CPU.
     The student trains what its factory left trainable (everything outside
-    ``frozen_modules``); the teacher is frozen here.
+    ``frozen_modules``); the teacher is frozen here.  Each epoch's eval
+    quantizes and dequantizes the bottleneck only with
+    ``use_bottleneck_transformer`` (JAX's ``-transform_bottleneck``).
 
     Returns {"steps": [(step, loss, {term: value}, ms)], "evals": [the
     records of ``evaluate`` for each epoch]}; ms is the step's time between
@@ -74,6 +78,7 @@ def distill(teacher: RCNN, student: RCNN, config: Dict[str, Any],
             history["steps"] += metrics.push(step.step - 1, loss, terms, start)
         history["steps"] += metrics.drain()
         history["evals"].append(evaluate(
-            student.eval(), val_batches, use_bottleneck_transformer=True))
+            student.eval(), val_batches,
+            use_bottleneck_transformer=use_bottleneck_transformer))
         student.train()
     return history

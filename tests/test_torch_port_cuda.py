@@ -309,6 +309,43 @@ def test_roi_align_backward_widths_vs_plain_autograd(cuda, dtype, c,
         assert float((g.float() - r.float()).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_roi_align_backward_non_finite_cotangent_vs_plain_autograd(cuda,
+                                                                   dtype):
+    """+inf on RoI 0 and NaN on RoI 1 of each image, both fully off the
+    image (every sample off its level, so every tap weighs 0), and -inf on
+    one channel of an in-image RoI: the kernel puts NaN and +-inf in the
+    cells the plain autograd does, and the finite cells stay within the
+    finite case's tolerance."""
+    feats, _, boxes, valid, size = _width_inputs(cuda, dtype, 256, False, 24)
+    valid[:, :2] = True
+    rng = np.random.RandomState(25)
+    cot = rng.randn(2, 96, 7, 7, 256).astype(np.float32)
+    cot[:, 0] = np.inf
+    cot[:, 1] = np.nan
+    cot[:, 20, :, :, 3] = -np.inf
+    cot = torch.from_numpy(cot).to(cuda, dtype)
+    ref = [f.clone().requires_grad_(True) for f in feats]
+    want = torch.autograd.grad(tra.multiscale_roi_align_batch(
+        ref, boxes, size, 7, 2, valid), ref, cot)
+    boxes_c, level, weight = RK.checked_inputs(feats, boxes, valid)
+    got = RK.roi_align_backward(cot, [tuple(f.shape[1:3]) for f in feats],
+                                dtype, boxes_c, level, weight, size, 2)
+    torch.cuda.synchronize()
+    assert any(bool(torch.isnan(r).any()) for r in want)
+    finite = [r[torch.isfinite(r)].float() for r in want]
+    top = max(float(r.abs().max()) for r in finite if r.numel())
+    tol = ROI_TOL * top if dtype == torch.float32 else _bf16_ulp(top)
+    for g, r in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+        assert torch.equal(torch.isinf(g), torch.isinf(r))
+        assert torch.equal(g[torch.isinf(g)], r[torch.isinf(r)])
+        ok = torch.isfinite(r)
+        if bool(ok.any()):
+            assert float((g[ok].float() - r[ok].float()).abs().max()) <= tol
+
+
 def test_roi_align_kernel_rejects_what_it_does_not_take(cuda):
     boxes = torch.zeros(1, 2, 4, device=cuda)
     sizes = (8, 4, 2, 1)
@@ -340,8 +377,14 @@ def _stem_inputs(cuda, b, h, w, seed=0):
     return x, weight, scale, bias
 
 
+# (B, H, W): whole tiles; a ragged last tile on both axes (33 x 50
+# outputs); the smallest shape stem_supported takes; W/2 odd (17, so rows
+# are not 16-byte aligned); 594 tiles of 65 x 673 outputs, ragged and W/2
+# odd, which neither persistent grid of an H100 (264 forward, 132 dW
+# blocks) divides; both buckets
 @pytest.mark.parametrize("shape", [(2, 64, 96), (2, 66, 100), (1, 16, 32),
-                                   (2, 832, 1344)])
+                                   (1, 16, 34), (3, 130, 1346),
+                                   (2, 832, 1344), (2, 1344, 832)])
 def test_stem_kernels_vs_plain(cuda, shape):
     from hnd_ghnd_tpu_torch.ops import stem as ts
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK

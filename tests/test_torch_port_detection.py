@@ -31,7 +31,8 @@ import optax
 import pytest
 import torch
 
-from chip_smoke import ORG_MODEL, ORG_TRAIN, STUDENT_MODEL, TRAIN, live_norms_
+from chip_smoke import (ORG_MODEL, ORG_TRAIN, STUDENT_MODEL, TEACHER_MODEL,
+                        TRAIN, live_norms_)
 from hnd_ghnd_tpu.models import rpn as jrpn
 from hnd_ghnd_tpu.models.convert import convert_state_dict
 from hnd_ghnd_tpu.models.factory import build_model as jax_build_model
@@ -47,7 +48,8 @@ from hnd_ghnd_tpu_torch.models.factory import (build_model, frozen_modules,
 from hnd_ghnd_tpu_torch.models.roi_heads import RoIHeads
 from hnd_ghnd_tpu_torch.parallel.train_step import make_detection_train_step
 from hnd_ghnd_tpu_torch.runners import coco_runner
-from hnd_ghnd_tpu_torch.runners.common import compute_dtype_from_config
+from hnd_ghnd_tpu_torch.runners.common import (compute_dtype_from_config,
+                                               evaluate)
 from hnd_ghnd_tpu_torch.runners.mimic_runner import distill
 from tests.test_torch_port_distill import _get, jax_leaf, to_jax_layout
 
@@ -451,3 +453,43 @@ def test_distillation_in_bf16_raises():
         config = {"student_model": STUDENT_MODEL, "train": TRAIN, "tpu": tpu}
         with pytest.raises(NotImplementedError, match="A4"):
             distill(teacher, student, config, [], [], 1)
+
+
+def _dets_equal(a, b):
+    return len(a) == len(b) and all(
+        x["dets"].keys() == y["dets"].keys()
+        and all(np.array_equal(x["dets"][k], y["dets"][k]) for k in x["dets"])
+        for x, y in zip(a, b))
+
+
+def test_distill_eval_round_trips_the_bottleneck_only_when_asked():
+    """The per-epoch eval follows JAX's -transform_bottleneck (off by
+    default): without the flag it serves the final student without the
+    8-bit round trip, with it through the round trip."""
+    from hnd_ghnd_tpu.runners.mimic_runner import get_argparser
+    assert get_argparser().parse_args(["--config", "x.yaml"]) \
+        .transform_bottleneck is False
+    teacher = live_norms_(get_model(TEACHER_MODEL, seed=3, device="cpu"), 3)
+    student = live_norms_(get_model(STUDENT_MODEL, seed=4, device="cpu"), 4)
+    with torch.no_grad():  # spread the class logits past the 0.05 threshold
+        student.roi_heads.box_predictor.cls_score.weight.mul_(300.0)
+    start = copy.deepcopy(student.state_dict())
+    config = {"student_model": STUDENT_MODEL,
+              "train": dict(TRAIN, num_epochs=1),
+              "tpu": {"compute_dtype": "float32"}}
+    train = [{"images": _images(30)["images"]}]
+    val = [_images(31)]
+    evals = {}
+    for flag in (None, True):
+        student.load_state_dict(start)
+        kwargs = {} if flag is None else {"use_bottleneck_transformer": flag}
+        hist = distill(teacher, student, config, train, val, 1, **kwargs)
+        final = [evaluate(student.eval(), val, use_bottleneck_transformer=t)
+                 for t in (False, True)]
+        student.train()
+        evals[flag] = hist["evals"][0], final
+    (default, (plain, round_trip)), (asked, (_, round_trip_t)) = \
+        evals[None], evals[True]
+    assert not _dets_equal(plain, round_trip)  # the flag is visible
+    assert _dets_equal(default, plain)
+    assert _dets_equal(asked, round_trip_t)

@@ -153,3 +153,43 @@ def test_wrappers_on_cpu_are_the_plain_version():
     assert torch.equal(got, want) and torch.equal(also, want)
     assert (RK.roi_align.launches, RK.roi_align.launches_bf16,
             RK.roi_align_backward.launches) == counts
+
+
+def _non_finite_case(seed):
+    """The box mix with, in every image, RoI 0 fully below and right of the
+    image and RoI 1 fully above and left of it (every sample off its
+    level); a cotangent of +inf on RoI 0, NaN on RoI 1 and -inf on one
+    channel of an in-image RoI 5."""
+    feats, boxes, valid, cot = _inputs(seed, 2, 8, 8)
+    h, w = SIZE
+    boxes[:, 0] = (w + 60, h + 60, w + 140, h + 120)
+    boxes[:, 1] = (-300, -260, -200, -230)
+    valid[:, :2] = True
+    cot[:, 0] = np.inf
+    cot[:, 1] = np.nan
+    cot[:, 5, :, :, 3] = -np.inf
+    return feats, boxes, valid, cot
+
+
+def test_non_finite_cotangent_spreads_like_jax_vjp():
+    """A non-finite cotangent reaches the same cells in the port's plain
+    backward as in jax.vjp of the XLA path: inf * 0 = NaN in the clamped
+    cells of an off-level RoI, +-inf where every weight is positive."""
+    feats, boxes, valid, cot = _non_finite_case(4)
+
+    def pool(*fs):
+        return jra.multiscale_roi_align_batch(
+            list(fs), jnp.asarray(boxes), SIZE, 7,
+            boxes_valid=jnp.asarray(valid))
+
+    _, vjp = jax.vjp(pool, *[jnp.asarray(f) for f in feats])
+    want = [np.asarray(g) for g in vjp(jnp.asarray(cot))]
+    got = _port_grads(feats, boxes, valid, cot, torch.float32)
+    assert any(np.isnan(w).any() for w in want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        np.testing.assert_array_equal(np.isposinf(g), np.isposinf(w))
+        np.testing.assert_array_equal(np.isneginf(g), np.isneginf(w))
+        finite = np.isfinite(w)
+        assert _err(g[finite], w[finite]) <= \
+            F32_GRAD_TOL * np.abs(w[finite]).max()
