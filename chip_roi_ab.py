@@ -1,5 +1,5 @@
-"""The RoIAlign and stem kernels of two checkouts of the repository, in turns,
-on one GPU.
+"""The RoIAlign, level quantizer and stem kernels of two checkouts of the
+repository, in turns, on one GPU.
 
     python3 chip_roi_ab.py --old-tree OLD --out DIR/ab.json
 
@@ -13,6 +13,9 @@ at the main path's shapes:
   * ``roi_align`` on float32 P2-P5 of a batch-8 832x1344 bucket (C=256):
     8x1000 RoIs at 7x7 (the box head) and 8x100 at 14x14 (the mask and
     keypoint heads); the same on their int8 tables (``quantize_levels``);
+  * ``quantize_levels`` on float32 P2-P5 of a batch-8 bucket (C=256) of
+    each size, 832x1344 and 1344x832, from the NHWC views of NCHW maps (as
+    the FPN hands them over) and from contiguous NHWC levels;
   * ``roi_align`` on bfloat16 P2-P5 of a batch-2 bucket, 2x512 RoIs at 7x7
     (the supervised step), and ``roi_align_backward`` there on bfloat16 and
     float32 levels;
@@ -25,15 +28,18 @@ chip_smoke reads them (``chip_smoke.timings``): ``ms`` as the caller sees
 it, ``device_ms`` on the card alone; a forward's ``checked_inputs`` (its
 checks and level assignment) is also timed alone on the card.  Each process holds every output
 against the plain version (ops/roi_align.py) with chip_smoke's tolerances;
-the RoIAlign forwards' bits must also agree between the checkouts.  The
+the RoIAlign forwards' bits and the quantizer's codes and scales must
+also agree between the checkouts.  The
 stem outputs are held to their plain versions with chip_smoke's
 STEM_FWD_TOL and STEM_DW_TOL, dW must repeat bit for bit, and the new
 checkout's forwards must agree with the old one's (saved by the first
 turn to a temporary directory) within STEM_FWD_TOL.  In the last
 turn of the new checkout, if its wrapper picks a channel width
 (``vector_width``), each case is timed again at every width its kernel
-takes, and the backward's passes are timed apart: the zeroing of its
-float32 workspace and the bf16 rounding (the scatter is the rest).
+takes, and the passes are timed apart: the backward's zeroing of its
+float32 workspace and its bf16 rounding (the scatter is the rest), and the
+quantizer's abs-max pass (with its memset) and codes pass
+(``quantize_levels_args`` gives their arguments).
 
 Writes the turns and, per case, old and new (each the mean of its two
 turns) and their ratio, with the card's name and power limit, to FILE as
@@ -108,6 +114,23 @@ def forward_cases(dev: torch.device):
     boxes = torch.from_numpy(box_mix(rng, ORG_BATCH, TRAIN_ROIS, h, w)).to(dev)
     valid = torch.from_numpy(rng.rand(ORG_BATCH, TRAIN_ROIS) > 0.05).to(dev)
     yield "bf16 7x7 train", feats, None, boxes, valid, 7
+
+
+def quant_cases(dev: torch.device):
+    """(name, levels) for the level quantizer: seeded batch-8 P2-P5 of each
+    bucket, as NHWC views of NCHW maps and as contiguous NHWC levels."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    for h, w in BUCKETS:
+        nchw = [torch.randn((EVAL_BATCH, 256, h // s, w // s), generator=gen,
+                            device=dev) * (1.0 + i)
+                for i, s in enumerate((4, 8, 16, 32))]
+        views = [f.permute(0, 2, 3, 1) for f in nchw]
+        yield f"quantize_levels NCHW {h}x{w}", views
+        nhwc = [v.contiguous() for v in views]
+        del nchw, views
+        yield f"quantize_levels NHWC {h}x{w}", nhwc
+        del nhwc
+        torch.cuda.empty_cache()
 
 
 def backward_cases(dev: torch.device):
@@ -187,7 +210,8 @@ def turn(tree: Path, out: Path, sweep: bool, saved: Path) -> int:
     sys.path.insert(0, str(tree))
     from hnd_ghnd_tpu_torch import _build
     from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
-    from hnd_ghnd_tpu_torch.ops.roi_align import multiscale_roi_align_batch
+    from hnd_ghnd_tpu_torch.ops.roi_align import (multiscale_roi_align_batch,
+                                                  quantize_fpn_levels)
     if not Path(RK.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"imported {RK.__file__}, not from {tree}")
     sweep = sweep and hasattr(RK, "vector_width")
@@ -231,6 +255,41 @@ def turn(tree: Path, out: Path, sweep: bool, saved: Path) -> int:
             + ("" if not sweep else "; channels per thread " + ", ".join(
                 f"{v}: {t:.4f}" for v, t in rec["width_device_ms"].items())))
         del got, want
+    for name, levels in quant_cases(dev):
+        def call():
+            return RK.quantize_levels(levels)
+        codes, scales = call()
+        want_q, want_s = quantize_fpn_levels(levels)
+        if not (torch.equal(scales, want_s) and all(
+                torch.equal(a, b) for a, b in zip(codes, want_q))):
+            raise AssertionError(f"{name}: codes or scales differ from the "
+                                 "plain version")
+        rec = dict(name=name, shape=list(levels[0].shape), digest=digest(
+            torch.cat([q.reshape(-1).view(torch.uint8) for q in codes]
+                      + [scales.contiguous().view(torch.uint8)])),
+            **timings(call))
+        if sweep and hasattr(RK, "quantize_levels_args"):
+            lib = _build.load()
+            # the outputs stay referenced while their pointers are in use
+            args, out_q, out_s = RK.quantize_levels_args(levels)
+            _build.check(lib.hnd_quantize_levels(*args), "hnd_quantize_levels")
+            rec["absmax_device_ms"] = time_ms(lambda: _build.check(
+                lib.hnd_quantize_levels_absmax(*args[:7], args[8]),
+                "hnd_quantize_levels_absmax"), spin=True)
+            rec["codes_device_ms"] = time_ms(lambda: _build.check(
+                lib.hnd_quantize_levels_codes(*args),
+                "hnd_quantize_levels_codes"), spin=True)
+            if not (torch.equal(out_s, scales) and all(
+                    torch.equal(a, b) for a, b in zip(out_q, codes))):
+                raise AssertionError(f"{name}: the passes alone differ")
+            del out_q, out_s
+        cases.append(rec)
+        log(f"[ab {tree.name}] {name}: {rec['ms']:.4f} ms "
+            f"({rec['device_ms']:.4f} on the card); codes and scales equal "
+            "the plain version's" + "".join(
+                f"; {k} {v:.4f}" for k, v in rec.items()
+                if k in ("absmax_device_ms", "codes_device_ms")))
+        del codes, scales, want_q, want_s, levels
     for name, levels, cot, boxes, valid in backward_cases(dev):
         dtype = levels[0].dtype
         shapes = [tuple(f.shape[1:3]) for f in levels]
@@ -344,11 +403,11 @@ def main() -> int:
             f"{res['device_ms']['new']:.4f} ms "
             f"({res['device_ms']['speedup']:.2f}x; turns "
             + " / ".join(f"{t:.4f}" for t in res["device_ms"]["turns"]) + ")"
-            + ("" if "digest" not in rec else
+            + ("" if "assign_device_ms" not in res else
                f"; level assignment on the card old "
                f"{res['assign_device_ms']['old']:.4f} -> new "
-               f"{res['assign_device_ms']['new']:.4f} ms; forward bits "
-               "equal"))
+               f"{res['assign_device_ms']['new']:.4f} ms")
+            + ("" if "digest" not in rec else "; output bits equal"))
     args.out.write_text(json.dumps({"card": card, "turns": TURNS,
                                     "cases": results, "runs": runs},
                                    indent=1))

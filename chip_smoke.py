@@ -762,8 +762,9 @@ def roi_train_kernels_phase(dev: torch.device, kernels: dict) -> None:
 def int8_kernels_phase(dev: torch.device, kernels: dict) -> None:
     """The level quantizer and the int8 RoIAlign against their plain
     versions at the eval's shapes: P2-P5 of a batch-8 832x1344 bucket
-    (C=256, NCHW maps as the FPN gives them), 8x1000 RoIs at 7x7 (the box
-    head) and 8x100 at 14x14 (the mask and keypoint heads); the int8 pool
+    (C=256, NCHW maps as the FPN gives them; the quantizer also on copies
+    holding NaN and +-inf), 8x1000 RoIs at 7x7 (the box head) and 8x100 at
+    14x14 (the mask and keypoint heads); the int8 pool
     against the f32 pool of the same float levels; the f32 kernel at
     14x14; and what the int8 box pool with its quantize costs against the
     f32 box pool with its NHWC copy."""
@@ -797,6 +798,28 @@ def int8_kernels_phase(dev: torch.device, kernels: dict) -> None:
         f"and scales bit-exact vs plain (card and CPU), from NCHW and NHWC; "
         f"scales {[float(v) for v in scales]}")
     del cpu_q, again_q, plain_q
+    # non-finite levels (ROADMAP C12): a NaN in P2, +inf in P3, -inf in P4
+    # and all three in P5; every code and scale as the plain version's
+    odd = [v.clone() for v in views]
+    odd[0][1, 5, 7, 3] = float("nan")
+    odd[1][2, 3, 4, 5] = float("inf")
+    odd[2][3, 4, 5, 6] = float("-inf")
+    odd[3][4, 1, 2, 7:10] = torch.tensor([float("nan"), float("inf"),
+                                          float("-inf")], device=dev)
+    want_q, want_s = quantize_fpn_levels([v.cpu() for v in odd])
+    for what, lv in (("NCHW", odd), ("NHWC", [v.contiguous() for v in odd])):
+        for side, (q, s) in (("plain on the card", quantize_fpn_levels(lv)),
+                             ("the CPU", (want_q, want_s))):
+            got_q, got_s = RK.quantize_levels(lv)
+            check(torch.equal(got_s.cpu(), s.cpu())
+                  and all(torch.equal(a.cpu(), b.cpu())
+                          for a, b in zip(got_q, q)),
+                  f"quantize_levels on non-finite {what} levels differs from "
+                  f"{side}")
+    log(f"[kernels] quantize_levels with NaN and +-inf levels: codes and "
+        f"scales bit-exact vs plain (card and CPU), from NCHW and NHWC; "
+        f"scales {want_s.tolist()}")
+    del odd, want_q, lv, got_q
     tables = (codes, scales)
     rng = np.random.RandomState(SEED + 9)
     for n, pool in ((1000, 7), (100, 14)):
@@ -880,12 +903,15 @@ def int8_kernels_phase(dev: torch.device, kernels: dict) -> None:
             f"ms (median of {REPS})")
     # abs, max, divide, round and two clamps per element
     n_el = sum(f.numel() for f in views)
+    # floor_ms: the levels read twice (the abs-max before the first code)
     kernels["quantize_levels"] = dict(
         source="hnd_ghnd_tpu_torch/csrc/fpn_quant.cu",
         replaces="hnd_ghnd_tpu/ops/roi_align.py:201", max_abs_err=0.0,
         **timings(lambda: RK.quantize_levels(views)),
         plain_ms=time_ms(lambda: quantize_fpn_levels(views)), library_ms=None,
-        **bound(nbytes(*views, *codes, scales), 6.0 * n_el))
+        **bound(nbytes(*views, *codes, scales), 6.0 * n_el),
+        floor_ms=bound(2 * nbytes(*views) + nbytes(*codes, scales),
+                       6.0 * n_el)["bound_ms"])
     del nchw, views, nhwc, codes, tables, got, want, f32
     torch.cuda.empty_cache()
 
@@ -1316,7 +1342,10 @@ def main() -> int:
         log(f"[kernels] {name}: {k['ms']:.4f} ms kernel "
             f"({k['device_ms']:.4f} on the card), {k['plain_ms']:.4f} ms "
             f"plain{lib} (median of {REPS}); bound {k['bound_ms']:.4f} ms by "
-            f"{k['bound_by']}, {k['bound_ms'] / k['ms']:.1%} of it{tapped}")
+            f"{k['bound_by']}, {k['bound_ms'] / k['ms']:.1%} of it{tapped}"
+            + ("" if "floor_ms" not in k else
+               f"; two-pass floor {k['floor_ms']:.4f} ms, "
+               f"{k['floor_ms'] / k['device_ms']:.1%} of the card's time"))
 
     # ---------------------------------------------------------- 4. serving
     os.environ["HND_TPU_PALLAS_STEM"] = "0"  # the serving path's default

@@ -41,6 +41,8 @@ _SIGNATURES = {
                           _I, _I, _P],
     "hnd_f32_to_bf16": [_P, _P, _I64, _P],
     "hnd_quantize_levels": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "hnd_quantize_levels_absmax": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "hnd_quantize_levels_codes": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "hnd_stem_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hnd_stem_dw_partials_size": [_I, _I, _I],
     "hnd_stem_dw": [_P, _P, _P, _P, _I, _I, _I, _P],

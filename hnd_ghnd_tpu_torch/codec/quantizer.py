@@ -6,7 +6,9 @@ CUDA kernels are held against); ``roundtrip`` is the in-model eval path and
 goes through the kernels of ops/quant_kernels.py for CUDA tensors.
 
 The min/max runs over the whole ``[B, ...]`` tensor, bucket padding
-included, exactly like the JAX package (ROADMAP C3).
+included, exactly like the JAX package (ROADMAP C3).  Non-finite inputs
+follow JAX on the CPU (ROADMAP C12): min and max propagate NaN, a NaN
+scale becomes 1, and a NaN zero point or code becomes 0.
 """
 from __future__ import annotations
 
@@ -22,8 +24,9 @@ class QuantizedTensor(NamedTuple):
 
 
 def quantize_tensor(x: torch.Tensor, num_bits: int = 8) -> QuantizedTensor:
-    """scale = (max - min) / (2^bits - 1) (1 where that is 0); zero point =
-    int-truncated clip(-min/scale); q = round-half-even(clip(zp + x/scale))."""
+    """scale = (max - min) / (2^bits - 1) (1 where that is not > 0, NaN
+    included); zero point = int-truncated clip(-min/scale); q =
+    round-half-even(clip(zp + x/scale)); a NaN zero point or code is 0."""
     qmin = 0.0
     qmax = 2.0 ** num_bits - 1.0
     min_val = x.min().float()
@@ -33,10 +36,13 @@ def quantize_tensor(x: torch.Tensor, num_bits: int = 8) -> QuantizedTensor:
     scale = (max_val - min_val) / torch.tensor(qmax - qmin, device=x.device)
     safe_scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     initial_zp = qmin - min_val / safe_scale
-    zero_point = initial_zp.clamp(qmin, qmax).to(torch.int32).float()
+    # NaN (from a NaN or an infinite min) becomes 0 before each cast, as
+    # XLA's convert makes it: torch's cast of NaN differs by device
+    zero_point = initial_zp.clamp(qmin, qmax).nan_to_num(nan=0.0).to(
+        torch.int32).float()
     qx = (zero_point + x.float() / safe_scale).clamp(qmin, qmax)
-    return QuantizedTensor(torch.round(qx).to(torch.uint8), safe_scale,
-                           zero_point)
+    return QuantizedTensor(torch.round(qx).nan_to_num(nan=0.0).to(torch.uint8),
+                           safe_scale, zero_point)
 
 
 def dequantize_tensor(q: QuantizedTensor) -> torch.Tensor:

@@ -27,6 +27,11 @@
 //     roundf (half away from zero);
 //   * the zero point truncates toward zero (int cast), as the reference's
 //     int(...) does.
+// Non-finite inputs follow the JAX package on the CPU (ROADMAP C12): min
+// and max propagate NaN (min.NaN / max.NaN), so a NaN anywhere makes the
+// scale 1; the clamps of the zero point and of each code then keep fmaxf's
+// rule, which returns the other operand for NaN, so a NaN zero point or
+// code becomes 0, as XLA's convert of NaN does.
 // Build without --use_fast_math.
 
 #include <cstdint>
@@ -37,10 +42,24 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxPartialBlocks = 1024;
 
+// min and max that return NaN if either operand is NaN, as jnp.min/max and
+// torch.min/max do (fminf/fmaxf return the other operand)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 __device__ __forceinline__ void warp_minmax(float& lo, float& hi) {
   for (int off = 16; off > 0; off >>= 1) {
-    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    lo = min_nan(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max_nan(hi, __shfl_xor_sync(0xffffffffu, hi, off));
   }
 }
 
@@ -74,17 +93,17 @@ __global__ void minmax_partial_kernel(const float* __restrict__ x, int64_t n,
     const float4* x4 = reinterpret_cast<const float4*>(x);
     for (int64_t i = tid; i < n4; i += stride) {
       const float4 v = x4[i];
-      lo = fminf(fminf(lo, v.x), fminf(v.y, fminf(v.z, v.w)));
-      hi = fmaxf(fmaxf(hi, v.x), fmaxf(v.y, fmaxf(v.z, v.w)));
+      lo = min_nan(min_nan(lo, v.x), min_nan(v.y, min_nan(v.z, v.w)));
+      hi = max_nan(max_nan(hi, v.x), max_nan(v.y, max_nan(v.z, v.w)));
     }
     for (int64_t i = n4 * 4 + tid; i < n; i += stride) {
-      lo = fminf(lo, x[i]);
-      hi = fmaxf(hi, x[i]);
+      lo = min_nan(lo, x[i]);
+      hi = max_nan(hi, x[i]);
     }
   } else {
     for (int64_t i = tid; i < n; i += stride) {
-      lo = fminf(lo, x[i]);
-      hi = fmaxf(hi, x[i]);
+      lo = min_nan(lo, x[i]);
+      hi = max_nan(hi, x[i]);
     }
   }
   block_minmax(lo, hi);
@@ -101,14 +120,15 @@ __global__ void finalize_kernel(const float* __restrict__ partials,
                                 float* __restrict__ meta) {
   float lo = INFINITY, hi = -INFINITY;
   for (int i = threadIdx.x; i < n_partials; i += blockDim.x) {
-    lo = fminf(lo, partials[2 * i]);
-    hi = fmaxf(hi, partials[2 * i + 1]);
+    lo = min_nan(lo, partials[2 * i]);
+    hi = max_nan(hi, partials[2 * i + 1]);
   }
   block_minmax(lo, hi);
   if (threadIdx.x == 0) {
     const float raw_scale = __fdiv_rn(__fsub_rn(hi, lo), qmax);
     const float scale = raw_scale > 0.0f ? raw_scale : 1.0f;
     const float initial_zp = __fsub_rn(0.0f, __fdiv_rn(lo, scale));
+    // a NaN initial_zp (a NaN, or an infinite min) clamps to 0
     const float clipped = fminf(fmaxf(initial_zp, 0.0f), qmax);
     meta[0] = scale;
     meta[1] = (float)(int)clipped;  // truncation toward zero
@@ -117,6 +137,7 @@ __global__ void finalize_kernel(const float* __restrict__ partials,
 
 __device__ __forceinline__ uint8_t quant_one(float v, float scale, float zp,
                                              float qmax) {
+  // a NaN quotient clamps to 0
   const float q = fminf(fmaxf(__fadd_rn(zp, __fdiv_rn(v, scale)), 0.0f), qmax);
   return (uint8_t)rintf(q);  // half to even
 }

@@ -78,9 +78,9 @@ def level_geometry(shapes: Sequence[Tuple[int, int]],
 
 def quantize_fpn_levels(features: Sequence[torch.Tensor]):
     """Symmetric int8 codes per level: (codes [B, Hl, Wl, C] int8, scales
-    [L] float32).  s = max|f| / 127 (1 where that max is 0) over the whole
-    level, batch and padding included (ROADMAP C3); q = clamp(round-half-
-    even(f / s), -127, 127)."""
+    [L] float32).  s = max|f| / 127 (1 where that max is 0 or NaN) over the
+    whole level, batch and padding included (ROADMAP C3); q = clamp(round-
+    half-even(f / s), -127, 127), 0 where f / s is NaN."""
     codes, scales = [], []
     for f in features:
         f = f.float()
@@ -89,8 +89,10 @@ def quantize_fpn_levels(features: Sequence[torch.Tensor]):
         # multiplies by its reciprocal, not the IEEE quotient (ROADMAP C1)
         s = torch.where(amax > 0, amax / torch.tensor(127.0, device=f.device),
                         torch.ones_like(amax))
-        codes.append(torch.round(f / s).clamp(-127, 127).to(torch.int8)
-                     .contiguous())
+        # a NaN quotient (a NaN, or inf / inf) codes 0, as XLA's convert
+        # makes it: torch's cast of NaN differs by device (ROADMAP C12)
+        codes.append(torch.round(f / s).clamp(-127, 127).nan_to_num(nan=0.0)
+                     .to(torch.int8).contiguous())
         scales.append(s)
     return codes, torch.stack(scales)
 

@@ -16,7 +16,8 @@ Launches are counted per kernel: ``roi_align.launches`` (f32 levels),
 ``roi_align.launches_bf16`` (bf16 levels), ``roi_align.launches_int8``
 (int8 levels), ``roi_align_backward.launches`` (the scatter and, for bf16
 levels, its rounding pass: one launch) and ``quantize_levels.launches``
-(abs-max and codes: one launch).
+(abs-max and codes: one launch; ``quantize_levels_args`` gives the
+arguments of its passes, which a measurement can launch one at a time).
 
 Each thread of the RoIAlign kernels owns a vector of channels of one bin;
 ``vector_width`` picks its width per call from C, the element size and the
@@ -213,9 +214,23 @@ def quantize_levels(levels: Sequence[torch.Tensor]
     dev = levels[0].device
     if dev.type != "cuda":
         raise ValueError(f"quantize_levels: unsupported device {dev}")
+    args, codes, scales = quantize_levels_args(levels)
+    _build.check(_build.load().hnd_quantize_levels(*args),
+                 "hnd_quantize_levels")
+    quantize_levels.launches += 1
+    return codes, scales
+
+
+def quantize_levels_args(levels: Sequence[torch.Tensor]):
+    """Check the levels and allocate the outputs of the level quantizer:
+    -> (the arguments of ``hnd_quantize_levels``, codes, scales).  The four
+    levels' codes are views of one int8 buffer, each at a 16-byte aligned
+    offset; the abs-max workspace (4 x uint32) and the scales (4 x float32)
+    share one 8-word buffer."""
     if len(levels) != LEVELS:
         raise ValueError(f"quantize_levels takes the {LEVELS} levels P2-P5, "
                          f"got {len(levels)}")
+    dev = levels[0].device
     b, c = levels[0].shape[0], levels[0].shape[-1]
     for f in levels:
         if f.dtype != torch.float32:
@@ -232,19 +247,22 @@ def quantize_levels(levels: Sequence[torch.Tensor]
     else:
         raise ValueError("quantize_levels takes contiguous NHWC levels or "
                          "the NHWC views of contiguous NCHW maps")
-    codes = [torch.empty(f.shape, dtype=torch.int8, device=dev)
-             for f in levels]
-    amax = torch.empty(LEVELS, dtype=torch.int32, device=dev)
-    scales = torch.empty(LEVELS, dtype=torch.float32, device=dev)
+    offsets = [0]
+    for f in levels[:-1]:
+        offsets.append(offsets[-1] + -(-f.numel() // 16) * 16)
+    buf = torch.empty(offsets[-1] + levels[-1].numel(), dtype=torch.int8,
+                      device=dev)
+    codes = [buf[o:o + f.numel()].view(f.shape)
+             for o, f in zip(offsets, levels)]
+    meta = torch.empty(2 * LEVELS, dtype=torch.int32, device=dev)
+    scales = meta[LEVELS:].view(torch.float32)
     hw = (ctypes.c_int * (2 * LEVELS))(
         *[int(v) for f in levels for v in f.shape[1:3]])
-    _build.check(_build.load().hnd_quantize_levels(
-        (ctypes.c_void_p * LEVELS)(*[f.data_ptr() for f in levels]),
-        (ctypes.c_void_p * LEVELS)(*[q.data_ptr() for q in codes]),
-        hw, b, c, int(nchw), amax.data_ptr(), scales.data_ptr(),
-        _stream(dev)), "hnd_quantize_levels")
-    quantize_levels.launches += 1
-    return codes, scales
+    args = ((ctypes.c_void_p * LEVELS)(*[f.data_ptr() for f in levels]),
+            (ctypes.c_void_p * LEVELS)(*[q.data_ptr() for q in codes]),
+            hw, b, c, int(nchw), meta.data_ptr(), scales.data_ptr(),
+            _stream(dev))
+    return args, codes, scales
 
 
 quantize_levels.launches = 0

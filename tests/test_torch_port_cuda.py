@@ -106,6 +106,88 @@ def test_quantize_levels_kernel_zero_level(cuda):
     assert float(scales[3]) == 1.0 and int(codes[3].abs().max()) == 0
 
 
+def _levels(cuda, b, c, shapes, seed, nchw, specials=None):
+    """Float32 levels [b, h, w, c] of the given (h, w), as contiguous NHWC
+    or as NHWC views of contiguous NCHW maps; ``specials[l]`` values go to
+    seeded places of level l."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i, (h, w) in enumerate(shapes):
+        f = (rng.randn(b, h, w, c) * (1 + i)).astype(np.float32)
+        values = (specials or {}).get(i, [])
+        f.reshape(-1)[rng.choice(f.size, len(values), replace=False)] = values
+        t = torch.from_numpy(f).to(cuda)
+        out.append(t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+                   if nchw else t)
+    return out
+
+
+def _assert_levels_like_plain(levels):
+    """The kernel's codes and scales equal the plain version's on the card
+    and on the CPU, and a second call gives the same bits."""
+    codes, scales = RK.quantize_levels(levels)
+    for want_q, want_s in (tra.quantize_fpn_levels(levels),
+                           tra.quantize_fpn_levels([f.cpu() for f in levels])):
+        assert torch.equal(scales.cpu(), want_s.cpu())
+        for q, w in zip(codes, want_q):
+            assert q.dtype == torch.int8 and q.is_contiguous()
+            assert torch.equal(q.cpu(), w.cpu())
+    again_q, again_s = RK.quantize_levels(levels)
+    assert torch.equal(again_s, scales)
+    assert all(torch.equal(a, q) for a, q in zip(again_q, codes))
+    return codes, scales
+
+
+# (b, c, P2-P5 shapes): levels of 13 x 21 pixels and smaller, none a
+# multiple of 4, with C = 40; batch 1 of a 256x384 bucket; and C = 512
+# (two channel groups)
+LEVEL_SHAPES = {
+    "ragged": (2, 40, [(13, 21), (7, 11), (5, 7), (3, 3)]),
+    "batch1": (1, 256, [(64, 96), (32, 48), (16, 24), (8, 12)]),
+    "c512": (2, 512, [(32, 48), (16, 24), (8, 12), (4, 6)]),
+}
+
+
+@pytest.mark.parametrize("nchw", [True, False], ids=["nchw", "nhwc"])
+@pytest.mark.parametrize("shape", list(LEVEL_SHAPES))
+def test_quantize_levels_kernel_shapes_vs_plain(cuda, shape, nchw):
+    b, c, shapes = LEVEL_SHAPES[shape]
+    levels = _levels(cuda, b, c, shapes, 21, nchw)
+    n = RK.quantize_levels.launches
+    _assert_levels_like_plain(levels)
+    assert RK.quantize_levels.launches == n + 2
+
+
+@pytest.mark.parametrize("nchw", [True, False], ids=["nchw", "nhwc"])
+def test_quantize_levels_kernel_non_finite_vs_plain(cuda, nchw):
+    """P2 holds a NaN (scale 1, its code 0), P3 a +inf and P4 a -inf
+    (scale inf, every code 0), P5 all three (scale 1, +-127 and 0)."""
+    specials = {0: [np.nan], 1: [np.inf], 2: [-np.inf],
+                3: [np.nan, np.inf, -np.inf]}
+    levels = _levels(cuda, 2, 64, [(16, 24), (8, 12), (4, 6), (2, 3)], 22,
+                     nchw, specials)
+    _, scales = _assert_levels_like_plain(levels)
+    assert scales.tolist() == [1.0, float("inf"), float("inf"), 1.0]
+
+
+@pytest.mark.parametrize("case", ["nan", "+inf", "-inf", "nan+-inf"])
+def test_quant_kernels_non_finite_vs_cpu_formula(cuda, case):
+    values = {"nan": [np.nan], "+inf": [np.inf], "-inf": [-np.inf],
+              "nan+-inf": [np.nan, np.inf, -np.inf]}[case]
+    x = _x(23, (2, 37, 53, 3))
+    x.reshape(-1)[[5, 1000, 7000][:len(values)]] = values
+    x = torch.from_numpy(x).to(cuda)
+    got = QK.quantize(x, 8)
+    for want in (tq.quantize_tensor(x.cpu(), 8), tq.quantize_tensor(x, 8)):
+        assert torch.equal(got.tensor.cpu(), want.tensor.cpu())
+        assert torch.equal(got.scale.cpu(), want.scale.cpu())
+        assert torch.equal(got.zero_point.cpu(), want.zero_point.cpu())
+    # an infinite scale dequantizes 0 codes to NaN on both sides
+    assert torch.allclose(QK.dequantize(got).cpu(),
+                          tq.dequantize_tensor(tq.quantize_tensor(x.cpu(), 8)),
+                          rtol=0.0, atol=0.0, equal_nan=True)
+
+
 @pytest.mark.parametrize("c,pool", [(256, 7), (40, 7), (256, 14)])
 def test_roi_align_int8_kernel_vs_plain(cuda, c, pool):
     feats = _int8_inputs(cuda, c, 19, True)
