@@ -1,7 +1,7 @@
-"""The RoIAlign, level quantizer and stem kernels of two checkouts of the
-repository, in turns, on one GPU.
+"""The bottleneck quantizer pair, RoIAlign, level quantizer and stem kernels
+of two checkouts of the repository, in turns, on one GPU.
 
-    python3 chip_roi_ab.py --old-tree OLD --out DIR/ab.json
+    python3 chip_roi_ab.py --old-tree OLD --out DIR/ab.json [--groups G,...]
 
 OLD is another checkout, for example a parent commit unpacked with ``git
 archive`` into a git-ignored directory of this one.  The script runs itself
@@ -10,6 +10,9 @@ hnd_ghnd_tpu_torch from its own checkout and building that checkout's
 kernels, and each times the wrappers a user calls on the same seeded inputs
 at the main path's shapes:
 
+  * ``quantize`` and ``dequantize`` on the float32 bottleneck of a batch-8
+    bucket of each size, [8, 212, 340, 3] and [8, 340, 212, 3], and of
+    832x1344 at batch 1 and 32;
   * ``roi_align`` on float32 P2-P5 of a batch-8 832x1344 bucket (C=256):
     8x1000 RoIs at 7x7 (the box head) and 8x100 at 14x14 (the mask and
     keypoint heads); the same on their int8 tables (``quantize_levels``);
@@ -28,7 +31,8 @@ chip_smoke reads them (``chip_smoke.timings``): ``ms`` as the caller sees
 it, ``device_ms`` on the card alone; a forward's ``checked_inputs`` (its
 checks and level assignment) is also timed alone on the card.  Each process holds every output
 against the plain version (ops/roi_align.py) with chip_smoke's tolerances;
-the RoIAlign forwards' bits and the quantizer's codes and scales must
+the RoIAlign forwards' bits, the level quantizer's codes and scales, and
+the bottleneck pair's codes, scale, zero point and dequantized floats must
 also agree between the checkouts.  The
 stem outputs are held to their plain versions with chip_smoke's
 STEM_FWD_TOL and STEM_DW_TOL, dW must repeat bit for bit, and the new
@@ -39,8 +43,11 @@ turn of the new checkout, if its wrapper picks a channel width
 takes, and the passes are timed apart: the backward's zeroing of its
 float32 workspace and its bf16 rounding (the scatter is the rest), and the
 quantizer's abs-max pass (with its memset) and codes pass
-(``quantize_levels_args`` gives their arguments).
+(``quantize_levels_args`` gives their arguments); beside the bottleneck
+pair, the launch floors (an empty cooperative kernel with one grid barrier
+on quantize's grid, an empty kernel on dequantize's) and ``torch.aminmax``.
 
+``--groups`` runs only some of them (pair, roi, levels, backward, stem).
 Writes the turns and, per case, old and new (each the mean of its two
 turns) and their ratio, with the card's name and power limit, to FILE as
 JSON; each turn's own record goes beside it.  Without a GPU it exits
@@ -63,10 +70,13 @@ import torch
 from chip_smoke import (BUCKETS, EVAL_BATCH, ORG_BATCH, ROI_TOL, SEED,
                         STEM_DW_TOL, STEM_FWD_TOL, TRAIN_BATCH, TRAIN_ROIS,
                         bf16_ulp, box_mix, gpu_name_and_power, log,
-                        stem_inputs, time_ms, timings)
+                        quant_input, stem_inputs, time_ms, timings)
 
 HERE = Path(__file__).resolve().parent
 TURNS = ("old", "new", "new", "old")
+# the bottleneck pair, the RoIAlign forwards, the level quantizer, the
+# RoIAlign backward, the stem
+GROUPS = ("pair", "roi", "levels", "backward", "stem")
 
 
 def digest(t: torch.Tensor) -> str:
@@ -91,6 +101,17 @@ def widths(RK, itemsize: int) -> list:
     """The channel widths the kernels take for elements of ``itemsize``."""
     return sorted({max(1, nb // itemsize) for nb in RK.VECTOR_BYTES} | {1},
                   reverse=True)
+
+
+def bottleneck_cases(dev: torch.device):
+    """(name, z) for the bottleneck quantizer pair: seeded bottlenecks of
+    both buckets at batch 8 ([8, 212, 340, 3] and [8, 340, 212, 3]), and of
+    832x1344 at batch 1 and 32 (where the quantize grid's registers hold the
+    whole tensor, and where they do not)."""
+    for b, h, w in ((EVAL_BATCH, 212, 340), (EVAL_BATCH, 340, 212),
+                    (1, 212, 340), (32, 212, 340)):
+        yield f"{b}x{h}x{w}x3", torch.from_numpy(
+            quant_input(SEED + 15, (b, h, w, 3))).to(dev)
 
 
 def forward_cases(dev: torch.device):
@@ -204,7 +225,56 @@ def stem_cases(tree: Path, dev: torch.device, saved: Path):
         torch.cuda.empty_cache()
 
 
-def turn(tree: Path, out: Path, sweep: bool, saved: Path) -> int:
+def bottleneck_cases_run(tree: Path, dev: torch.device, sweep: bool):
+    """The quantizer pair of the checkout at ``tree`` on bottleneck_cases:
+    codes, scale and zero point bit-exact with the plain version, dequantize
+    exact, their bits (digest) compared across the checkouts.  In the sweep
+    turn also: the launch floors (an empty cooperative kernel with one grid
+    barrier on quantize's grid, an empty kernel on dequantize's) and
+    torch.aminmax, the yardstick of quantize's reduction.  Yields the
+    records."""
+    from hnd_ghnd_tpu_torch import _build
+    from hnd_ghnd_tpu_torch.codec.quantizer import (dequantize_tensor,
+                                                    quantize_tensor)
+    from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
+    sweep = sweep and hasattr(_build.load(), "hnd_launch_floor")
+    for name, z in bottleneck_cases(dev):
+        q = QK.quantize(z, 8)
+        want = quantize_tensor(z, 8)
+        d = QK.dequantize(q)
+        if not (torch.equal(q.tensor, want.tensor)
+                and torch.equal(q.scale, want.scale)
+                and torch.equal(q.zero_point, want.zero_point)
+                and torch.equal(d, dequantize_tensor(want))):
+            raise AssertionError(f"quantize {name}: differs from the plain "
+                                 "version")
+        bits = digest(torch.cat([q.tensor.reshape(-1), torch.stack(
+            [q.scale, q.zero_point]).view(torch.uint8)]))
+        for what, call in (("quantize", lambda: QK.quantize(z, 8)),
+                           ("dequantize", lambda: QK.dequantize(q))):
+            rec = dict(name=f"{what} {name}", shape=list(z.shape),
+                       digest=bits if what == "quantize" else digest(d),
+                       **timings(call))
+            if sweep and what == "quantize":
+                rec["aminmax_device_ms"] = time_ms(lambda: torch.aminmax(z),
+                                                   spin=True)
+            if sweep:
+                lib = _build.load()
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                rec["launch_floor_device_ms"] = time_ms(
+                    lambda: _build.check(lib.hnd_launch_floor(
+                        z.numel(), int(what == "quantize"), stream),
+                        "hnd_launch_floor"), spin=True)
+            log(f"[ab {tree.name}] {rec['name']}: {rec['ms']:.4f} ms "
+                f"({rec['device_ms']:.4f} on the card); bit-exact"
+                + "".join(f"; {k} {v}" for k, v in rec.items()
+                          if k.endswith("device_ms") and k != "device_ms"))
+            yield rec
+        del q, want, d, z
+    torch.cuda.empty_cache()
+
+
+def turn(tree: Path, out: Path, sweep: bool, saved: Path, groups) -> int:
     """One turn: the RoIAlign and stem wrappers of the checkout at
     ``tree``."""
     sys.path.insert(0, str(tree))
@@ -220,8 +290,10 @@ def turn(tree: Path, out: Path, sweep: bool, saved: Path) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     size = BUCKETS[0]
-    cases = []
-    for name, levels, quant, boxes, valid, pool in forward_cases(dev):
+    cases = list(bottleneck_cases_run(tree, dev, sweep)
+                 if "pair" in groups else ())
+    for name, levels, quant, boxes, valid, pool in (
+            forward_cases(dev) if "roi" in groups else ()):
         def call():
             return RK.roi_align(levels, boxes, size, pool, 2, valid,
                                 quant=quant)
@@ -255,7 +327,7 @@ def turn(tree: Path, out: Path, sweep: bool, saved: Path) -> int:
             + ("" if not sweep else "; channels per thread " + ", ".join(
                 f"{v}: {t:.4f}" for v, t in rec["width_device_ms"].items())))
         del got, want
-    for name, levels in quant_cases(dev):
+    for name, levels in quant_cases(dev) if "levels" in groups else ():
         def call():
             return RK.quantize_levels(levels)
         codes, scales = call()
@@ -290,7 +362,8 @@ def turn(tree: Path, out: Path, sweep: bool, saved: Path) -> int:
                 f"; {k} {v:.4f}" for k, v in rec.items()
                 if k in ("absmax_device_ms", "codes_device_ms")))
         del codes, scales, want_q, want_s, levels
-    for name, levels, cot, boxes, valid in backward_cases(dev):
+    for name, levels, cot, boxes, valid in (
+            backward_cases(dev) if "backward" in groups else ()):
         dtype = levels[0].dtype
         shapes = [tuple(f.shape[1:3]) for f in levels]
         _, level, weight = RK.checked_inputs(levels, boxes, valid)
@@ -345,7 +418,7 @@ def turn(tree: Path, out: Path, sweep: bool, saved: Path) -> int:
                          "round_device_ms")))
         del levels, cot, plain
         torch.cuda.empty_cache()
-    cases += list(stem_cases(tree, dev, saved))
+    cases += list(stem_cases(tree, dev, saved) if "stem" in groups else ())
     out.write_text(json.dumps({"tree": str(tree), "cases": cases}, indent=1))
     return 0
 
@@ -355,6 +428,9 @@ def main() -> int:
     ap.add_argument("--old-tree", type=Path, help="the other checkout")
     ap.add_argument("--out", required=True, type=Path, help="the JSON result")
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--groups", default=",".join(GROUPS),
+                    help="comma-separated kernel groups to run, of "
+                    f"{', '.join(GROUPS)} (default: all)")
     ap.add_argument("--sweep", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--saved", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -363,9 +439,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     if args.turn is not None:
-        return turn(args.turn.resolve(), args.out, args.sweep, args.saved)
+        return turn(args.turn.resolve(), args.out, args.sweep, args.saved,
+                    args.groups.split(","))
     if args.old_tree is None:
         ap.error("--old-tree is required")
+    if not set(args.groups.split(",")) <= set(GROUPS):
+        ap.error(f"--groups takes {', '.join(GROUPS)}")
     trees = {"old": args.old_tree.resolve(), "new": HERE}
     card = gpu_name_and_power()
     log(f"[ab] card: {card}; torch {torch.__version__} cuda "
@@ -377,7 +456,7 @@ def main() -> int:
             part = args.out.with_name(f"{args.out.stem}.turn{i}.{side}.json")
             subprocess.run([sys.executable, str(Path(__file__).resolve()),
                             "--turn", str(trees[side]), "--out", str(part),
-                            "--saved", saved]
+                            "--saved", saved, "--groups", args.groups]
                            + (["--sweep"] if i == 2 else []), check=True)
             runs.append(json.loads(part.read_text())["cases"])
     results = []

@@ -1250,12 +1250,18 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels = {}
     # the bottleneck tensor of the serving path (+4 from the k2/p1 convs),
-    # as NHWC, as its channels_last NCHW view, and a size that is not a
-    # multiple of the vector width or the block
+    # as NHWC, as its channels_last NCHW view, a size that is not a
+    # multiple of the vector width or the block, batch 32 (past what the
+    # quantize grid holds in registers), and a view at storage offset 1
     z = torch.from_numpy(quant_input(SEED, (EVAL_BATCH, 212, 340, 3))).to(dev)
+    offset = torch.empty(z.numel() + 1, device=dev)[1:].view(z.shape)
+    offset.copy_(z)
     cases = [("nhwc", z), ("channels_last", z.permute(0, 3, 1, 2)),
              ("odd", torch.from_numpy(quant_input(SEED + 1, (3, 101, 77, 5)))
-              .to(dev))]
+              .to(dev)),
+             ("batch 32", torch.from_numpy(quant_input(
+                 SEED + 2, (32, 212, 340, 3))).to(dev)),
+             ("storage offset 1", offset)]
     for name, x in cases:
         q = QK.quantize(x, 8)
         ref = quantize_tensor(x, 8)
@@ -1270,6 +1276,7 @@ def main() -> int:
         check(torch.equal(d, dequantize_tensor(ref)), f"dequantize ({name})")
         log(f"[kernels] quantize/dequantize {name} {tuple(x.shape)}: "
             "bit-exact vs plain (card and CPU)")
+    del cases, offset
     q = QK.quantize(z, 8)
     # no single PyTorch call computes the quantizer or RoIAlign: no library
     # time.  Operations per element: min, max, divide, add, 2 clamps and a
@@ -1290,6 +1297,21 @@ def main() -> int:
         **timings(lambda: QK.dequantize(q)),
         plain_ms=time_ms(lambda: dequantize_tensor(q)), library_ms=None,
         **bound(nbytes(q.tensor, z), 2.0 * z.numel()))
+    # what launching costs on the card: an empty cooperative kernel with one
+    # grid barrier on quantize's grid, an empty kernel on dequantize's; and
+    # torch.aminmax, the yardstick of quantize's reduction (logged only)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for name, barrier in (("quantize", 1), ("dequantize", 0)):
+        kernels[name]["launch_floor_device_ms"] = time_ms(
+            lambda: _build.check(_build.load().hnd_launch_floor(
+                z.numel(), barrier, stream), "hnd_launch_floor"), spin=True)
+    floor_q, floor_d = (kernels[k]["launch_floor_device_ms"]
+                        for k in ("quantize", "dequantize"))
+    log(f"[kernels] launch floor on the card: quantize's grid "
+        f"({(QK._work_floats[dev.index] - 2) // 2} blocks at most) with one "
+        f"barrier {floor_q:.4f} ms, dequantize's grid {floor_d:.4f} ms; "
+        f"torch.aminmax of {tuple(z.shape)} "
+        f"{time_ms(lambda: torch.aminmax(z), spin=True):.4f} ms")
 
     h, w = BUCKETS[0]
     levels = [torch.randn((EVAL_BATCH, h // s, w // s, 256), generator=gen,
@@ -1345,7 +1367,10 @@ def main() -> int:
             f"{k['bound_by']}, {k['bound_ms'] / k['ms']:.1%} of it{tapped}"
             + ("" if "floor_ms" not in k else
                f"; two-pass floor {k['floor_ms']:.4f} ms, "
-               f"{k['floor_ms'] / k['device_ms']:.1%} of the card's time"))
+               f"{k['floor_ms'] / k['device_ms']:.1%} of the card's time")
+            + ("" if "launch_floor_device_ms" not in k else
+               f"; launch floor {k['launch_floor_device_ms']:.4f} ms on the "
+               "card"))
 
     # ---------------------------------------------------------- 4. serving
     os.environ["HND_TPU_PALLAS_STEM"] = "0"  # the serving path's default

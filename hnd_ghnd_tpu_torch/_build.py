@@ -32,9 +32,10 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 # C function name -> argtypes; every function returns a cudaError_t as int
 _SIGNATURES = {
-    "hnd_quantize_partials_size": [_I64],
-    "hnd_quantize_u8": [_P, _P, _P, _P, _I64, _I, _P],
+    "hnd_quantize_work_floats": [],
+    "hnd_quantize_u8": [_P, _P, _P, _I64, _I, _P],
     "hnd_dequantize_u8": [_P, _P, _P, _P, _I64, _P],
+    "hnd_launch_floor": [_I64, _I, _P],
     "hnd_roi_align_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                           _I, _I, _I, _P],
     "hnd_roi_align_bwd": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,

@@ -6,9 +6,11 @@ source.  The plain versions are codec/quantizer.py's ``quantize_tensor`` and
 ``dequantize_tensor``: a CPU tensor goes to them, a CUDA tensor to the
 kernel, and anything the kernel does not take raises.
 
-``scale`` and ``zero_point`` stay on the device as 0-d views of one
-``[2]`` buffer, and dequantize reads them there; nothing here waits for
-the device.
+Quantize is one cooperative launch; its work buffer (the scale and zero
+point, then one (min, max) pair per block of the kernel's largest grid) is
+one allocation, sized once per device.  ``scale`` and ``zero_point`` stay
+on the device as 0-d views of its first two floats, and dequantize reads
+them there; nothing here waits for the device.
 """
 from __future__ import annotations
 
@@ -27,7 +29,23 @@ def _dense(x: torch.Tensor) -> bool:
 
 
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    # the handle alone, without building a torch.cuda.Stream object
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+# device index -> floats of hnd_quantize_u8's work buffer there
+_work_floats: dict = {}
+
+
+def _work_size(lib, device: torch.device) -> int:
+    n = _work_floats.get(device.index)
+    if n is None:
+        with torch.cuda.device(device):
+            n = lib.hnd_quantize_work_floats()
+        if n <= 0:
+            _build.check(-n, "hnd_quantize_work_floats")
+        _work_floats[device.index] = n
+    return n
 
 
 def quantize(x: torch.Tensor, num_bits: int = 8) -> QuantizedTensor:
@@ -43,17 +61,15 @@ def quantize(x: torch.Tensor, num_bits: int = 8) -> QuantizedTensor:
     if not _dense(x) or x.numel() == 0:
         raise ValueError("quantize kernel takes a dense, non-empty tensor")
     lib = _build.load()
-    n = x.numel()
     q = torch.empty_like(x, dtype=torch.uint8)
-    partials = torch.empty(lib.hnd_quantize_partials_size(n),
-                           dtype=torch.float32, device=x.device)
-    meta = torch.empty(2, dtype=torch.float32, device=x.device)
+    work = torch.empty(_work_size(lib, x.device), dtype=torch.float32,
+                       device=x.device)
     _build.check(lib.hnd_quantize_u8(x.data_ptr(), q.data_ptr(),
-                                     partials.data_ptr(), meta.data_ptr(), n,
-                                     num_bits, _stream(x.device)),
+                                     work.data_ptr(), x.numel(), num_bits,
+                                     _stream(x.device)),
                  "hnd_quantize_u8")
     quantize.launches += 1
-    return QuantizedTensor(q, meta[0], meta[1])
+    return QuantizedTensor(q, *work[:2].unbind(0))
 
 
 quantize.launches = 0

@@ -44,6 +44,86 @@ def test_quant_kernels_bit_exact_vs_cpu_formula(cuda, shape):
     assert (QK.quantize.launches, QK.dequantize.launches) == (n_q + 1, n_d + 1)
 
 
+def _quantize_like_cpu(x, bits=8):
+    """Quantize on the card: codes, scale and zero point bit-exact with the
+    CPU formula (and its run on the card), dequantize exact."""
+    got = QK.quantize(x, bits)
+    want_cpu = tq.quantize_tensor(x.cpu(), bits)
+    for want in (want_cpu, tq.quantize_tensor(x, bits)):
+        assert torch.equal(got.tensor.cpu(), want.tensor.cpu())
+        assert torch.equal(got.scale.cpu(), want.scale.cpu())
+        assert torch.equal(got.zero_point.cpu(), want.zero_point.cpu())
+    # an infinite scale dequantizes 0 codes to NaN on both sides
+    assert torch.allclose(QK.dequantize(got).cpu(),
+                          tq.dequantize_tensor(want_cpu), rtol=0.0, atol=0.0,
+                          equal_nan=True)
+    return got
+
+
+# past the grid's registers at batch 32 (27.7 MB), the 1344x832 bucket's
+# bottleneck, and sizes under one block, with and without a scalar tail
+@pytest.mark.parametrize("shape", [(32, 212, 340, 3), (8, 340, 212, 3), (1,),
+                                   (5,), (4099,)])
+def test_quant_kernels_shapes_vs_cpu_formula(cuda, shape):
+    _quantize_like_cpu(torch.from_numpy(_x(8, shape)).to(cuda))
+
+
+def test_quant_kernels_at_storage_offset_1(cuda):
+    """A dense view whose data is 4 bytes past a 16-byte boundary takes the
+    scalar path, for the codes and for dequantize's loads."""
+    shape = (8, 212, 340, 3)
+    n = int(np.prod(shape))
+    base = torch.empty(n + 1, device=cuda)
+    x = base[1:].view(shape)
+    x.copy_(torch.from_numpy(_x(9, shape)))
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    got = _quantize_like_cpu(x)
+    codes = torch.empty(n + 1, dtype=torch.uint8, device=cuda)[1:].view(shape)
+    codes.copy_(got.tensor)
+    odd = tq.QuantizedTensor(codes, got.scale, got.zero_point)
+    assert torch.equal(QK.dequantize(odd).cpu(),
+                       tq.dequantize_tensor(got).cpu())
+
+
+@pytest.mark.parametrize("bits", [1, 4, 7])
+@pytest.mark.parametrize("shape", [(8, 212, 340, 3), (3, 101, 77, 5)])
+def test_quant_kernels_num_bits_vs_cpu_formula(cuda, shape, bits):
+    _quantize_like_cpu(torch.from_numpy(_x(10, shape)).to(cuda), bits)
+
+
+def test_quant_kernels_constant_tensor(cuda):
+    got = _quantize_like_cpu(torch.full((8, 212, 340, 3), -1.25, device=cuda))
+    assert got.scale.item() == 1.0
+
+
+@pytest.mark.parametrize("case", ["nan", "+inf", "-inf", "nan+-inf"])
+def test_quant_kernels_non_finite_past_the_registers(cuda, case):
+    """At batch 32 the last elements are read after the grid's registers are
+    full; a NaN or an infinity there still reaches the scale."""
+    values = {"nan": [np.nan], "+inf": [np.inf], "-inf": [-np.inf],
+              "nan+-inf": [np.nan, np.inf, -np.inf]}[case]
+    x = _x(11, (32, 212, 340, 3))
+    x.reshape(-1)[-len(values):] = values
+    _quantize_like_cpu(torch.from_numpy(x).to(cuda))
+
+
+def test_quantize_is_one_kernel_per_call(cuda):
+    """torch.profiler sees one CUDA kernel per quantize call, and no copy or
+    memset."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.from_numpy(_x(12, (8, 212, 340, 3))).to(cuda)
+    QK.quantize(x, 8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            QK.quantize(x, 8)
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device) == 3, device
+    assert all("quantize_kernel" in name for name in device), device
+
+
 def test_quant_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         QK.quantize(torch.zeros(8, dtype=torch.float64, device=cuda))

@@ -53,6 +53,22 @@ def test_codes_bit_exact_vs_pallas_interpret(seed):
         np.asarray(pallas_dequantize(want, interpret=True)))
 
 
+# more than one of the Pallas kernel's 512 Ki-float chunks, with a ragged
+# last chunk that the kernel pads with the last element
+@pytest.mark.parametrize("shape", [(4, 212, 340, 3), (1, 524289)],
+                         ids=["b4_bottleneck", "one_chunk_plus_1"])
+def test_codes_bit_exact_vs_pallas_interpret_multi_chunk(shape):
+    x = _x(7, shape)
+    assert x.size > 512 * 1024 and x.size % (512 * 1024) != 0
+    want = pallas_quantize(jnp.asarray(x), 8, interpret=True)
+    got = tq.quantize_tensor(torch.from_numpy(x), 8)
+    np.testing.assert_array_equal(got.tensor.numpy(), np.asarray(want.tensor))
+    assert got.zero_point.item() == float(want.zero_point)
+    # the jitted scale: at most one ulp from the IEEE quotient (see above)
+    assert abs(np.float32(got.scale.item()) - np.float32(want.scale)) <= \
+        np.spacing(np.float32(want.scale))
+
+
 def test_constant_tensor_guard():
     x = np.full((1, 4, 4, 3), 1.25, np.float32)
     want = jq.quantize_tensor(jnp.asarray(x), 8)
