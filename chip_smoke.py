@@ -22,16 +22,29 @@ paths, at full width with random weights and BN statistics from a seed:
     config/org/faster_rcnn-backbone_resnet50.yaml in bfloat16, batch 2 on
     both buckets with seeded synthetic targets, then its float32 eval on a
     batch-8 serving batch; one float32 step compared with a float64 step on
-    the CPU.
+    the CPU;
+  * the runners (the main path, through the entry points a user calls):
+    a COCO fixture of JPEGs written to a temporary directory (16 train and
+    8 val images at 480x640 and 640x480, which the loader sends to both
+    buckets), the teacher and the student (sharing all but ``layer1``)
+    written as checkpoints, the val/test annotations made from the
+    teacher's own detections; ``mimic_runner.run`` with the GHND b3ch
+    config's blocks, -distill -transform_bottleneck, 2 epochs at batch 4
+    with the stem switch on, COCOeval of each epoch's val, the best
+    checkpoint, the test evals at batch 1; the same with -test_only from
+    that checkpoint; ``coco_runner.run -train`` of the org model for one
+    epoch of bfloat16 steps on the fixture's own boxes.  It needs PIL and
+    cv2 (the loader's decode and resize).
 
 Each path checks that every kernel it runs was launched.  Any failed check
 raises.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
-it lists each kernel's route, launches, error, times (as its caller sees
-it, ``ms``, and on the card alone, ``device_ms``) and bound.  Without a
-GPU, or without the package beside it, the script exits nonzero and prints
-no result.  It imports nothing of JAX.
+it lists each kernel's route, launches (on the runners where they run it,
+every path's beside), error, times (as its caller sees it, ``ms``, and on
+the card alone, ``device_ms``) and bound.  Without a GPU, or without the
+package beside it, the script exits nonzero and prints no result.  It
+imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -42,6 +55,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -193,6 +207,22 @@ CPU_STATS_TOL = 1e-5
 TRAIN_TERM_TOL = 1e-5
 TRAIN_HEAD_GRAD_TOL = 5e-3     # x a leaf's largest gradient element
 TRAIN_FPN_GRAD_TOL = 1e-3
+# the runner phase: a COCO fixture of JPEGs (quality 95, as
+# tests/fixtures.py writes them) at 480x640 and 640x480, which the min side
+# 800 resize sends to both buckets; 2 epochs of mimic_runner -distill over
+# the train split at batch 4, eval batch 8, test batch 1
+RUNNER_IMAGES = {"train": 16, "val": 8}
+RUNNER_SHAPES = ((480, 640), (640, 480))
+RUNNER_EPOCHS = 2
+# the teacher's detections that become the val/test ground truth: every one
+# it scores at GT_SCORE or more (a cap would leave detections of the same
+# scores as false positives: the x300 logits tie many at 1.0).  The teacher
+# then scores near 1 on them, the student (a random bottleneck) far below
+GT_SCORE = 0.5
+TEACHER_MAP_MIN = 0.9
+# the GHND b3ch config's tpu block
+GHND_TPU = {"buckets": [[832, 1344], [1344, 832]], "compute_dtype": "float32",
+            "mesh_axis": "data", "eval_batch_size": 8, "pixel_dtype": "float32"}
 
 
 def log(msg: str) -> None:
@@ -1208,6 +1238,294 @@ def train_cpu_phase(dev: torch.device) -> None:
         check(rel <= tol, f"gradient {name}: {rel} of its max > {tol}")
 
 
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
+    from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
+    from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
+    return {"quantize": QK.quantize.launches,
+            "dequantize": QK.dequantize.launches,
+            "roi_align": RK.roi_align.launches,
+            "roi_align_bf16": RK.roi_align.launches_bf16,
+            "roi_align_int8": RK.roi_align.launches_int8,
+            "roi_align_bwd": RK.roi_align_backward.launches,
+            "quantize_levels": RK.quantize_levels.launches,
+            "stem_fwd": SK.stem_fwd.launches,
+            "stem_fwd_res": SK.stem_fwd_res.launches,
+            "stem_dw": SK.stem_dw.launches}
+
+
+def zero_kernel_counts() -> None:
+    from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
+    from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
+    from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
+    for fn in (QK.quantize, QK.dequantize, RK.roi_align_backward,
+               RK.quantize_levels, SK.stem_fwd, SK.stem_fwd_res, SK.stem_dw):
+        fn.launches = 0
+    RK.roi_align.launches = RK.roi_align.launches_bf16 = 0
+    RK.roi_align.launches_int8 = 0
+
+
+def write_runner_fixture(root: str, rng: np.random.RandomState) -> dict:
+    """COCO splits under ``root``: RUNNER_IMAGES JPEGs each, alternating
+    RUNNER_SHAPES, dark noise with 1-4 bright rectangles, each an
+    annotation of a random COCO category.  Returns {split: (image dir,
+    annotation file)}."""
+    from PIL import Image
+    out = {}
+    for split, n in RUNNER_IMAGES.items():
+        img_dir = os.path.join(root, split)
+        os.makedirs(img_dir, exist_ok=True)
+        images, anns = [], []
+        for i in range(n):
+            h, w = RUNNER_SHAPES[i % 2]
+            arr = rng.randint(0, 60, (h, w, 3), dtype=np.uint8)
+            for _ in range(rng.randint(1, 5)):
+                bw, bh = rng.randint(w // 12, w // 2), rng.randint(h // 12, h // 2)
+                x, y = rng.randint(0, w - bw), rng.randint(0, h - bh)
+                arr[y:y + bh, x:x + bw] = rng.randint(120, 255, 3)
+                anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                             "category_id": int(rng.randint(1, 91)),
+                             "bbox": [float(x), float(y), float(bw),
+                                      float(bh)],
+                             "area": float(bw * bh), "iscrowd": 0})
+            name = f"{i + 1:06d}.jpg"
+            Image.fromarray(arr).save(os.path.join(img_dir, name), quality=95)
+            images.append({"id": i + 1, "file_name": name, "height": h,
+                           "width": w})
+        ann_file = os.path.join(root, f"instances_{split}.json")
+        with open(ann_file, "w") as f:
+            json.dump({"images": images, "annotations": anns, "categories": [
+                {"id": c, "name": f"class{c}"} for c in range(1, 91)]}, f)
+        out[split] = (img_dir, ann_file)
+    return out
+
+
+def teacher_annotations(teacher, config: dict, out_file: str) -> int:
+    """The val split with ``teacher``'s own detections as its annotations
+    (score >= GT_SCORE), written to ``out_file``.  Returns the number of
+    annotations."""
+    from hnd_ghnd_tpu_torch.evals.postprocess import finalize_predictions
+    from hnd_ghnd_tpu_torch.runners import common
+    _, loader, _ = common.loaders_from_config(config, teacher.kind, 1)
+    items = list(loader)
+    records = common.evaluate(teacher.eval(), [b for b, _, _ in items])
+    with open(config["dataset"]["splits"]["val"]["annotations"]) as f:
+        coco = json.load(f)
+    anns = []
+    for (batch, _, host), rec in zip(items, records):
+        for i, tgt in enumerate(host):
+            if tgt["is_padding"]:
+                continue
+            pred = finalize_predictions(
+                rec["dets"], i, tuple(tgt["original_size"]),
+                tuple(int(v) for v in batch["image_sizes"][i]))
+            for j in np.flatnonzero(pred["scores"] >= GT_SCORE):
+                x1, y1, x2, y2 = (float(v) for v in pred["boxes"][j])
+                anns.append({"id": len(anns) + 1, "image_id": tgt["image_id"],
+                             "category_id": int(pred["labels"][j]),
+                             "bbox": [x1, y1, x2 - x1, y2 - y1],
+                             "area": (x2 - x1) * (y2 - y1), "iscrowd": 0})
+    coco["annotations"] = anns
+    with open(out_file, "w") as f:
+        json.dump(coco, f)
+    return len(anns)
+
+
+def runner_models(dev: torch.device):
+    """The ResNet-50 teacher (seed SEED, live BNs, class logits x300) and
+    the b3ch student whose all but ``layer1`` is the teacher's, as the zoo
+    weights would give both."""
+    from hnd_ghnd_tpu_torch.models.factory import get_model
+    teacher = live_norms_(get_model(TEACHER_MODEL, seed=SEED, device=dev),
+                          SEED)
+    with torch.no_grad():
+        teacher.roi_heads.box_predictor.cls_score.weight.mul_(300.0)
+    student = live_norms_(get_model(STUDENT_MODEL, seed=SEED + 1,
+                                    device=dev), SEED + 1)
+    student.load_state_dict({k: v for k, v in teacher.state_dict().items()
+                             if not k.startswith("backbone.body.layer1.")},
+                            strict=False)
+    return teacher, student
+
+
+def epoch_report(tag: str, epoch: dict, steps: list) -> None:
+    """Where an epoch's time went: the train loop (its loader wait, its
+    ``steps`` on the card) and the val eval (its loader wait, forwards on
+    the card, COCOeval on the host)."""
+    train, ev = epoch["train"], epoch["eval"]
+    wall = train["seconds"] + ev["seconds"]
+    step_s = sum(s[3] for s in steps) / 1e3
+    log(f"[{tag}] epoch: {wall:.3f} s = train loop {train['seconds']:.3f} s "
+        f"(loader wait {train['loader_s']:.3f} s, steps on the card "
+        f"{step_s:.3f} s) + val eval {ev['seconds']:.3f} s (loader wait "
+        f"{ev['loader_s']:.3f} s, {ev['batches']} forwards "
+        f"{ev['forward_ms'] / 1e3:.3f} s dispatch to host, COCOeval on the "
+        f"host {ev['cocoeval_s']:.3f} s); loader share "
+        f"{(train['loader_s'] + ev['loader_s']) / wall:.1%}; val mAP "
+        f"{epoch['val_map']:.6f}, saved {epoch['saved']}")
+
+
+def runner_phase(dev: torch.device, root: str) -> dict:
+    """The port's main path through its entry points: ``mimic_runner.run``
+    with the GHND b3ch config (its dataset block pointing at a fixture
+    written here), -distill -transform_bottleneck, RUNNER_EPOCHS epochs, the
+    stem switch on; then ``-test_only`` from the saved checkpoint; then
+    ``coco_runner.run -train`` of the org model for one epoch of bfloat16
+    steps on the fixture's own boxes.  Returns each run's kernel launches
+    ({"mimic": ..., "coco": ...})."""
+    from hnd_ghnd_tpu_torch.models.convert import jax_params_from_state_dict
+    from hnd_ghnd_tpu_torch.models.factory import get_model
+    from hnd_ghnd_tpu_torch.runners import coco_runner, mimic_runner
+    from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
+    t0 = time.perf_counter()
+    fx = write_runner_fixture(root, np.random.RandomState(SEED + 10))
+
+    def split(name, ann=None):
+        img_dir, own = fx[name]
+        return {"images": img_dir, "annotations": ann or own,
+                "remove_non_annotated_imgs": name == "train",
+                "jpeg_quality": None}
+
+    teacher, student = runner_models(dev)
+    ckpts = {}
+    for name, model in (("teacher", teacher), ("student", student)):
+        ckpts[name] = os.path.join(root, f"{name}.pt")
+        params, state = jax_params_from_state_dict(model.state_dict())
+        ckpt_util.save_ckpt(ckpts[name], params=params, state=state)
+    del teacher, student
+    config = {
+        "dataset": {"name": "fixture", "num_workers": 4, "splits": {
+            "train": split("train"), "val": split("val"),
+            "test": split("val")}},
+        "teacher_model": dict(TEACHER_MODEL, ckpt=ckpts["teacher"]),
+        "student_model": dict(STUDENT_MODEL, ckpt=ckpts["student"]),
+        "train": dict(TRAIN, num_epochs=RUNNER_EPOCHS),
+        "test": {"batch_size": 1},
+        "tpu": GHND_TPU,
+    }
+    gt = os.path.join(root, "instances_val_teacher.json")
+    n_gt = teacher_annotations(get_model(config["teacher_model"], seed=SEED,
+                                         device=dev), config, gt)
+    for name in ("val", "test"):
+        config["dataset"]["splits"][name] = split("val", gt)
+    log(f"[runner] fixture of {sum(RUNNER_IMAGES.values())} JPEGs and "
+        f"{n_gt} teacher-made val annotations in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------- mimic_runner -distill
+    os.environ["HND_TPU_PALLAS_STEM"] = "1"
+    yaml_path = "config/ghnd/faster_rcnn-backbone_resnet50-b3ch.yaml"
+    args = mimic_runner.get_argparser().parse_args(
+        ["--config", yaml_path, "--device", str(dev), "-distill",
+         "-transform_bottleneck"])
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    result = mimic_runner.run(config, args)
+    wall = time.perf_counter() - t0
+    mimic = kernel_counts()
+    hist = result["distill"]
+    n_steps = len(hist["steps"])
+    n_val = sum(e["eval"]["batches"] for e in hist["epochs"])
+    n_t, n_s = (result[k]["eval"]["batches"] for k in ("teacher", "student"))
+    log(f"[runner] mimic_runner -distill -transform_bottleneck: {n_steps} "
+        f"steps, {n_val} val batches, {n_t} + {n_s} test batches in "
+        f"{wall:.3f} s; launches {mimic}")
+    want = {"stem_fwd": n_steps + n_val + n_t + n_s, "stem_fwd_res": n_steps,
+            "stem_dw": n_steps, "quantize": n_val + n_s,
+            "dequantize": n_val + n_s, "roi_align": n_val + n_t + n_s}
+    for k, n in want.items():
+        check(mimic[k] == n, f"runner: {k} launched {mimic[k]} times, want {n}")
+    check(n_steps == RUNNER_EPOCHS * RUNNER_IMAGES["train"] // TRAIN_BATCH,
+          f"runner: {n_steps} steps")
+    for idx, loss, terms, ms in hist["steps"]:
+        check(np.isfinite(loss), f"runner step {idx}: loss {loss}")
+        log(f"[runner] step {idx}: {ms:.3f} ms, loss {loss:.6e}")
+    steady = [s[3] for s in hist["steps"][1:]]
+    log(f"[runner] mimic_runner_distill_images_per_sec_per_chip "
+        f"{TRAIN_BATCH * len(steady) / sum(steady) * 1e3:.4f} (CUDA events "
+        f"of steps 1-{n_steps - 1}, step 0 excluded; median step "
+        f"{statistics.median(steady):.3f} ms)")
+    best = 0.0
+    per_epoch = n_steps // RUNNER_EPOCHS
+    for e, epoch in enumerate(hist["epochs"]):
+        check(epoch["val_map"] == epoch["stats"]["bbox"][0],
+              "the val mAP is not the evaluator's stats['bbox'][0]")
+        check(epoch["saved"] == (epoch["val_map"] > best),
+              "a checkpoint was written without a rise, or not on one")
+        best = max(best, epoch["val_map"])
+        epoch_report("runner", epoch,
+                     hist["steps"][e * per_epoch:(e + 1) * per_epoch])
+    check(any(e["saved"] for e in hist["epochs"]),
+          "no epoch raised the val mAP above 0: no checkpoint")
+    payload = ckpt_util.load_ckpt(ckpts["student"])
+    last_save = max(i for i, e in enumerate(hist["epochs"]) if e["saved"])
+    check(payload["best_value"] == best
+          and payload["lr_step"] == (last_save + 1) * per_epoch
+          and payload["torch_opt_state"]["state"],
+          "the checkpoint is not the best epoch's")
+    t_map = result["teacher"]["stats"]["bbox"][0]
+    s_map = result["student"]["stats"]["bbox"][0]
+    for who in ("teacher", "student"):
+        ev = result[who]["eval"]
+        log(f"[runner] test eval of the {who} (batch 1): "
+            f"{ev['seconds']:.3f} s, {ev['batches']} forwards, COCOeval "
+            f"{ev['cocoeval_s']:.3f} s; bbox stats "
+            + " ".join(f"{v:.6f}" for v in result[who]["stats"]["bbox"]))
+    check(t_map >= TEACHER_MAP_MIN, f"teacher test mAP {t_map} < "
+          f"{TEACHER_MAP_MIN} on its own detections")
+    check(0.0 <= s_map < t_map, f"student test mAP {s_map}")
+
+    # -------------------------------------------- -test_only, same files
+    args = mimic_runner.get_argparser().parse_args(
+        ["--config", yaml_path, "--device", str(dev), "-test_only",
+         "-transform_bottleneck"])
+    again = mimic_runner.run(config, args)
+    for who in ("teacher", "student"):
+        check(again[who]["stats"] == result[who]["stats"],
+              f"-test_only {who} stats differ from the distill run's")
+    log("[runner] -test_only from the best checkpoint: the teacher's and "
+        "the student's stats equal the distill run's (the final eval ran "
+        "the reloaded best checkpoint)")
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------- coco_runner -train
+    os.environ["HND_TPU_PALLAS_STEM"] = "0"  # the stem kernels are f32 only
+    own = split("val")
+    org_config = {
+        "dataset": {"name": "fixture", "num_workers": 4, "splits": {
+            "train": own, "val": own, "test": own}},
+        "model": dict(ORG_MODEL, ckpt=os.path.join(root, "org.pt")),
+        "train": dict(ORG_TRAIN, num_epochs=1), "test": {"batch_size": 1},
+        "tpu": ORG_TPU}
+    args = coco_runner.get_argparser().parse_args(
+        ["--config", "config/org/faster_rcnn-backbone_resnet50.yaml",
+         "--device", str(dev), "-train"])
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    org = coco_runner.run(org_config, args)
+    wall = time.perf_counter() - t0
+    coco = kernel_counts()
+    (epoch,) = org["train"]["epochs"]
+    n_steps = len(org["train"]["steps"])
+    n_eval = epoch["eval"]["batches"] + org["test"]["eval"]["batches"]
+    log(f"[runner] coco_runner -train: {n_steps} bfloat16 steps, {n_eval} "
+        f"eval batches in {wall:.3f} s; launches {coco}")
+    for idx, loss, terms, ms in org["train"]["steps"]:
+        check(all(np.isfinite(v) for v in terms.values()),
+              f"coco_runner step {idx}: {terms}")
+        log(f"[runner] coco_runner step {idx}: {ms:.3f} ms, loss {loss:.6e}")
+    check(n_steps == RUNNER_IMAGES["val"] // ORG_BATCH,
+          f"coco_runner: {n_steps} steps")
+    check(coco["roi_align_bf16"] == n_steps and coco["roi_align_bwd"] == n_steps
+          and coco["roi_align"] == n_eval, f"coco_runner launches {coco}")
+    epoch_report("runner coco", epoch, org["train"]["steps"])
+    log(f"[runner] coco_runner test eval: bbox stats " + " ".join(
+        f"{v:.6f}" for v in org["test"]["stats"]["bbox"]))
+    return {"mimic": mimic, "coco": coco}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1495,10 +1813,32 @@ def main() -> int:
 
     # ---------------------------------------------------------- 9. card vs CPU
     train_cpu_phase(dev)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 10. runners
+    with tempfile.TemporaryDirectory() as root:
+        runner = runner_phase(dev, root)
 
     # ---------------------------------------------------------- result
-    out = [dict(name=name, route="cuda", launches=launches[name], **k)
-           for name, k in kernels.items()]
+    # launches: the runners' (the main path) where they run the kernel, else
+    # the heads phase's (the int8 tables); every path's beside
+    paths = {"serving": {k: launches[k] for k in ("quantize", "dequantize",
+                                                 "roi_align")},
+             "heads": {k: launches[k] for k in ("roi_align_int8",
+                                               "quantize_levels")},
+             "distill": {k: stem_launches[k] for k in
+                         ("stem_fwd", "stem_fwd_res", "stem_dw")},
+             "train": {k: train_launches[k] for k in
+                       ("roi_align_bf16", "roi_align_bwd")},
+             "mimic_runner": {k: v for k, v in runner["mimic"].items() if v},
+             "coco_runner": {k: v for k, v in runner["coco"].items() if v}}
+    out = []
+    for name, k in kernels.items():
+        by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
+        on_runner = runner["mimic"][name] + runner["coco"][name]
+        out.append(dict(name=name, route="cuda",
+                        launches=on_runner or launches[name],
+                        launches_by_path=by_path, **k))
     for k in out:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     print(card, flush=True)

@@ -1,8 +1,13 @@
-"""JAX-package weights -> this package's ``state_dict``.
+"""JAX-package weights <-> this package's ``state_dict``.
 
-The inverse of hnd_ghnd_tpu/models/convert.py:convert_state_dict for the
-teacher and the student: it takes the JAX package's (params, state)
-pytrees as numpy and returns the state_dict of models/rcnn.RCNN.
+``state_dict_from_jax`` is the inverse of
+hnd_ghnd_tpu/models/convert.py:convert_state_dict: it takes the JAX
+package's (params, state) pytrees as numpy and returns the state_dict of
+models/rcnn.RCNN.  ``jax_params_from_state_dict`` is the other direction
+(the checkpoints' layout, utils/ckpt.py); the two are exact inverses on
+every model kind the port builds, with a frozen BN's statistics folded into
+its affine (``FrozenBatchNorm2d.folded``'s arithmetic, so the model's
+output does not change).
 
   * conv kernels HWIO -> OIHW; linear weights [in, out] -> [out, in];
   * frozen BN {scale, bias} -> weight=scale, bias=bias, running_mean=0,
@@ -35,6 +40,8 @@ _DEC_IDX = {"bn_in": "0", "conv0": "2", "bn0": "3", "conv1": "4", "bn1": "5",
             "conv2": "7", "bn2": "8", "conv3": "9", "bn3": "10"}
 _LAYER1 = ("backbone", "body", "layer1")
 _TRANSPOSED = ("conv5_mask", "kps_score_lowres")
+_ENC_NAME = {v: k for k, v in _ENC_IDX.items()}
+_DEC_NAME = {v: k for k, v in _DEC_IDX.items()}
 
 
 def _leaves(tree: Dict[str, Any], path=()) -> Iterator[Tuple[tuple, Dict]]:
@@ -99,3 +106,70 @@ def state_dict_from_jax(params: Dict[str, Any],
         else:
             raise KeyError(f"unrecognised parameter group {'.'.join(path)}")
     return sd
+
+
+def _jax_path(prefix: str) -> tuple:
+    """The inverse of ``_torch_prefix``."""
+    parts = tuple(prefix.split("."))
+    if parts[:4] == _LAYER1 + ("encoder",):
+        return _LAYER1 + ("encoder", _ENC_NAME[parts[5]])
+    if parts[:4] == _LAYER1 + ("decoder",):
+        return _LAYER1 + ("decoder", _DEC_NAME[parts[4]])
+    if parts[:2] == ("roi_heads", "mask_predictor"):
+        return ("roi_heads", "mask_head", parts[2])
+    if parts[:2] == ("roi_heads", "keypoint_predictor"):
+        return ("roi_heads", "keypoint_head", parts[2])
+    if parts[:2] == ("roi_heads", "keypoint_head"):
+        return ("roi_heads", "keypoint_head", str(int(parts[2]) // 2))
+    return parts
+
+
+def _put(tree: Dict[str, Any], path: tuple, node: Dict[str, np.ndarray]):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = node
+
+
+def jax_params_from_state_dict(sd: Dict[str, torch.Tensor]):
+    """A port ``state_dict`` -> the JAX package's (params, state) numpy
+    trees: conv kernels OIHW -> HWIO (transposed convs [in, out, kh, kw] ->
+    HWIO), linear weights transposed, a frozen BN folded to {scale, bias},
+    a trainable BN (one with ``num_batches_tracked``) to {gamma, beta} and
+    state {mean, var}."""
+    groups: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, value in sd.items():
+        prefix, leaf = key.rsplit(".", 1)
+        groups.setdefault(prefix, {})[leaf] = value.detach().cpu()
+    params: Dict[str, Any] = {}
+    # the trunk's state subtree exists without trainable BNs too (JAX's
+    # init gives the teacher {"backbone": {"body": {}}})
+    state: Dict[str, Any] = {"backbone": {"body": {}}}
+
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return np.ascontiguousarray(t.float().numpy())
+
+    for prefix, g in groups.items():
+        path = _jax_path(prefix)
+        if "num_batches_tracked" in g:
+            _put(params, path, {"gamma": arr(g["weight"]),
+                                "beta": arr(g["bias"])})
+            _put(state, path, {"mean": arr(g["running_mean"]),
+                               "var": arr(g["running_var"])})
+        elif "running_var" in g:
+            scale = g["weight"] * torch.rsqrt(g["running_var"])
+            _put(params, path, {"scale": arr(scale),
+                                "bias": arr(g["bias"]
+                                            - g["running_mean"] * scale)})
+        else:
+            w = arr(g["weight"])
+            if w.ndim != 4:
+                w = w.T
+            elif path[-1] in _TRANSPOSED:
+                w = w.transpose(2, 3, 0, 1)
+            else:
+                w = w.transpose(2, 3, 1, 0)
+            node = {"w": np.ascontiguousarray(w)}
+            if "bias" in g:
+                node["b"] = arr(g["bias"])
+            _put(params, path, node)
+    return params, state

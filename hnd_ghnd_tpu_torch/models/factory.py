@@ -16,7 +16,10 @@ turn ``requires_grad`` off (utils/params.set_trainable).
 ``init_model`` draws seeded random weights from an explicit
 ``torch.Generator`` with the JAX package's init distributions.  The zoo
 weights that ``params.pretrained`` asks for are not in the repository:
-``get_model`` says so and keeps the seeded init, as JAX's does.
+``get_model`` says so and keeps the seeded init, as JAX's does.  Then, as
+in the JAX package (src/models/__init__.py:38-57's order), ``get_model``
+loads the model's own ``ckpt`` when that file exists: a checkpoint of
+utils/ckpt.py, written by either package.
 """
 from __future__ import annotations
 
@@ -29,7 +32,9 @@ from torch import nn
 
 from hnd_ghnd_tpu_torch.models import layers as L
 from hnd_ghnd_tpu_torch.models.bottleneck import Bottleneck4LargeResNet
+from hnd_ghnd_tpu_torch.models.convert import state_dict_from_jax
 from hnd_ghnd_tpu_torch.models.rcnn import RCNN
+from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
 from hnd_ghnd_tpu_torch.utils.params import set_trainable
 
 logger = logging.getLogger(__name__)
@@ -140,10 +145,31 @@ def init_model(model: RCNN, generator: torch.Generator) -> RCNN:
     return model
 
 
+def load_weights(model: RCNN, params, state) -> RCNN:
+    """Load JAX-layout (params, state) trees into ``model``, non-strict as
+    the JAX package's ``merge_pytree`` (the reference's
+    load_state_dict(strict=False)): entries the model lacks, or of another
+    shape, are skipped with a warning."""
+    own = model.state_dict()
+    sd = {}
+    for k, v in state_dict_from_jax(params, state or {}).items():
+        if k not in own:
+            logger.debug("checkpoint key %s not in the model; skipped", k)
+        elif tuple(v.shape) != tuple(own[k].shape):
+            logger.warning("shape mismatch at %s: model %s vs checkpoint %s; "
+                           "kept the model's", k, tuple(own[k].shape),
+                           tuple(v.shape))
+        else:
+            sd[k] = v.to(own[k].dtype)
+    model.load_state_dict(sd, strict=False)
+    return model
+
+
 def get_model(model_config: Dict[str, Any], seed: int = 0,
               device: str | torch.device = "cuda") -> RCNN:
-    """Build, init from ``seed``, and move to ``device``: the card unless
-    the caller asks for the CPU."""
+    """Build, init from ``seed``, load ``model_config["ckpt"]`` when it
+    exists, and move to ``device``: the card unless the caller asks for the
+    CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("get_model: no CUDA device; pass device='cpu' to "
@@ -153,4 +179,19 @@ def get_model(model_config: Dict[str, Any], seed: int = 0,
     if (model_config.get("params", {}) or {}).get("pretrained"):
         logger.warning("pretrained=True but the zoo weights are not in the "
                        "repository; using the seeded init")
+    path = model_config.get("ckpt")
+    if ckpt_util.check_if_exists(path):
+        payload = ckpt_util.load_ckpt(path)
+        load_weights(model, payload["params"], payload.get("state"))
+        logger.info("loaded checkpoint %s", path)
     return model.to(device)
+
+
+def get_iou_types(model: RCNN) -> List[str]:
+    """Eval IoU types per model kind (reference models/__init__.py:60-70)."""
+    iou_types = ["bbox"]
+    if model.kind == "mask_rcnn":
+        iou_types.append("segm")
+    elif model.kind == "keypoint_rcnn":
+        iou_types.append("keypoints")
+    return iou_types

@@ -1,36 +1,110 @@
-"""Supervised detector training (the ``org`` models).
+"""Supervised detector training entry point (produces the ``org`` teachers).
 
-Counterpart of hnd_ghnd_tpu/runners/coco_runner.py:train (reference
+Counterpart of hnd_ghnd_tpu/runners/coco_runner.py (reference
 src/coco_runner.py): the loss is the sum of the R-CNN loss dict; the
 schedule is the config's with the reference's warmup of
 min(1000, steps_per_epoch - 1) steps; the trunk's conv1, bn1 and layer1 are
 frozen under ``backbone.params.freeze_layers`` (models/factory.py); a
 non-finite loss stops training (coco_runner.py:95-103); after each epoch
 the model is evaluated through the serving path in float32, then put back
-in train mode.  Step scalars are read one step late (``StepMetrics``), so
-the check of a loss fires one step after it was queued.
+in train mode, and the best-mAP checkpoint is kept with its optimizer
+state.  The final test eval runs the last model, as the reference's does;
+without ``-train`` it runs the model's ``ckpt``.  Step scalars are read one
+step late (``StepMetrics``), so the check of a loss fires one step after
+it was queued.  The compute dtype is ``tpu.compute_dtype`` (bfloat16
+unless the config says float32).
 
-The compute dtype is ``tpu.compute_dtype`` (bfloat16 unless the config
-says float32).  The YAML, the COCO loader, COCOeval and the best-mAP
-checkpoint wait for ROADMAP A6: batches come in as (batch, targets) pairs
-of arrays, and the eval returns detections.
+    python -m hnd_ghnd_tpu_torch.runners.coco_runner --config <yaml> \\
+        -train [--device cpu]
+
+``train`` is the batch-level loop over given (batch, targets) pairs, whose
+evals return raw detections; ``train_coco`` is the runner's loop over the
+loaders.
 """
 from __future__ import annotations
 
+import argparse
 import math
+import time
 from typing import Any, Dict, Iterable, List, Tuple
 
 import torch
 
+from hnd_ghnd_tpu_torch.core.config import load_config, overwrite_config
+from hnd_ghnd_tpu_torch.models.factory import get_model, load_weights
 from hnd_ghnd_tpu_torch.models.rcnn import RCNN
-from hnd_ghnd_tpu_torch.parallel.train_step import (MAX_WARMUP,
+from hnd_ghnd_tpu_torch.parallel.train_step import (MAX_WARMUP, DetectionStep,
                                                     make_detection_train_step)
+from hnd_ghnd_tpu_torch.runners import common
 from hnd_ghnd_tpu_torch.runners.common import (StepMetrics,
                                                compute_dtype_from_config,
                                                configure_precision, evaluate,
                                                to_device)
+from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
 
 Batch = Dict[str, Any]
+
+
+def get_argparser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="COCO detector trainer")
+    common.add_common_args(parser)
+    parser.add_argument("-train", action="store_true")
+    parser.add_argument("-test_only", action="store_true")
+    parser.add_argument("--tb_dir", default=None,
+                        help="not ported (ROADMAP A18): raises")
+    return parser
+
+
+def make_step(model: RCNN, config: Dict[str, Any], steps_per_epoch: int,
+              seed: int = 0) -> DetectionStep:
+    """The detection step of ``config["train"]`` in ``tpu.compute_dtype``;
+    ``seed`` seeds the samplers."""
+    train_cfg = config["train"]
+    compute_dtype = compute_dtype_from_config(config)
+    configure_precision(compute_dtype)
+    steps_per_epoch = max(int(steps_per_epoch), 1)
+    warmup = min(MAX_WARMUP, steps_per_epoch - 1)
+    return make_detection_train_step(
+        model, train_cfg["optimizer"], train_cfg.get("scheduler"),
+        steps_per_epoch, warmup, compute_dtype, seed=seed)
+
+
+def train_epoch(step: DetectionStep, batches: Iterable) -> Dict[str, Any]:
+    """One epoch of ``step`` over ``batches``: (batch, targets) pairs, or the
+    loader's (batch, targets, host_targets).  Raises on a non-finite loss.
+
+    Returns {"steps": [(step, loss, {term: value}, ms)], "seconds",
+    "loader_s"} as mimic_runner.train_epoch."""
+    model = step.model
+    device = next(model.parameters()).device
+    cuda = device.type == "cuda"
+    model.train()
+    metrics = StepMetrics()
+    out: Dict[str, Any] = {"steps": []}
+
+    def record(entries):
+        for entry in entries:
+            if not math.isfinite(entry[1]):
+                raise FloatingPointError(
+                    f"loss is {entry[1]} at step {entry[0]} "
+                    f"({entry[2]}), stopping training")
+            out["steps"].append(entry)
+
+    t_start = time.perf_counter()
+    batches = common.Timed(batches)
+    for item in batches:
+        batch, targets = item[0], item[1]
+        batch, targets = to_device(batch, device), to_device(targets, device)
+        start = None
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        loss, terms = step(batch, targets)
+        record(metrics.push(step.step - 1, loss, terms, start))
+    record(metrics.drain())
+    out["seconds"] = time.perf_counter() - t_start
+    out["loader_s"] = batches.seconds
+    return out
 
 
 def train(model: RCNN, config: Dict[str, Any],
@@ -48,38 +122,78 @@ def train(model: RCNN, config: Dict[str, Any],
     Returns {"steps": [(step, loss, {term: value}, ms)], "evals": [the
     records of ``evaluate`` for each epoch]}; ms is the step's time between
     CUDA events (None on the CPU)."""
-    train_cfg = config["train"]
-    compute_dtype = compute_dtype_from_config(config)
-    configure_precision(compute_dtype)
-    device = next(model.parameters()).device
-    steps_per_epoch = max(int(steps_per_epoch), 1)
-    warmup = min(MAX_WARMUP, steps_per_epoch - 1)
-    step = make_detection_train_step(
-        model, train_cfg["optimizer"], train_cfg.get("scheduler"),
-        steps_per_epoch, warmup, compute_dtype, seed=seed)
-    cuda = device.type == "cuda"
+    step = make_step(model, config, steps_per_epoch, seed)
     history: Dict[str, List] = {"steps": [], "evals": []}
-
-    def record(entries):
-        for entry in entries:
-            if not math.isfinite(entry[1]):
-                raise FloatingPointError(
-                    f"loss is {entry[1]} at step {entry[0]} "
-                    f"({entry[2]}), stopping training")
-            history["steps"].append(entry)
-
-    for _ in range(int(train_cfg["num_epochs"])):
-        model.train()
-        metrics = StepMetrics()
-        for batch, targets in train_batches:
-            batch, targets = to_device(batch, device), to_device(targets, device)
-            start = None
-            if cuda:
-                start = torch.cuda.Event(enable_timing=True)
-                start.record()
-            loss, terms = step(batch, targets)
-            record(metrics.push(step.step - 1, loss, terms, start))
-        record(metrics.drain())
+    for _ in range(int(config["train"]["num_epochs"])):
+        history["steps"] += train_epoch(step, train_batches)["steps"]
         history["evals"].append(evaluate(model.eval(), val_batches))
     model.train()
     return history
+
+
+def train_coco(model: RCNN, config: Dict[str, Any], args: argparse.Namespace,
+               train_loader, val_loader) -> Dict[str, List]:
+    """The runner's training (coco_runner.py:41-166): epochs over
+    ``train_loader`` (``set_epoch`` each), the val bbox mAP after each, the
+    best checkpoint at ``model.ckpt`` when it rises, resuming from that file
+    when it exists.  Returns {"steps", "epochs"} as
+    mimic_runner.distill_coco."""
+    ckpt_path = config["model"].get("ckpt")
+    common.check_ckpt_backend(config)
+    step = make_step(model, config, len(train_loader), args.seed)
+    best = 0.0
+    if ckpt_util.check_if_exists(ckpt_path):
+        best = common.resume(ckpt_path, model, step)
+    history: Dict[str, List] = {"steps": [], "epochs": []}
+    for epoch in range(int(config["train"]["num_epochs"])):
+        train_loader.set_epoch(epoch)
+        done = train_epoch(step, train_loader)
+        history["steps"] += done.pop("steps")
+        evaluator, times = common.coco_evaluate(model.eval(), val_loader)
+        model.train()
+        val_map = float(evaluator.stats["bbox"][0])
+        saved = bool(val_map > best and ckpt_path)
+        if saved:
+            best = val_map
+            common.save_checkpoint(ckpt_path, model, step, best, config, args)
+            print(f"saved best ckpt (val mAP {val_map:.4f})", flush=True)
+        history["epochs"].append({
+            "val_map": val_map, "saved": saved, "train": done, "eval": times,
+            "stats": {k: v.tolist() for k, v in evaluator.stats.items()}})
+    return history
+
+
+def run(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
+    """``main`` after the config is loaded.  Returns {"train": the history
+    of ``train_coco`` (with -train), "test": {"stats", "eval"}}."""
+    common.check_unported_args(args)
+    model = get_model(config["model"], seed=args.seed, device=args.device)
+    out: Dict[str, Any] = {}
+    if args.train:
+        min_sizes = common.keypoint_min_sizes(model.kind, True)
+        train_loader, val_loader, _ = common.loaders_from_config(
+            config, model.kind, int(config["train"]["batch_size"]),
+            min_sizes=min_sizes)
+        out["train"] = train_coco(model, config, args, train_loader,
+                                  val_loader)
+    elif ckpt_util.check_if_exists(config["model"].get("ckpt")):
+        payload = ckpt_util.load_ckpt(config["model"]["ckpt"])
+        load_weights(model, payload["params"], payload.get("state"))
+    _, _, test_loader = common.loaders_from_config(config, model.kind, 1)
+    evaluator, times = common.coco_evaluate(model.eval(), test_loader)
+    out["test"] = {"stats": {k: v.tolist() for k, v in
+                             evaluator.stats.items()}, "eval": times}
+    return out
+
+
+def main(args: argparse.Namespace) -> Dict[str, Any]:
+    config = overwrite_config(load_config(args.config), args.json)
+    return run(config, args)
+
+
+def cli():
+    main(get_argparser().parse_args())
+
+
+if __name__ == "__main__":
+    cli()

@@ -1,30 +1,161 @@
-"""The serving loop and the lag-1 read of training scalars.
+"""The runners' shared machinery: CLI arguments, loaders, the eval loop
+and the lag-1 read of training scalars.
 
-Counterpart of hnd_ghnd_tpu/runners/common.py: ``eval_forward`` is the
-``fwd`` of its JitCache.eval_forward (uint8 pixels become float * 1/255,
-as parallel/mesh.py:images_to_compute does), and ``evaluate`` is the lag-1
+Counterpart of hnd_ghnd_tpu/runners/common.py (reference
+src/utils/main_util.py evaluate :75-113).  ``eval_forward`` is the ``fwd``
+of its JitCache.eval_forward (uint8 pixels become float * 1/255, as
+parallel/mesh.py:images_to_compute does), and ``evaluate`` is the lag-1
 device loop of its ``evaluate``: batch k's detections are copied to pinned
 host memory behind a CUDA event while batch k+1 is dispatched, and only then
-turned into numpy.  The CocoEvaluator step of that loop waits for ROADMAP
-A6 (the host data and eval modules still import jax).  The forward runs
-in float32 whatever the config's compute dtype, as JAX's eval forward does
-(runners/common.py:180-184).  ``StepMetrics`` is its counterpart for the
-training loops: each step's loss and terms go to pinned host memory behind
-a CUDA event and are read one step later.
+turned into numpy and, under ``coco_evaluate``, finalized and fed to the
+CocoEvaluator on the host while batch k+1 runs on the card.  The forward
+runs in float32 whatever the config's compute dtype, as JAX's eval forward
+does (runners/common.py:180-184).  ``StepMetrics`` is its counterpart for
+the training loops: each step's loss and terms go to pinned host memory
+behind a CUDA event and are read one step later.
+
+One process on one device runs every loop: JAX's meshes, MicrobatchBuffer
+(``steps_per_dispatch``), JitCache and persistent compilation cache have no
+counterpart (XLA-only, or measured slower, BASELINE.md round 5).
 """
 from __future__ import annotations
 
+import argparse
 import time
 from collections import deque
-from typing import Any, Dict, Iterable, List, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from hnd_ghnd_tpu_torch.evals.coco_eval import CocoEvaluator
+from hnd_ghnd_tpu_torch.evals.postprocess import finalize_predictions
+from hnd_ghnd_tpu_torch.models.convert import jax_params_from_state_dict
+from hnd_ghnd_tpu_torch.models.factory import get_iou_types, load_weights
 from hnd_ghnd_tpu_torch.models.rcnn import RCNN
 from hnd_ghnd_tpu_torch.parallel.train_step import images_to_compute
+from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
 
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def add_common_args(parser: argparse.ArgumentParser) -> None:
+    """--config/--json/--device/--seed of every runner (reference
+    src/mimic_runner.py:17-29).  The runners run on the card unless
+    ``--device cpu``; ``--world_size`` above 1 raises (ROADMAP A12)."""
+    parser.add_argument("--config", required=True, help="yaml config path")
+    parser.add_argument("--json", default=None,
+                        help="JSON string merged over the config")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device of the models (cuda or cpu)")
+    parser.add_argument("--world_size", type=int, default=None,
+                        help="number of processes; only 1 is ported")
+    parser.add_argument("--seed", type=int, default=0)
+
+
+def check_unported_args(args: argparse.Namespace) -> None:
+    """Raise on a flag whose feature the port does not have yet."""
+    if (getattr(args, "world_size", None) or 1) > 1:
+        raise NotImplementedError("--world_size > 1: multi-process runs are "
+                                  "ROADMAP A12")
+    for flag in ("tb_dir", "profile_dir"):
+        if getattr(args, flag, None):
+            raise NotImplementedError(f"--{flag}: TensorBoard curves and the "
+                                      "profiler trace are ROADMAP A18")
+
+
+def keypoint_min_sizes(model_kind: str, training: bool) -> Tuple[int, ...]:
+    """KeypointRCNN trains at random min sides 640..800
+    (reference src/models/org/rcnn.py:325-326)."""
+    if model_kind == "keypoint_rcnn" and training:
+        return (640, 672, 704, 736, 768, 800)
+    return (800,)
+
+
+def loaders_from_config(config: Dict[str, Any], model_kind: str,
+                        batch_size: int, min_sizes: Sequence[int] = (800,)):
+    """(train, val, test) loaders of one process from the config's
+    ``dataset`` and ``tpu`` blocks: the buckets, min sizes, max size,
+    ``pixel_dtype``, the per-epoch val batch (``tpu.eval_batch_size``) and
+    the test batch (``test.batch_size``, 1 by default, the reference's
+    protocol)."""
+    from hnd_ghnd_tpu_torch.data.loader import get_coco_data_loaders
+    from hnd_ghnd_tpu_torch.data.transforms import DEFAULT_BUCKETS
+    tpu_cfg = config.get("tpu", {}) or {}
+    buckets = tuple(tuple(b) for b in tpu_cfg.get("buckets", DEFAULT_BUCKETS))
+    min_sizes = tuple(tpu_cfg.get("min_sizes", min_sizes))
+    max_size = int(tpu_cfg.get("max_size", 1333))
+    eval_bs = int((config.get("test", {}) or {}).get("batch_size", 1))
+    val_bs = tpu_cfg.get("eval_batch_size")
+    return get_coco_data_loaders(
+        config["dataset"], batch_size,
+        with_masks=model_kind == "mask_rcnn",
+        with_keypoints=model_kind == "keypoint_rcnn",
+        min_sizes=min_sizes, buckets=buckets, max_size=max_size,
+        eval_batch_size=eval_bs,
+        val_batch_size=int(val_bs) if val_bs is not None else None,
+        pixel_dtype=str(tpu_cfg.get("pixel_dtype", "float32")))
+
+
+def _numpy_tree(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: _numpy_tree(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_numpy_tree(v) for v in obj]
+    return obj
+
+
+def _torch_tree(obj):
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(obj)
+    if isinstance(obj, dict):
+        return {k: _torch_tree(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_torch_tree(v) for v in obj]
+    return obj
+
+
+def check_ckpt_backend(config: Dict[str, Any]) -> None:
+    backend = (config.get("train", {}) or {}).get("ckpt_backend", "pickle")
+    if backend != "pickle":
+        raise NotImplementedError(f"train.ckpt_backend `{backend}`: only "
+                                  "pickle is ported; orbax is ROADMAP A16")
+
+
+def save_checkpoint(path: str, model: RCNN, step, best_value: float,
+                    config: Dict[str, Any], args: argparse.Namespace) -> None:
+    """``model``'s checkpoint in the JAX package's payload (utils/ckpt.py),
+    with ``step``'s optimizer state and schedule step (a train_step
+    ``_Step``)."""
+    params, state = jax_params_from_state_dict(model.state_dict())
+    ckpt_util.save_ckpt(
+        path, params=params, state=state,
+        torch_opt_state=_numpy_tree(step.optimizer.state_dict()),
+        lr_step=step.step, best_value=best_value, config=config,
+        args=vars(args))
+
+
+def resume(path: str, model: RCNN, step) -> float:
+    """Resume from ``path`` (JAX's mimic_runner.py:88-96,
+    coco_runner.py:75-87): the model's weights, and the optimizer state and
+    schedule step when the port wrote the file (a JAX checkpoint's optax
+    state is not read: a fresh optimizer state).  Returns the best value
+    so far."""
+    payload = ckpt_util.load_ckpt(path)
+    load_weights(model, payload["params"], payload.get("state"))
+    if payload.get("torch_opt_state") is not None:
+        step.optimizer.load_state_dict(_torch_tree(payload["torch_opt_state"]))
+    else:
+        print(f"{path} holds no optimizer state of this package: a fresh "
+              "optimizer state", flush=True)
+    step.step = int(payload.get("lr_step") or 0)
+    best = float(payload.get("best_value", 0.0))
+    print(f"resumed from {path} (best val mAP {best:.4f}, step {step.step})",
+          flush=True)
+    return best
 
 
 def compute_dtype_from_config(config: Dict[str, Any]) -> torch.dtype:
@@ -66,14 +197,39 @@ def to_device(batch: Dict[str, Any], device: torch.device):
     return out
 
 
-def evaluate(model: RCNN, batches: Iterable[Dict[str, Any]],
-             use_bottleneck_transformer: bool = False) -> List[Dict[str, Any]]:
-    """Serve ``batches`` (dicts of arrays: images [B, H, W, 3] uint8 or
-    float in [0, 1], image_sizes, original_sizes) on the model's device.
+class Timed:
+    """Iterates ``iterable`` and adds the time each item took to arrive to
+    ``seconds`` (a loader's share of a loop)."""
 
-    Returns one record per batch: ``dets`` (numpy arrays) and ``ms``, the
-    time from the batch's dispatch to its detections on the host (CUDA
-    events on the card, the host clock on the CPU)."""
+    def __init__(self, iterable: Iterable):
+        self.iterable = iterable
+        self.seconds = 0.0
+
+    def __iter__(self):
+        it = iter(self.iterable)
+        while True:
+            t0 = time.perf_counter()
+            item = next(it, None)
+            self.seconds += time.perf_counter() - t0
+            if item is None:
+                return
+            yield item
+
+
+def evaluate(model: RCNN, batches: Iterable, use_bottleneck_transformer:
+             bool = False, evaluator: Optional[CocoEvaluator] = None
+             ) -> List[Dict[str, Any]]:
+    """Serve ``batches`` on the model's device: dicts of arrays (images
+    [B, H, W, 3] uint8 or float in [0, 1], image_sizes, original_sizes), or
+    the loader's (batch, targets, host_targets).
+
+    Returns one record per batch: ``ms``, the time from the batch's
+    dispatch to its detections on the host (CUDA events on the card, the
+    host clock on the CPU), and ``dets`` (numpy arrays).  With
+    ``evaluator`` (loader batches), each batch's detections are finalized
+    and fed to it, skipping the ``is_padding`` rows, while the next batch
+    runs, as JAX's evaluate does (common.py:272-287); its records then hold
+    ``host_ms``, the time of that step, in place of ``dets``."""
     configure_precision(torch.float32)
     device = next(model.parameters()).device
     cuda = device.type == "cuda"
@@ -81,16 +237,33 @@ def evaluate(model: RCNN, batches: Iterable[Dict[str, Any]],
     pending = None
 
     def finish(p):
-        host, done, start, t0 = p
+        host, done, start, t0, host_targets, sizes = p
         if cuda:
             done.synchronize()
             ms = start.elapsed_time(done)
         else:
             ms = (time.perf_counter() - t0) * 1e3
-        records.append({"dets": {k: v.numpy() for k, v in host.items()},
-                        "ms": ms})
+        dets = {k: v.numpy() for k, v in host.items()}
+        if evaluator is None:
+            records.append({"dets": dets, "ms": ms})
+            return
+        t1 = time.perf_counter()
+        evaluator.update({
+            tgt["image_id"]: finalize_predictions(
+                dets, i, tuple(tgt["original_size"]),
+                (int(sizes[i][0]), int(sizes[i][1])))
+            for i, tgt in enumerate(host_targets)
+            if not tgt.get("is_padding")})
+        records.append({"ms": ms,
+                        "host_ms": (time.perf_counter() - t1) * 1e3})
 
-    for batch in batches:
+    for item in batches:
+        batch, host_targets = item, None
+        if isinstance(item, tuple):
+            batch, _, host_targets = item
+        if evaluator is not None and host_targets is None:
+            raise ValueError("evaluate: an evaluator needs the loader's "
+                             "(batch, targets, host_targets)")
         t0 = time.perf_counter()
         start = done = None
         if cuda:
@@ -109,10 +282,36 @@ def evaluate(model: RCNN, batches: Iterable[Dict[str, Any]],
             host = dets
         if pending is not None:
             finish(pending)
-        pending = (host, done, start, t0)
+        pending = (host, done, start, t0, host_targets,
+                   None if host_targets is None
+                   else np.asarray(batch["image_sizes"]))
     if pending is not None:
         finish(pending)
     return records
+
+
+def coco_evaluate(model: RCNN, loader, use_bottleneck_transformer: bool =
+                  False) -> Tuple[CocoEvaluator, Dict[str, float]]:
+    """One COCO evaluation pass over ``loader`` (JAX's ``evaluate``):
+    returns the summarized CocoEvaluator (``stats[iou_type]``, the 12 or 10
+    COCOeval numbers) and the pass's times: ``seconds`` (wall),
+    ``loader_s`` (waiting on the loader), ``forward_ms`` (the batches'
+    dispatch-to-host times), ``cocoeval_s`` (finalize, update, accumulate
+    and summarize on the host) and ``batches``."""
+    evaluator = CocoEvaluator(loader.dataset, get_iou_types(model))
+    batches = Timed(loader)
+    t0 = time.perf_counter()
+    records = evaluate(model, batches, use_bottleneck_transformer, evaluator)
+    t1 = time.perf_counter()
+    evaluator.synchronize_between_processes()
+    evaluator.accumulate()
+    evaluator.summarize()
+    t2 = time.perf_counter()
+    return evaluator, {
+        "seconds": t2 - t0, "loader_s": batches.seconds,
+        "batches": len(records),
+        "forward_ms": sum(r["ms"] for r in records),
+        "cocoeval_s": sum(r["host_ms"] for r in records) / 1e3 + (t2 - t1)}
 
 
 class StepMetrics:

@@ -6,8 +6,10 @@ supervised-training and heads slices are imported, built and run once on a
 tiny input (one distill epoch of one step, one coco_runner epoch of one
 bfloat16 step, each with its eval, and the eval of the Mask and Keypoint
 R-CNN students with int8 pooling tables), then jax, the JAX package, PIL,
-cv2 and yaml must be absent from ``sys.modules`` (the GPU host has none of
-them)."""
+cv2 and yaml must be absent from ``sys.modules`` (they are not promised on
+the GPU host).  The host modules of the runners (config, data, evals,
+checkpoints, logging) import none of them either: PIL, cv2 and yaml are
+imported by the functions that decode, resize and load a config."""
 import os
 import shutil
 import subprocess
@@ -29,7 +31,10 @@ from hnd_ghnd_tpu_torch.ops import (anchors, boxes, nms, quant_kernels,
 from hnd_ghnd_tpu_torch.distill import box, losses
 from hnd_ghnd_tpu_torch.parallel import train_step
 from hnd_ghnd_tpu_torch.runners import coco_runner, common, mimic_runner
-from hnd_ghnd_tpu_torch.utils import params
+from hnd_ghnd_tpu_torch.utils import ckpt, logging, params
+from hnd_ghnd_tpu_torch.core import config
+from hnd_ghnd_tpu_torch.data import coco, loader, transforms
+from hnd_ghnd_tpu_torch.evals import coco_eval, mask_rle, postprocess
 from chip_smoke import (KEYPOINT_STUDENT_MODEL, MASK_STUDENT_MODEL, ORG_MODEL,
     ORG_TRAIN, STUDENT_MODEL, TEACHER_MODEL, TRAIN)
 model = factory.get_model(STUDENT_MODEL, seed=0, device="cpu")
@@ -65,6 +70,26 @@ print("clean")
 """
 
 
+HOST = r"""
+import sys
+from hnd_ghnd_tpu_torch.core import config
+from hnd_ghnd_tpu_torch.data import coco, loader, transforms
+from hnd_ghnd_tpu_torch.evals import coco_eval, mask_rle, postprocess
+from hnd_ghnd_tpu_torch.utils import ckpt, logging
+from hnd_ghnd_tpu_torch.runners import coco_runner, common, mimic_runner
+for name in ("load_config", "overwrite_config"):
+    assert callable(getattr(config, name))
+ev = coco_eval.CocoEvaluator(None, ["bbox", "segm", "keypoints"])
+assert set(ev.evals) == {"bbox", "segm", "keypoints"}
+mimic_runner.get_argparser().parse_args(["--config", "x.yaml", "-distill"])
+banned = sorted({m.split(".")[0] for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "hnd_ghnd_tpu",
+                                        "PIL", "cv2", "yaml", "optax")})
+assert not banned, banned
+print("clean")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO)
@@ -73,6 +98,13 @@ def _env():
 
 def test_slice_imports_no_jax_pil_cv2_yaml():
     out = subprocess.run([sys.executable, "-c", SLICE], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("clean")
+
+
+def test_host_modules_import_no_jax_pil_cv2_yaml():
+    out = subprocess.run([sys.executable, "-c", HOST], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("clean")
