@@ -22,7 +22,10 @@ paths, at full width with random weights and BN statistics from a seed:
     config/org/faster_rcnn-backbone_resnet50.yaml in bfloat16, batch 2 on
     both buckets with seeded synthetic targets, then its float32 eval on a
     batch-8 serving batch; one float32 step compared with a float64 step on
-    the CPU;
+    the CPU; the same training for the org Mask R-CNN and Keypoint R-CNN
+    (config/org/{mask,keypoint}_rcnn-backbone_resnet50.yaml) with seeded
+    masks and keypoints, where a step's time goes, and one float32 step of
+    each compared with a float64 step on the CPU;
   * the runners (the main path, through the entry points a user calls):
     a COCO fixture of JPEGs written to a temporary directory (16 train and
     8 val images at 480x640 and 640x480, which the loader sends to both
@@ -33,8 +36,15 @@ paths, at full width with random weights and BN statistics from a seed:
     with the stem switch on, COCOeval of each epoch's val, the best
     checkpoint, the test evals at batch 1; the same with -test_only from
     that checkpoint; ``coco_runner.run -train`` of the org model for one
-    epoch of bfloat16 steps on the fixture's own boxes.  It needs PIL and
-    cv2 (the loader's decode and resize).
+    epoch of bfloat16 steps on the fixture's own boxes, and of the org
+    Mask R-CNN (on the boxes' polygons) and Keypoint R-CNN (on a
+    person-keypoint file of the same boxes), scored by COCOeval's segm and
+    keypoints; then ``coco_runner.run``'s test eval of a seeded Mask
+    R-CNN and Keypoint R-CNN on val annotations made from their own masks
+    and keypoints (near 1 for the host decode), the Keypoint R-CNN's again
+    with the device keypoint decode, itself held on the card against the
+    CPU and the host decode.  It needs PIL and cv2 (the loader's decode
+    and resize, ``mask_box_crop``).
 
 Each path checks that every kernel it runs was launched.  Any failed check
 raises.
@@ -148,6 +158,18 @@ ORG_TRAIN = {
     "scheduler": {"type": "MultiStepLR",
                   "params": {"milestones": [16, 22], "gamma": 0.1}},
 }
+# the model blocks of config/org/mask_rcnn-backbone_resnet50.yaml and
+# config/org/keypoint_rcnn-backbone_resnet50.yaml (their train and tpu
+# blocks are ORG_TRAIN and ORG_TPU)
+ORG_MASK_MODEL = dict(
+    ORG_MODEL, name="mask_rcnn",
+    experiment="coco2017-mask_rcnn-backbone_resnet50",
+    ckpt="./resource/ckpt/org/coco2017-mask_rcnn-backbone_resnet50.pt")
+ORG_KEYPOINT_MODEL = dict(
+    ORG_MODEL, name="keypoint_rcnn",
+    params={"num_classes": 2, "pretrained": True, "num_keypoints": 17},
+    experiment="coco2017-keypoint_rcnn-backbone_resnet50",
+    ckpt="./resource/ckpt/org/coco2017-keypoint_rcnn-backbone_resnet50.pt")
 ORG_TPU = {"buckets": [[832, 1344], [1344, 832]], "compute_dtype": "bfloat16",
            "mesh_axis": "data", "eval_batch_size": 8, "pixel_dtype": "float32"}
 # the training phase: batch 2 (train.batch_size), 3 steps on each bucket and
@@ -155,8 +177,10 @@ ORG_TPU = {"buckets": [[832, 1344], [1344, 832]], "compute_dtype": "bfloat16",
 # padded to the JAX loader's MAX_GT
 ORG_BATCH = 2
 MAX_GT = 100
-# RoI sampling of the train step: 512 per image, P2-P5 of 256 channels
+# RoI sampling of the train step: 512 per image, P2-P5 of 256 channels;
+# the mask and keypoint losses pool the first 128 slots (positives first)
 TRAIN_ROIS = 512
+MAX_POSITIVES = 128
 BUCKETS = ((832, 1344), (1344, 832))
 EVAL_BATCH = 8                 # tpu.eval_batch_size
 SEED = 0
@@ -207,6 +231,20 @@ CPU_STATS_TOL = 1e-5
 TRAIN_TERM_TOL = 1e-5
 TRAIN_HEAD_GRAD_TOL = 5e-3     # x a leaf's largest gradient element
 TRAIN_FPN_GRAD_TOL = 1e-3
+# the same step of the org Keypoint R-CNN: its head's 8 convs of 512 hold
+# pre-activations within float32 noise of 0 at every step, and their ReLUs
+# flip between float32 and float64.  The CPU's own float32 step is up to
+# 9.1e-3 (keypoint_head.6) and 1.7e-3 (an FPN layer block) off float64 at
+# this shape, so the card is held to about three times that; the Mask
+# R-CNN's float32 step stays within the Faster R-CNN's tolerances (CPU:
+# 7.9e-4, fc6)
+TRAIN_GRAD_TOLS = {"faster_rcnn": (TRAIN_HEAD_GRAD_TOL, TRAIN_FPN_GRAD_TOL),
+                   "mask_rcnn": (TRAIN_HEAD_GRAD_TOL, TRAIN_FPN_GRAD_TOL),
+                   "keypoint_rcnn": (3e-2, 5e-3)}
+# a leaf whose float64 gradient is 0 to rounding (the keypoint logits' bias:
+# the log-softmax does not see a shift) is held to its tolerance times
+# GRAD_FLOOR of the largest gradient element of all compared leaves
+GRAD_FLOOR = 1e-3
 # the runner phase: a COCO fixture of JPEGs (quality 95, as
 # tests/fixtures.py writes them) at 480x640 and 640x480, which the min side
 # 800 resize sends to both buckets; 2 epochs of mimic_runner -distill over
@@ -220,6 +258,21 @@ RUNNER_EPOCHS = 2
 # then scores near 1 on them, the student (a random bottleneck) far below
 GT_SCORE = 0.5
 TEACHER_MAP_MIN = 0.9
+# a Keypoint R-CNN's ground truth keeps its first KP_MAX_DETS detections an
+# image by score: COCOeval's keypoints scores no more than 20 an image
+KP_MAX_DETS = 20
+# the device keypoint decode (grid KP_GRID, kp_decode_grid's default): on
+# the card against the CPU, the same grid position for at least KP_SAME_MIN
+# of the keypoints and scores within KP_SCORE_TOL of the largest; against
+# the host decode, JAX's rule (tests/test_kp_decode.py) on more than
+# KP_AGREE_MIN of them: within one heatmap cell and one device-grid cell a
+# box axis.  It holds for boxes of at least the heatmap's 56 pixels a side:
+# on a smaller box the host samples its surface more coarsely than the
+# heatmap's own cells, and its argmax can miss a peak
+KP_GRID = 224
+KP_SAME_MIN = 0.999
+KP_SCORE_TOL = 1e-5
+KP_AGREE_MIN = 0.98
 # the GHND b3ch config's tpu block
 GHND_TPU = {"buckets": [[832, 1344], [1344, 832]], "compute_dtype": "float32",
             "mesh_axis": "data", "eval_batch_size": 8, "pixel_dtype": "float32"}
@@ -367,9 +420,8 @@ def nbytes(*tensors) -> int:
 def tapped_bytes(levels, boxes, valid, image_size, pool: int) -> int:
     """The bytes of P2-P5 that a RoIAlign of ``boxes`` reads at least: the
     cells a valid RoI taps with a nonzero weight, times C and the element
-    size (a tighter bound than whole levels, which ``bound_ms`` counts).
-    They are the nonzero entries of the plain version's gradient at one
-    channel (its weights are >= 0, so they never cancel)."""
+    size.  They are the nonzero entries of the plain version's gradient at
+    one channel (its weights are >= 0, so they never cancel)."""
     from hnd_ghnd_tpu_torch.ops.roi_align import multiscale_roi_align_batch
     ones = [torch.zeros((f.shape[0], f.shape[1], f.shape[2], 1),
                         device=f.device, requires_grad=True) for f in levels]
@@ -377,6 +429,19 @@ def tapped_bytes(levels, boxes, valid, image_size, pool: int) -> int:
     grads = torch.autograd.grad(out.sum(), ones)
     cells = sum(int((g != 0).sum()) for g in grads)
     return cells * levels[0].shape[-1] * levels[0].element_size()
+
+
+def roi_bound(levels, boxes, valid, image_size, pool: int, rest: int,
+              n_ops: float) -> dict:
+    """A RoIAlign forward's bound: the level cells this run's valid RoIs
+    tap (``tapped_bytes``) plus ``rest`` bytes (boxes, validity, scales,
+    output); ``whole_levels_bound_ms`` beside it counts all of P2-P5
+    instead of the tapped cells."""
+    out = bound(tapped_bytes(levels, boxes, valid, image_size, pool) + rest,
+                n_ops)
+    out["whole_levels_bound_ms"] = bound(nbytes(*levels) + rest,
+                                         n_ops)["bound_ms"]
+    return out
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -517,9 +582,6 @@ def distill_phase(dev: torch.device, eval_batch: dict):
     """mimic_runner.distill with the stem switch on, then the same steps
     from the same start with it off.  Returns (teacher, student at its
     start, the stem kernels' launches in the switched-on run)."""
-    from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
-    from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
-    from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
     from hnd_ghnd_tpu_torch.runners.mimic_runner import distill
     from hnd_ghnd_tpu_torch.utils.params import updatable_param_names
     teacher, student = distill_models(dev)
@@ -531,15 +593,13 @@ def distill_phase(dev: torch.device, eval_batch: dict):
     config = {"train": dict(TRAIN, num_epochs=1),
               "student_model": STUDENT_MODEL,
               "tpu": {"compute_dtype": COMPUTE_DTYPE}}
-    counters = {"stem_fwd": SK.stem_fwd, "stem_fwd_res": SK.stem_fwd_res,
-                "stem_dw": SK.stem_dw, "quantize": QK.quantize,
-                "dequantize": QK.dequantize, "roi_align": RK.roi_align}
+    counted = ("stem_fwd", "stem_fwd_res", "stem_dw", "quantize",
+               "dequantize", "roi_align")
     runs = {}
     for switch in ("1", "0"):
         os.environ["HND_TPU_PALLAS_STEM"] = switch
         student.load_state_dict(start)
-        for c in counters.values():
-            c.launches = 0
+        zero_kernel_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         # the -transform_bottleneck run: the eval round-trips the
@@ -548,7 +608,7 @@ def distill_phase(dev: torch.device, eval_batch: dict):
                        [eval_batch] if switch == "1" else [], n,
                        use_bottleneck_transformer=True)
         wall = time.perf_counter() - t0
-        launches = {k: c.launches for k, c in counters.items()}
+        launches = {k: v for k, v in kernel_counts().items() if k in counted}
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         tag = "on" if switch == "1" else "off"
         n_eval = sum(len(e) for e in hist["evals"])
@@ -700,92 +760,131 @@ def bf16_ulp(x: float) -> float:
 def roi_train_kernels_phase(dev: torch.device, kernels: dict) -> None:
     """The bf16 RoIAlign forward and the RoIAlign backward (f32 and bf16
     levels) against their plain versions at the train step's shapes: P2-P5
-    of one batch-2 832x1344 bucket, 512 RoIs per image, 7x7 bins, C=256."""
+    of one batch-2 832x1344 bucket, C=256; the box loss's 512 RoIs an
+    image at 7x7 bins, and the mask or keypoint loss's 128 positive slots
+    an image at 14x14 (image 1 without a positive, as happens).  Where the
+    backward's time goes: zeroing its float32 workspace, the scatter, and
+    the rounding pass (bf16)."""
+    from hnd_ghnd_tpu_torch import _build
     from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
     from hnd_ghnd_tpu_torch.ops.roi_align import multiscale_roi_align_batch
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     h, w = BUCKETS[0]
+    size = (h, w)
     rng = np.random.RandomState(SEED + 5)
+    cases = {}
     boxes = torch.from_numpy(box_mix(rng, ORG_BATCH, TRAIN_ROIS, h, w)).to(dev)
     # sel_on: a few slots unsampled, as when an image has too few candidates
-    valid = torch.from_numpy(rng.rand(ORG_BATCH, TRAIN_ROIS) > 0.05).to(dev)
-    n_valid = int(valid.sum())
-    size = (h, w)
+    cases[7] = (boxes, torch.from_numpy(
+        rng.rand(ORG_BATCH, TRAIN_ROIS) > 0.05).to(dev))
+    pos = np.zeros((ORG_BATCH, MAX_POSITIVES), bool)
+    pos[0, :40] = True
+    cases[14] = (torch.from_numpy(box_mix(rng, ORG_BATCH, MAX_POSITIVES, h,
+                                          w)).to(dev),
+                 torch.from_numpy(pos).to(dev))
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         levels = [torch.randn((ORG_BATCH, h // s, w // s, 256), generator=gen,
                               device=dev).to(dtype) for s in (4, 8, 16, 32)]
-        cot = torch.randn((ORG_BATCH, TRAIN_ROIS, 7, 7, 256), generator=gen,
-                          device=dev).to(dtype)
         shapes = [tuple(f.shape[1:3]) for f in levels]
-        _, level, weight = RK.checked_inputs(levels, boxes, valid)
-        got = RK.roi_align(levels, boxes, size, 7, 2, valid)
-        want = multiscale_roi_align_batch(levels, boxes, size, 7, 2, valid)
-        fwd_err = float((got.float() - want.float()).abs().max())
-        log(f"[roi-train] forward {tag} {tuple(got.shape)}: max abs err "
-            f"{fwd_err} (bit-identical: {torch.equal(got, want)})")
-        if dtype == torch.bfloat16:
-            # the kernel rounds the plain version's float32 bin once
-            check(torch.equal(got, want), "roi_align bf16 is not "
-                  "bit-identical to its plain version")
-        ref = [f.clone().requires_grad_(True) for f in levels]
-        plain_out = multiscale_roi_align_batch(ref, boxes, size, 7, 2, valid)
-        plain = torch.autograd.grad(plain_out, ref, cot, retain_graph=True)
-        got_g = RK.roi_align_backward(cot, shapes, dtype, boxes, level,
-                                      weight, size, 2)
-        again = RK.roi_align_backward(cot, shapes, dtype, boxes, level,
-                                      weight, size, 2)
-        torch.cuda.synchronize()
-        top = max(float(g.float().abs().max()) for g in plain)
-        bwd_err = max(float((a.float() - b.float()).abs().max())
-                      for a, b in zip(got_g, plain))
-        # float atomics add in another order than the plain scatter:
-        # 1e-5 of the largest gradient (f32), one bf16 ulp of it (bf16)
-        tol = ROI_TOL * top if dtype == torch.float32 else bf16_ulp(top)
-        same = all(torch.equal(a, b) for a, b in zip(got_g, again))
-        log(f"[roi-train] backward {tag}: max abs err {bwd_err:.3e} (largest "
-            f"|plain grad| {top:.3e}, bound {tol:.3e}); two runs "
-            f"{'agree' if same else 'differ'} bit for bit (float atomics: "
-            "the order of the adds is not fixed)")
-        check(bwd_err <= tol, f"roi_align_bwd {tag}: {bwd_err} > {tol}")
-        bwd_t = timings(lambda: RK.roi_align_backward(
-            cot, shapes, dtype, boxes, level, weight, size, 2))
-        plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
-            plain_out, ref, cot, retain_graph=True))
-        # 2 x 2 samples of 4 taps, a multiply and an add each, and the
-        # validity weight, per (valid RoI, bin, channel)
-        n_ops = 33.0 * n_valid * 49 * 256
-        fwd_bound = dict(
-            bound(nbytes(*levels, boxes, valid, got), n_ops),
-            tapped_bound_ms=bound(tapped_bytes(levels, boxes, valid, size, 7)
-                                  + nbytes(boxes, valid, got),
-                                  n_ops)["bound_ms"])
-        bwd_bound = bound(nbytes(cot, boxes, valid, *got_g), n_ops)
-        fwd_t = timings(lambda: RK.roi_align(levels, boxes, size, 7, 2,
-                                             valid))
-        plain_fwd_ms = time_ms(lambda: multiscale_roi_align_batch(
-            levels, boxes, size, 7, 2, valid))
-        log(f"[roi-train] forward {tag}: {fwd_t['ms']:.4f} ms kernel "
-            f"({fwd_t['device_ms']:.4f} on the card), {plain_fwd_ms:.4f} ms "
-            f"plain; backward {bwd_t['ms']:.4f} ms kernel "
-            f"({bwd_t['device_ms']:.4f} on the card), {plain_bwd_ms:.4f} ms "
-            f"plain autograd (median of {REPS}); bounds "
-            f"{fwd_bound['bound_ms']:.4f} (tapped cells "
-            f"{fwd_bound['tapped_bound_ms']:.4f}) / "
-            f"{bwd_bound['bound_ms']:.4f} ms by {fwd_bound['bound_by']}")
-        # no single PyTorch call computes either function (no torchvision)
-        if dtype == torch.bfloat16:
-            kernels["roi_align_bf16"] = dict(
-                source="hnd_ghnd_tpu_torch/csrc/roi_align.cu",
-                replaces="hnd_ghnd_tpu/ops/pallas_roi.py:231",
-                max_abs_err=fwd_err, **fwd_t, plain_ms=plain_fwd_ms,
-                library_ms=None, **fwd_bound)
-            kernels["roi_align_bwd"] = dict(
-                source="hnd_ghnd_tpu_torch/csrc/roi_align.cu",
-                replaces="hnd_ghnd_tpu/ops/pallas_roi.py:446",
-                max_abs_err=bwd_err, **bwd_t, plain_ms=plain_bwd_ms,
-                library_ms=None, **bwd_bound)
-        del levels, cot, got, want, ref, plain_out, plain, got_g, again
+        for pool, (boxes, valid) in cases.items():
+            n_valid = int(valid.sum())
+            cot = torch.randn(tuple(boxes.shape[:2]) + (pool, pool, 256),
+                              generator=gen, device=dev).to(dtype)
+            _, level, weight = RK.checked_inputs(levels, boxes, valid)
+            got = RK.roi_align(levels, boxes, size, pool, 2, valid)
+            want = multiscale_roi_align_batch(levels, boxes, size, pool, 2,
+                                              valid)
+            fwd_err = float((got.float() - want.float()).abs().max())
+            log(f"[roi-train] forward {tag} {tuple(got.shape)}: max abs err "
+                f"{fwd_err} (bit-identical: {torch.equal(got, want)})")
+            if dtype == torch.bfloat16:
+                # the kernel rounds the plain version's float32 bin once
+                check(torch.equal(got, want), f"roi_align bf16 {pool}x{pool}"
+                      " is not bit-identical to its plain version")
+            ref = [f.clone().requires_grad_(True) for f in levels]
+            plain_out = multiscale_roi_align_batch(ref, boxes, size, pool, 2,
+                                                   valid)
+            plain = torch.autograd.grad(plain_out, ref, cot,
+                                        retain_graph=True)
+            got_g = RK.roi_align_backward(cot, shapes, dtype, boxes, level,
+                                          weight, size, 2)
+            again = RK.roi_align_backward(cot, shapes, dtype, boxes, level,
+                                          weight, size, 2)
+            torch.cuda.synchronize()
+            top = max(float(g.float().abs().max()) for g in plain)
+            bwd_err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(got_g, plain))
+            # float atomics add in another order than the plain scatter:
+            # 1e-5 of the largest gradient (f32), one bf16 ulp of it (bf16)
+            tol = ROI_TOL * top if dtype == torch.float32 else bf16_ulp(top)
+            same = all(torch.equal(a, b) for a, b in zip(got_g, again))
+            log(f"[roi-train] backward {tag} {pool}x{pool}: max abs err "
+                f"{bwd_err:.3e} (largest |plain grad| {top:.3e}, bound "
+                f"{tol:.3e}); two runs {'agree' if same else 'differ'} bit "
+                "for bit (float atomics: the order of the adds is not "
+                "fixed)")
+            check(bwd_err <= tol, f"roi_align_bwd {tag} {pool}x{pool}: "
+                  f"{bwd_err} > {tol}")
+            bwd_t = timings(lambda: RK.roi_align_backward(
+                cot, shapes, dtype, boxes, level, weight, size, 2))
+            plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
+                plain_out, ref, cot, retain_graph=True))
+            # 2 x 2 samples of 4 taps, a multiply and an add each, and the
+            # validity weight, per (valid RoI, bin, channel)
+            n_ops = 33.0 * n_valid * pool * pool * 256
+            fwd_bound = roi_bound(levels, boxes, valid, size, pool,
+                                  nbytes(boxes, valid, got), n_ops)
+            bwd_bound = bound(nbytes(cot, boxes, valid, *got_g), n_ops)
+            fwd_t = timings(lambda: RK.roi_align(levels, boxes, size, pool,
+                                                 2, valid))
+            plain_fwd_ms = time_ms(lambda: multiscale_roi_align_batch(
+                levels, boxes, size, pool, 2, valid))
+            # the backward's float32 workspace: its zeroing and, for bf16
+            # levels, the rounding pass, each timed alone on the card
+            n_ws = sum(f.numel() for f in levels)
+            ws = torch.zeros(n_ws, device=dev)
+            zero_ms = time_ms(lambda: torch.zeros(n_ws, device=dev),
+                              spin=True)
+            round_ms = 0.0
+            if dtype == torch.bfloat16:
+                out = torch.empty(n_ws, dtype=torch.bfloat16, device=dev)
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                round_ms = time_ms(lambda: _build.check(
+                    _build.load().hnd_f32_to_bf16(ws.data_ptr(),
+                                                  out.data_ptr(), n_ws,
+                                                  stream),
+                    "hnd_f32_to_bf16"), spin=True)
+                del out
+            bwd_t.update(workspace_zero_device_ms=zero_ms,
+                         rounding_device_ms=round_ms,
+                         workspace_mb=n_ws * 4 / 1e6)
+            log(f"[roi-train] {pool}x{pool} forward {tag}: {fwd_t['ms']:.4f} "
+                f"ms kernel ({fwd_t['device_ms']:.4f} on the card), "
+                f"{plain_fwd_ms:.4f} ms plain; backward {bwd_t['ms']:.4f} ms "
+                f"kernel ({bwd_t['device_ms']:.4f} on the card: zeroing the "
+                f"{n_ws * 4 / 1e6:.1f} MB workspace {zero_ms:.4f}, rounding "
+                f"{round_ms:.4f}, the scatter the rest), {plain_bwd_ms:.4f} "
+                f"ms plain autograd (median of {REPS}); bounds "
+                f"{fwd_bound['bound_ms']:.4f} (tapped cells; whole levels "
+                f"{fwd_bound['whole_levels_bound_ms']:.4f}) / "
+                f"{bwd_bound['bound_ms']:.4f} ms by {fwd_bound['bound_by']}")
+            # no single PyTorch call computes either function (no
+            # torchvision)
+            if dtype == torch.bfloat16:
+                suffix = "" if pool == 7 else f"_p{pool}"
+                kernels["roi_align_bf16" + suffix] = dict(
+                    source="hnd_ghnd_tpu_torch/csrc/roi_align.cu",
+                    replaces="hnd_ghnd_tpu/ops/pallas_roi.py:231",
+                    max_abs_err=fwd_err, **fwd_t, plain_ms=plain_fwd_ms,
+                    library_ms=None, **fwd_bound)
+                kernels["roi_align_bwd" + suffix] = dict(
+                    source="hnd_ghnd_tpu_torch/csrc/roi_align.cu",
+                    replaces="hnd_ghnd_tpu/ops/pallas_roi.py:446",
+                    max_abs_err=bwd_err, **bwd_t, plain_ms=plain_bwd_ms,
+                    library_ms=None, **bwd_bound)
+            del cot, got, want, ref, plain_out, plain, got_g, again, ws
+        del levels
     torch.cuda.empty_cache()
 
 
@@ -883,8 +982,8 @@ def int8_kernels_phase(dev: torch.device, kernels: dict) -> None:
                 f"{ROI_TOL} x max)")
             check(e14 <= ROI_TOL * float(plain.abs().max()),
                   f"roi_align f32 at 14x14: {e14}")
-            # the heads' pooling: kernel, plain version and bounds (whole
-            # levels and tapped cells) per table
+            # the heads' pooling: kernel, plain version and bounds (tapped
+            # cells and whole levels) per table
             n_ops = 33.0 * int(valid.sum()) * 196 * 256
             for tag, kernel, plain, levels, rest in (
                     ("f32", lambda: RK.roi_align(nhwc, boxes, size, 14, 2,
@@ -898,16 +997,15 @@ def int8_kernels_phase(dev: torch.device, kernels: dict) -> None:
                          views, boxes, size, 14, 2, valid, quant=tables),
                      codes, nbytes(scales, boxes, valid, got))):
                 t, plain_ms = timings(kernel), time_ms(plain)
-                b14 = bound(nbytes(*levels) + rest, n_ops)
-                tapped = bound(tapped_bytes(levels, boxes, valid, size, 14)
-                               + rest, n_ops)["bound_ms"]
+                b14 = roi_bound(levels, boxes, valid, size, 14, rest, n_ops)
                 log(f"[kernels] roi_align {tag} 8x100 RoIs at 14x14: "
                     f"{t['ms']:.4f} ms kernel ({t['device_ms']:.4f} on the "
                     f"card), {plain_ms:.4f} ms plain (median of {REPS}); "
-                    f"bound {b14['bound_ms']:.4f} ms by {b14['bound_by']}, "
-                    f"{b14['bound_ms'] / t['ms']:.1%} of it; tapped cells "
-                    f"{tapped:.4f} ms, {tapped / t['device_ms']:.1%} of the "
-                    "card's time")
+                    f"bound (tapped cells) {b14['bound_ms']:.4f} ms by "
+                    f"{b14['bound_by']}, {b14['bound_ms'] / t['ms']:.1%} of "
+                    f"it, {b14['bound_ms'] / t['device_ms']:.1%} of the "
+                    f"card's time; whole levels "
+                    f"{b14['whole_levels_bound_ms']:.4f} ms")
             continue
         n_valid = int(valid.sum())
         kernels["roi_align_int8"] = dict(
@@ -918,11 +1016,9 @@ def int8_kernels_phase(dev: torch.device, kernels: dict) -> None:
             plain_ms=time_ms(lambda: multiscale_roi_align_batch(
                 views, boxes, size, 7, 2, valid, quant=tables)),
             library_ms=None,
-            **bound(nbytes(*codes, scales, boxes, valid, got),
-                    33.0 * n_valid * 49 * 256),
-            tapped_bound_ms=bound(tapped_bytes(codes, boxes, valid, size, 7)
-                                  + nbytes(scales, boxes, valid, got),
-                                  33.0 * n_valid * 49 * 256)["bound_ms"])
+            **roi_bound(codes, boxes, valid, size, 7,
+                        nbytes(scales, boxes, valid, got),
+                        33.0 * n_valid * 49 * 256))
         # the box pool from the FPN's NCHW maps, both ways
         f32_way = time_ms(lambda: RK.roi_align(
             [v.contiguous() for v in views], boxes, size, 7, 2, valid))
@@ -956,8 +1052,6 @@ def heads_phase(dev: torch.device, serving, fpn_cpu, props, pvalid,
     ``one``) and the CPU's detections.  Returns the kernels' launches in
     the switched-on runs."""
     from hnd_ghnd_tpu_torch.models.factory import build_model, get_model
-    from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
-    from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
     from hnd_ghnd_tpu_torch.runners.common import evaluate
     shared = {k: v for k, v in serving.state_dict().items()
               if k.startswith(("backbone.", "rpn."))}
@@ -976,18 +1070,14 @@ def heads_phase(dev: torch.device, serving, fpn_cpu, props, pvalid,
                   "on": on.to(dev).requires_grad_(False)}
         dets = {}
         for tag, model in models.items():
-            QK.quantize.launches = QK.dequantize.launches = 0
-            RK.roi_align.launches = RK.roi_align.launches_int8 = 0
-            RK.quantize_levels.launches = 0
+            zero_kernel_counts()
             torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
             records = evaluate(model, served, use_bottleneck_transformer=True)
             wall = time.perf_counter() - t0
-            got = {"quantize": QK.quantize.launches,
-                   "dequantize": QK.dequantize.launches,
-                   "roi_align": RK.roi_align.launches,
-                   "roi_align_int8": RK.roi_align.launches_int8,
-                   "quantize_levels": RK.quantize_levels.launches}
+            got = {k: v for k, v in kernel_counts().items()
+                   if k in ("quantize", "dequantize", "roi_align",
+                            "roi_align_int8", "quantize_levels")}
             want = ({"quantize": n, "dequantize": n, "roi_align": 2 * n,
                      "roi_align_int8": 0, "quantize_levels": 0}
                     if tag == "off" else
@@ -1098,7 +1188,6 @@ def train_phase(dev: torch.device, eval_batch: dict) -> dict:
     each bucket and the first batch again, then the float32 eval of a
     batch-8 serving batch.  Returns the kernels' launches in that run."""
     from hnd_ghnd_tpu_torch.models.factory import get_model
-    from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
     from hnd_ghnd_tpu_torch.runners.coco_runner import train
     from hnd_ghnd_tpu_torch.utils.params import updatable_param_names
     model = live_norms_(get_model(ORG_MODEL, seed=SEED + 6, device=dev),
@@ -1113,15 +1202,13 @@ def train_phase(dev: torch.device, eval_batch: dict) -> dict:
     n = len(batches)
     config = {"model": ORG_MODEL, "train": dict(ORG_TRAIN, num_epochs=1),
               "tpu": ORG_TPU}
-    RK.roi_align.launches = RK.roi_align.launches_bf16 = 0
-    RK.roi_align_backward.launches = 0
+    zero_kernel_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     hist = train(model, config, batches, [eval_batch], n, seed=SEED)
     wall = time.perf_counter() - t0
-    launches = {"roi_align": RK.roi_align.launches,
-                "roi_align_bf16": RK.roi_align.launches_bf16,
-                "roi_align_bwd": RK.roi_align_backward.launches}
+    launches = {k: v for k, v in kernel_counts().items()
+                if k in ("roi_align", "roi_align_bf16", "roi_align_bwd")}
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"[train] {n} bf16 steps + 1 float32 eval batch in {wall:.3f} s; "
         f"launches {launches}; peak memory {peak:.2f} GiB")
@@ -1166,18 +1253,170 @@ def train_phase(dev: torch.device, eval_batch: dict) -> dict:
     return launches
 
 
-def train_cpu_phase(dev: torch.device) -> None:
+def heads_targets(rng: np.random.RandomState, sizes: np.ndarray, kind: str,
+                  targets: dict) -> dict:
+    """``org_targets`` for a Mask or Keypoint R-CNN: each GT's inscribed
+    ellipse as its mask, rasterized at the image's size and cropped by the
+    loader's ``mask_box_crop`` into masks_crop [B, MAX_GT, 114, 114]
+    float16; or 17 visible keypoints inside each GT box, keypoints
+    [B, MAX_GT, 17, 3], with every label the person class."""
+    from hnd_ghnd_tpu_torch.data.loader import MASK_CROP_SIZE, mask_box_crop
+    boxes, valid = targets["boxes"], targets["boxes_valid"]
+    b = len(sizes)
+    if kind == "mask_rcnn":
+        r = MASK_CROP_SIZE + 2
+        crops = np.zeros((b, MAX_GT, r, r), np.float16)
+        for i, (h, w) in enumerate(sizes):
+            yy, xx = np.mgrid[:h, :w] + 0.5
+            for j in np.flatnonzero(valid[i]):
+                x1, y1, x2, y2 = boxes[i, j]
+                inside = ((2 * xx - x1 - x2) / (x2 - x1)) ** 2 \
+                    + ((2 * yy - y1 - y2) / (y2 - y1)) ** 2 <= 1.0
+                crops[i, j] = mask_box_crop(inside.astype(np.uint8),
+                                            boxes[i, j])
+        return dict(targets, masks_crop=crops)
+    kps = np.zeros((b, MAX_GT, 17, 3), np.float32)
+    for i in range(b):
+        for j in np.flatnonzero(valid[i]):
+            x1, y1, x2, y2 = boxes[i, j]
+            kps[i, j] = np.stack([rng.uniform(x1, x2, 17),
+                                  rng.uniform(y1, y2, 17), np.full(17, 2.0)],
+                                 -1)
+    return dict(targets, keypoints=kps,
+                labels=np.where(valid, 1, 0).astype(np.int64))
+
+
+def heads_train_phase(dev: torch.device) -> dict:
+    """coco_runner.train of the org Mask R-CNN and Keypoint R-CNN in
+    bfloat16 (their configs' dtype): batch 2, STEPS_PER_BUCKET steps on
+    each bucket with seeded synthetic targets (masks or keypoints), every
+    term finite, the 7x7 and 14x14 RoIAlign kernels launched once each per
+    step.  Then where a step goes: three more steps split by CUDA events
+    into the forward with the losses, the backward and the update, and
+    chip_profile.py's profiler breakdown of a step (the card's busy time,
+    idle share, kernel groups).
+    Returns {kind: the kernels' launches in the training run}."""
+    from hnd_ghnd_tpu_torch.models.factory import get_model
+    from hnd_ghnd_tpu_torch.parallel.train_step import images_to_compute
+    from hnd_ghnd_tpu_torch.runners.coco_runner import make_step, train
+    from hnd_ghnd_tpu_torch.runners.common import to_device
+    out = {}
+    for kind, cfg in (("mask_rcnn", ORG_MASK_MODEL),
+                      ("keypoint_rcnn", ORG_KEYPOINT_MODEL)):
+        model = live_norms_(get_model(cfg, seed=SEED + 12, device=dev),
+                            SEED + 12)
+        rng = np.random.RandomState(SEED + 13)
+        batches = []
+        for bucket in BUCKETS:
+            for _ in range(STEPS_PER_BUCKET):
+                batch, targets = org_batch(rng, bucket, ORG_BATCH)
+                batches.append((batch, heads_targets(
+                    rng, batch["image_sizes"], kind, targets)))
+        n = len(batches)
+        # the masks or keypoints reach the card through pinned memory
+        # without a host sync of their own
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            moved = to_device(batches[0][1], dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        key = "masks_crop" if kind == "mask_rcnn" else "keypoints"
+        log(f"[train-{kind}] {key} {tuple(moved[key].shape)} "
+            f"{moved[key].dtype} moved to the card with no synchronizing "
+            "call (sync debug mode: error)")
+        config = {"model": cfg, "train": dict(ORG_TRAIN, num_epochs=1),
+                  "tpu": ORG_TPU}
+        zero_kernel_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        hist = train(model, config, batches, [], n, seed=SEED)
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in kernel_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        log(f"[train-{kind}] {n} bf16 steps in {wall:.3f} s; launches "
+            f"{counts}; peak memory {peak:.2f} GiB")
+        extra = "loss_mask" if kind == "mask_rcnn" else "loss_keypoint"
+        for idx, loss, terms, ms in hist["steps"]:
+            shape = tuple(batches[idx][0]["images"].shape)
+            check(len(terms) == 5 and extra in terms
+                  and all(np.isfinite(v) for v in terms.values()),
+                  f"{kind} step {idx}: terms {terms}")
+            log(f"[train-{kind}] step {idx} {shape}: {ms:.3f} ms, loss "
+                f"{loss:.6e}, " + " ".join(f"{k} {v:.6e}"
+                                          for k, v in terms.items()))
+        check(len(hist["steps"]) == n, "a step's scalars are missing")
+        want = {"roi_align_bf16": n, "roi_align_bf16_p14": n,
+                "roi_align_bwd": n, "roi_align_bwd_p14": n}
+        check(counts == want, f"{kind}: launches {counts}, want {want}")
+        for bi, bucket in enumerate(BUCKETS):
+            first = bi * STEPS_PER_BUCKET
+            ms = [st[3] for st in hist["steps"]
+                  if tuple(batches[st[0]][0]["images"].shape[1:3]) == bucket
+                  and st[0] != first]
+            log(f"[train-{kind}] bucket {bucket}: median step "
+                f"{statistics.median(ms):.3f} ms over {len(ms)} steps "
+                f"({ORG_BATCH / statistics.median(ms) * 1e3:.2f} img/s)")
+        # where a step goes, on the first bucket
+        step = make_step(model, config, n, SEED)
+        dev_batches = [({k: torch.from_numpy(v).to(dev) for k, v in b.items()},
+                        {k: torch.from_numpy(v).to(dev) for k, v in t.items()})
+                       for b, t in batches[:STEPS_PER_BUCKET]]
+        split = []
+        for batch, targets in dev_batches:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            step.optimizer.zero_grad(set_to_none=True)
+            ev[0].record()
+            images = images_to_compute(batch["images"], torch.bfloat16)
+            losses = model(dict(batch, images=images), targets, step.draw)
+            ev[1].record()
+            sum(losses.values()).backward()
+            ev[2].record()
+            step.apply_update()
+            ev[3].record()
+            ev[3].synchronize()
+            split.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        fwd, bwd, upd = (statistics.median(x) for x in zip(*split))
+        log(f"[train-{kind}] step split on {BUCKETS[0]} (median of "
+            f"{len(split)}): forward and losses {fwd:.3f} ms, backward "
+            f"{bwd:.3f} ms, update {upd:.3f} ms")
+        # the card's busy time and idle share in a step (chip_profile.py's
+        # profiler breakdown)
+        from chip_profile import device_profile
+        prof = device_profile(lambda: step(*dev_batches[0]), "step")
+        if "groups_ms" in prof:
+            log(f"[train-{kind}] profile: {prof['latency_ms']:.3f} ms a step "
+                f"unprofiled, the card busy {prof['busy_ms_per_step']:.3f} "
+                f"ms (idle share {prof['idle_share']:.4f}), "
+                f"{prof['launches_per_step']:.0f} device events; "
+                + ", ".join(f"{g} {ms:.3f}"
+                            for g, ms in prof["groups_ms"].items()))
+            log(f"[train-{kind}] top kernels: " + "; ".join(
+                f"{k['ms']:.3f} ms x{k['calls']:.0f} {k['name'][:60]}"
+                for k in prof["top_kernels"][:6]))
+        out[kind] = counts
+        del model, step, dev_batches, hist
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_cpu_phase(dev: torch.device, model_cfg: dict = ORG_MODEL) -> None:
     """One supervised float32 step (TF32 off) on the card against the same
     step on the CPU in float64, at batch 1 on a quarter of the 832x1344
-    bucket.  Top-k, NMS and sampling are discrete: the CPU's RoI samples
-    and the same RPN draws go to both sides."""
+    bucket, of the org model ``model_cfg`` (Faster, Mask or Keypoint
+    R-CNN: its box loss, and its mask or keypoint loss on seeded targets).
+    Top-k, NMS and sampling are discrete: the CPU's RoI samples and the
+    same RPN draws go to both sides."""
     from hnd_ghnd_tpu_torch.models.factory import get_model
     from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
     from hnd_ghnd_tpu_torch.parallel.train_step import images_to_compute
-    model = live_norms_(get_model(ORG_MODEL, seed=SEED + 8, device="cpu"),
+    kind = model_cfg["name"]
+    model = live_norms_(get_model(model_cfg, seed=SEED + 8, device="cpu"),
                         SEED + 8)
     rng = np.random.RandomState(SEED + 8)
     batch, targets = org_batch(rng, CPU_SHAPE, 1)
+    if kind != "faster_rcnn":
+        targets = heads_targets(rng, batch["image_sizes"], kind, targets)
     recorded = []  # the CPU's draws, replayed on the card
 
     def record(shape):
@@ -1186,7 +1425,7 @@ def train_cpu_phase(dev: torch.device) -> None:
         return r
 
     out, sampled = {}, None
-    n_bwd = RK.roi_align_backward.launches
+    n_bwd = RK.launch_count(RK.roi_align_backward, torch.float32)
     for where in ("cpu", "gpu"):
         if where == "cpu":
             m, d, dtype = model.double(), torch.device("cpu"), torch.float64
@@ -1198,7 +1437,9 @@ def train_cpu_phase(dev: torch.device) -> None:
         m.train().zero_grad(set_to_none=True)
         b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
         t = {k: torch.from_numpy(v).to(d) for k, v in targets.items()}
-        t["boxes"] = t["boxes"].to(dtype)
+        for k in ("boxes", "keypoints"):
+            if k in t:
+                t[k] = t[k].to(dtype)
         t0 = time.perf_counter()
         images = images_to_compute(b["images"], dtype)
         _, feats = m.backbone_features(images)
@@ -1210,45 +1451,56 @@ def train_cpu_phase(dev: torch.device) -> None:
                                                           record)
         s = tuple(x.to(d, dtype) if x.is_floating_point() else x.to(d)
                   for x in sampled)
-        losses.update(m.roi_heads.loss(feats, CPU_SHAPE, s))
+        losses.update(m.roi_losses(feats, CPU_SHAPE, s, t))
         sum(losses.values()).backward()
         grads = {n: p.grad.detach().double().cpu()
                  for n, p in m.named_parameters()
                  if n.startswith(("roi_heads.", "backbone.fpn."))}
         out[where] = ({k: float(v.detach()) for k, v in losses.items()}, grads)
-        log(f"[train-cpu] {where}: one step at {tuple(images.shape)} in "
-            f"{time.perf_counter() - t0:.2f} s")
-    check(RK.roi_align_backward.launches == n_bwd + 1,
-          "the card's step did not run the backward kernel")
+        log(f"[train-cpu] {kind} {where}: one step at {tuple(images.shape)} "
+            f"in {time.perf_counter() - t0:.2f} s")
+    n_pools = 1 if kind == "faster_rcnn" else 2
+    check(RK.launch_count(RK.roi_align_backward, torch.float32)
+          == n_bwd + n_pools,
+          "the card's step did not run the backward kernel once per pooling")
     (t_g, g_g), (t_c, g_c) = out["gpu"], out["cpu"]
     worst = max(abs(t_g[k] - t_c[k]) / abs(t_c[k]) for k in t_c)
-    log("[train-cpu] terms card / cpu: " + ", ".join(
+    log(f"[train-cpu] {kind} terms card / cpu: " + ", ".join(
         f"{k} {t_g[k]:.8e} / {t_c[k]:.8e}" for k in t_c)
         + f"; max rel {worst:.2e}")
     check(worst <= TRAIN_TERM_TOL, f"terms: {worst} > {TRAIN_TERM_TOL}")
-    rels = {n: float((g_g[n] - c).abs().max() / c.abs().max())
+    top = max(float(c.abs().max()) for c in g_c.values())
+    rels = {n: float((g_g[n] - c).abs().max()
+                     / max(float(c.abs().max()),
+                           GRAD_FLOOR * top if float(c.abs().max())
+                           <= 1e-12 * top else 0.0))
             for n, c in g_c.items()}
-    top = sorted(rels.items(), key=lambda kv: -kv[1])[:4]
-    log(f"[train-cpu] {len(g_c)} gradients of the RoI heads and the FPN, "
-        "largest errors (x their max): "
-        + ", ".join(f"{n} {r:.2e}" for n, r in top))
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:4]
+    log(f"[train-cpu] {kind}: {len(g_c)} gradients of the RoI heads and the "
+        "FPN, largest errors (x their max): "
+        + ", ".join(f"{n} {r:.2e}" for n, r in worst))
+    head_tol, fpn_tol = TRAIN_GRAD_TOLS[kind]
     for name, rel in rels.items():
-        tol = (TRAIN_HEAD_GRAD_TOL if name.startswith("roi_heads.")
-               else TRAIN_FPN_GRAD_TOL)
+        tol = head_tol if name.startswith("roi_heads.") else fpn_tol
         check(rel <= tol, f"gradient {name}: {rel} of its max > {tol}")
 
 
 def kernel_counts() -> dict:
-    """Every kernel wrapper's launch count."""
+    """Every kernel wrapper's launch count: the RoIAlign forward by levels'
+    dtype (f32 and int8 at any pool size), its bf16 forward and the bf16
+    backward by pool size (7x7 box loss, 14x14 mask or keypoint loss)."""
     from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
     from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
+    fwd, bwd = RK.roi_align.launches, RK.roi_align_backward.launches
     return {"quantize": QK.quantize.launches,
             "dequantize": QK.dequantize.launches,
-            "roi_align": RK.roi_align.launches,
-            "roi_align_bf16": RK.roi_align.launches_bf16,
-            "roi_align_int8": RK.roi_align.launches_int8,
-            "roi_align_bwd": RK.roi_align_backward.launches,
+            "roi_align": RK.launch_count(RK.roi_align, torch.float32),
+            "roi_align_bf16": fwd[(torch.bfloat16, 7)],
+            "roi_align_bf16_p14": fwd[(torch.bfloat16, 14)],
+            "roi_align_int8": RK.launch_count(RK.roi_align, torch.int8),
+            "roi_align_bwd": bwd[(torch.bfloat16, 7)],
+            "roi_align_bwd_p14": bwd[(torch.bfloat16, 14)],
             "quantize_levels": RK.quantize_levels.launches,
             "stem_fwd": SK.stem_fwd.launches,
             "stem_fwd_res": SK.stem_fwd_res.launches,
@@ -1259,18 +1511,45 @@ def zero_kernel_counts() -> None:
     from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
     from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
-    for fn in (QK.quantize, QK.dequantize, RK.roi_align_backward,
-               RK.quantize_levels, SK.stem_fwd, SK.stem_fwd_res, SK.stem_dw):
+    for fn in (QK.quantize, QK.dequantize, RK.quantize_levels, SK.stem_fwd,
+               SK.stem_fwd_res, SK.stem_dw):
         fn.launches = 0
-    RK.roi_align.launches = RK.roi_align.launches_bf16 = 0
-    RK.roi_align.launches_int8 = 0
+    RK.roi_align.launches.clear()
+    RK.roi_align_backward.launches.clear()
+
+
+def box_polygon(x1: float, y1: float, x2: float, y2: float) -> list:
+    """A box as a COCO polygon segmentation."""
+    x1, y1, x2, y2 = (float(v) for v in (x1, y1, x2, y2))
+    return [[x1, y1, x2, y1, x2, y2, x1, y2]]
+
+
+def write_keypoint_annotations(ann_file: str, out_file: str,
+                               rng: np.random.RandomState) -> int:
+    """The person-keypoint file of a fixture split: each of
+    ``ann_file``'s rectangles a person with 17 visible keypoints inside it
+    (so every image keeps its >= 10 visible keypoints).  Returns the
+    number of annotations."""
+    with open(ann_file) as f:
+        coco = json.load(f)
+    for ann in coco["annotations"]:
+        x, y, bw, bh = ann["bbox"]
+        kps = np.stack([rng.uniform(x, x + bw, 17), rng.uniform(y, y + bh, 17),
+                        np.full(17, 2.0)], -1)
+        ann.update(category_id=1, keypoints=[float(v) for v in kps.ravel()],
+                   num_keypoints=17)
+    coco["categories"] = [{"id": 1, "name": "person", "skeleton": [],
+                           "keypoints": [f"kp{i}" for i in range(17)]}]
+    with open(out_file, "w") as f:
+        json.dump(coco, f)
+    return len(coco["annotations"])
 
 
 def write_runner_fixture(root: str, rng: np.random.RandomState) -> dict:
     """COCO splits under ``root``: RUNNER_IMAGES JPEGs each, alternating
     RUNNER_SHAPES, dark noise with 1-4 bright rectangles, each an
-    annotation of a random COCO category.  Returns {split: (image dir,
-    annotation file)}."""
+    annotation (box and polygon) of a random COCO category.  Returns
+    {split: (image dir, annotation file)}."""
     from PIL import Image
     out = {}
     for split, n in RUNNER_IMAGES.items():
@@ -1288,7 +1567,9 @@ def write_runner_fixture(root: str, rng: np.random.RandomState) -> dict:
                              "category_id": int(rng.randint(1, 91)),
                              "bbox": [float(x), float(y), float(bw),
                                       float(bh)],
-                             "area": float(bw * bh), "iscrowd": 0})
+                             "area": float(bw * bh), "iscrowd": 0,
+                             "segmentation": box_polygon(x, y, x + bw,
+                                                         y + bh)})
             name = f"{i + 1:06d}.jpg"
             Image.fromarray(arr).save(os.path.join(img_dir, name), quality=95)
             images.append({"id": i + 1, "file_name": name, "height": h,
@@ -1301,10 +1582,14 @@ def write_runner_fixture(root: str, rng: np.random.RandomState) -> dict:
     return out
 
 
-def teacher_annotations(teacher, config: dict, out_file: str) -> int:
+def teacher_annotations(teacher, config: dict, out_file: str):
     """The val split with ``teacher``'s own detections as its annotations
-    (score >= GT_SCORE), written to ``out_file``.  Returns the number of
-    annotations."""
+    (score >= GT_SCORE), written to ``out_file``: each box with its polygon,
+    or with the pasted mask as its RLE (a Mask R-CNN; an empty mask is left
+    out), or with its keypoints, all visible (a Keypoint R-CNN; the first
+    KP_MAX_DETS an image by score).  Returns (the number of annotations,
+    the loader's batches, their eval records)."""
+    from hnd_ghnd_tpu_torch.evals import mask_rle
     from hnd_ghnd_tpu_torch.evals.postprocess import finalize_predictions
     from hnd_ghnd_tpu_torch.runners import common
     _, loader, _ = common.loaders_from_config(config, teacher.kind, 1)
@@ -1320,16 +1605,110 @@ def teacher_annotations(teacher, config: dict, out_file: str) -> int:
             pred = finalize_predictions(
                 rec["dets"], i, tuple(tgt["original_size"]),
                 tuple(int(v) for v in batch["image_sizes"][i]))
-            for j in np.flatnonzero(pred["scores"] >= GT_SCORE):
+            keep = [j for j in np.argsort(-pred["scores"], kind="stable")
+                    if pred["scores"][j] >= GT_SCORE]
+            if "keypoints" in pred:
+                keep = keep[:KP_MAX_DETS]
+            for j in keep:
                 x1, y1, x2, y2 = (float(v) for v in pred["boxes"][j])
-                anns.append({"id": len(anns) + 1, "image_id": tgt["image_id"],
-                             "category_id": int(pred["labels"][j]),
-                             "bbox": [x1, y1, x2 - x1, y2 - y1],
-                             "area": (x2 - x1) * (y2 - y1), "iscrowd": 0})
+                ann = {"id": len(anns) + 1, "image_id": tgt["image_id"],
+                       "category_id": int(pred["labels"][j]),
+                       "bbox": [x1, y1, x2 - x1, y2 - y1],
+                       "area": (x2 - x1) * (y2 - y1), "iscrowd": 0,
+                       "segmentation": box_polygon(x1, y1, x2, y2)}
+                if "masks" in pred:
+                    if not pred["masks"][j].any():
+                        continue
+                    ann["segmentation"] = {
+                        "size": list(pred["masks"][j].shape),
+                        "counts": mask_rle.encode(pred["masks"][j]).tolist()}
+                if "keypoints" in pred:
+                    kps = pred["keypoints"][j].copy()
+                    kps[:, 2] = 2.0
+                    ann.update(keypoints=[float(v) for v in kps.ravel()],
+                               num_keypoints=len(kps))
+                anns.append(ann)
     coco["annotations"] = anns
     with open(out_file, "w") as f:
         json.dump(coco, f)
-    return len(anns)
+    return len(anns), items, records
+
+
+def blob_heatmaps(rng: np.random.RandomState, n: int, s: int = 56,
+                  k: int = 17) -> np.ndarray:
+    """[n, s, s, k] heatmaps with one Gaussian peak a keypoint and a little
+    noise, as a trained head gives them (JAX's tests/test_kp_decode.py)."""
+    yy, xx = np.mgrid[0:s, 0:s].astype(np.float32)
+    hm = np.zeros((n, s, s, k), np.float32)
+    for i in range(n):
+        for j in range(k):
+            cy, cx = rng.uniform(4, s - 4, 2)
+            sig = rng.uniform(1.5, 4.0)
+            hm[i, :, :, j] = 8.0 * np.exp(
+                -((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sig ** 2))
+    return hm + rng.randn(n, s, s, k).astype(np.float32) * 0.05
+
+
+def kp_decode_checks(dev: torch.device, items: list, records: list) -> None:
+    """The device keypoint decode (``kp_decode: device``) on the card, on a
+    Keypoint R-CNN forward's outputs for one image ([1, 100, 56, 56, 17]
+    heatmaps and their boxes): ``device_keypoint_argmax`` on the card
+    against the CPU on the same heatmaps; then ``finalize_predictions``
+    from the card's decode against the host decode of the same heatmaps.
+    The seeded head's heatmaps have many near-equal maxima, so the two
+    grids pick far-apart ones often: that share is only logged, and the
+    check runs on one-peak heatmaps at the forward's boxes."""
+    from hnd_ghnd_tpu_torch.evals.postprocess import finalize_predictions
+    from hnd_ghnd_tpu_torch.ops.kp_decode import device_keypoint_argmax
+    (batch, _, host), dets = items[0], records[0]["dets"]
+    sizes = tuple(host[0]["original_size"]), tuple(
+        int(v) for v in batch["image_sizes"][0])
+    hm = torch.from_numpy(dets["keypoint_logits"][:1]).to(dev)
+    card = [t.cpu() for t in device_keypoint_argmax(hm, KP_GRID)]
+    cpu = device_keypoint_argmax(hm.cpu(), KP_GRID)
+    same = float(((card[0] == cpu[0]) & (card[1] == cpu[1])).double().mean())
+    top = float(cpu[2].abs().max())
+    score_err = float((card[2] - cpu[2]).abs().max())
+    log(f"[runner] device_keypoint_argmax {tuple(hm.shape)} at grid "
+        f"{KP_GRID}, card / CPU: same position {same:.4%} of the keypoints, "
+        f"scores max abs err {score_err:.3e} (largest {top:.3e})")
+    check(same >= KP_SAME_MIN and score_err <= KP_SCORE_TOL * top,
+          f"device_keypoint_argmax on the card: {same} same, score err "
+          f"{score_err}")
+    oh, ow = sizes[0]
+    ih, iw = sizes[1]
+
+    def agreement(heatmaps: np.ndarray) -> tuple:
+        u, v, score = device_keypoint_argmax(
+            torch.from_numpy(heatmaps).to(dev), KP_GRID)
+        base = {k: dets[k][:1] for k in ("boxes", "scores", "labels",
+                                         "valid", "boxes_model")}
+        want = finalize_predictions(dict(base, keypoint_logits=heatmaps), 0,
+                                    *sizes)
+        got = finalize_predictions(dict(
+            base, kp_u=u.cpu().numpy(), kp_v=v.cpu().numpy(),
+            kp_score=score.cpu().numpy()), 0, *sizes)
+        bm = dets["boxes_model"][0][dets["valid"][0].astype(bool)]
+        side = np.maximum(bm[:, 2:] - bm[:, :2], 1.0)           # [N, 2]
+        big = (side >= 56).all(1)
+        tol = (side / 56 + side / KP_GRID) * np.array([ow / iw, oh / ih])
+        ok = np.abs(got["keypoints"][..., :2] - want["keypoints"][..., :2]) \
+            <= tol[:, None, :]                                   # [N, K, 2]
+        return (tuple(float(v) for v in ok.mean((0, 1))),
+                tuple(float(v) for v in ok[big].mean((0, 1))), int(big.sum()))
+
+    own, _, _ = agreement(dets["keypoint_logits"][:1])
+    every, blobs, n_big = agreement(blob_heatmaps(
+        np.random.RandomState(SEED + 15), hm.shape[1])[None])
+    log(f"[runner] device decode on the card vs the host decode, share of "
+        f"keypoints within one heatmap cell and one grid cell (x, y): "
+        f"{blobs[0]:.4f}, {blobs[1]:.4f} on one-peak heatmaps at the "
+        f"forward's {n_big} boxes of 56 pixels a side or more (bound "
+        f"{KP_AGREE_MIN}; {every[0]:.4f}, {every[1]:.4f} at all its boxes); "
+        f"{own[0]:.4f}, {own[1]:.4f} on the seeded head's own heatmaps at "
+        "all its boxes (logged only)")
+    check(n_big > 0 and min(blobs) > KP_AGREE_MIN,
+          f"device vs host decode: {blobs} at {n_big} boxes")
 
 
 def runner_models(dev: torch.device):
@@ -1372,8 +1751,14 @@ def runner_phase(dev: torch.device, root: str) -> dict:
     written here), -distill -transform_bottleneck, RUNNER_EPOCHS epochs, the
     stem switch on; then ``-test_only`` from the saved checkpoint; then
     ``coco_runner.run -train`` of the org model for one epoch of bfloat16
-    steps on the fixture's own boxes.  Returns each run's kernel launches
-    ({"mimic": ..., "coco": ...})."""
+    steps on the fixture's own boxes; the same for the org Mask R-CNN (on
+    the boxes' polygons) and Keypoint R-CNN (on a person-keypoint file of
+    the same boxes), scored by COCOeval's segm and keypoints; then the test
+    eval of a seeded Mask R-CNN and Keypoint R-CNN on annotations made from
+    their own detections, the Keypoint R-CNN's with the host decode and
+    with ``kp_decode: device`` (``kp_decode_checks`` on its forward).
+    Returns each run's kernel launches ({"mimic", "coco", "mask_rcnn",
+    "keypoint_rcnn"})."""
     from hnd_ghnd_tpu_torch.models.convert import jax_params_from_state_dict
     from hnd_ghnd_tpu_torch.models.factory import get_model
     from hnd_ghnd_tpu_torch.runners import coco_runner, mimic_runner
@@ -1405,8 +1790,8 @@ def runner_phase(dev: torch.device, root: str) -> dict:
         "tpu": GHND_TPU,
     }
     gt = os.path.join(root, "instances_val_teacher.json")
-    n_gt = teacher_annotations(get_model(config["teacher_model"], seed=SEED,
-                                         device=dev), config, gt)
+    n_gt, _, _ = teacher_annotations(get_model(
+        config["teacher_model"], seed=SEED, device=dev), config, gt)
     for name in ("val", "test"):
         config["dataset"]["splits"][name] = split("val", gt)
     log(f"[runner] fixture of {sum(RUNNER_IMAGES.values())} JPEGs and "
@@ -1523,7 +1908,125 @@ def runner_phase(dev: torch.device, root: str) -> dict:
     epoch_report("runner coco", epoch, org["train"]["steps"])
     log(f"[runner] coco_runner test eval: bbox stats " + " ".join(
         f"{v:.6f}" for v in org["test"]["stats"]["bbox"]))
-    return {"mimic": mimic, "coco": coco}
+    torch.cuda.empty_cache()
+
+    # ------------------------ coco_runner -train, Mask and Keypoint R-CNN
+    kp_file = os.path.join(root, "person_keypoints_val.json")
+    n_kp = write_keypoint_annotations(own["annotations"], kp_file,
+                                      np.random.RandomState(SEED + 11))
+    log(f"[runner] person-keypoint file: {n_kp} people with 17 visible "
+        "keypoints each")
+    heads = {}
+    for kind, model_cfg, yaml_path, ann in (
+            ("mask_rcnn", ORG_MASK_MODEL,
+             "config/org/mask_rcnn-backbone_resnet50.yaml", own),
+            ("keypoint_rcnn", ORG_KEYPOINT_MODEL,
+             "config/org/keypoint_rcnn-backbone_resnet50.yaml",
+             split("val", kp_file))):
+        cfg = dict(org_config, dataset={
+            "name": "fixture", "num_workers": 4,
+            "splits": {"train": ann, "val": ann, "test": ann}},
+            model=dict(model_cfg, ckpt=os.path.join(root, f"{kind}.pt")))
+        args = coco_runner.get_argparser().parse_args(
+            ["--config", yaml_path, "--device", str(dev), "-train"])
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        res = coco_runner.run(cfg, args)
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        (epoch,) = res["train"]["epochs"]
+        steps = res["train"]["steps"]
+        n_eval = epoch["eval"]["batches"] + res["test"]["eval"]["batches"]
+        iou = "segm" if kind == "mask_rcnn" else "keypoints"
+        extra = "loss_mask" if kind == "mask_rcnn" else "loss_keypoint"
+        log(f"[runner] coco_runner -train {kind}: {len(steps)} bfloat16 "
+            f"steps, {n_eval} eval batches in {wall:.3f} s; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        for idx, loss, terms, ms in steps:
+            check(len(terms) == 5 and extra in terms
+                  and all(np.isfinite(v) for v in terms.values()),
+                  f"coco_runner {kind} step {idx}: {terms}")
+            log(f"[runner] coco_runner {kind} step {idx}: {ms:.3f} ms, loss "
+                f"{loss:.6e}, {extra} {terms[extra]:.6e}")
+        n = len(steps)
+        check(n == RUNNER_IMAGES["val"] // ORG_BATCH,
+              f"coco_runner {kind}: {n} steps")
+        # the float32 eval pools twice a forward: 7x7 boxes, 14x14 heads
+        want = {"roi_align_bf16": n, "roi_align_bf16_p14": n,
+                "roi_align_bwd": n, "roi_align_bwd_p14": n,
+                "roi_align": 2 * n_eval}
+        check(all(counts[k] == v for k, v in want.items()),
+              f"coco_runner {kind} launches {counts}, want {want}")
+        for stats in (epoch["stats"], res["test"]["stats"]):
+            check(set(stats) == {"bbox", iou}
+                  and all(np.isfinite(v) for v in stats[iou]),
+                  f"coco_runner {kind}: stats {stats}")
+        epoch_report(f"runner {kind}", epoch, steps)
+        ev = res["test"]["eval"]
+        log(f"[runner] coco_runner {kind} test eval: {ev['seconds']:.3f} s, "
+            f"{ev['batches']} forwards {ev['forward_ms'] / 1e3:.3f} s "
+            f"dispatch to host, COCOeval and host postprocess "
+            f"{ev['cocoeval_s']:.3f} s; {iou} stats " + " ".join(
+                f"{v:.6f}" for v in res["test"]["stats"][iou]))
+        heads[kind] = counts
+        torch.cuda.empty_cache()
+
+    # ------------- segm and keypoints on annotations the model can score
+    # a seeded Mask or Keypoint R-CNN (class logits x300, as the teacher)
+    # makes the val split's masks or keypoints; coco_runner's test eval of
+    # its checkpoint then scores near 1 on them, and the Keypoint R-CNN's
+    # again with kp_decode: device
+    for kind, model_cfg, yaml_path, base in (
+            ("mask_rcnn", ORG_MASK_MODEL,
+             "config/org/mask_rcnn-backbone_resnet50.yaml", own),
+            ("keypoint_rcnn", ORG_KEYPOINT_MODEL,
+             "config/org/keypoint_rcnn-backbone_resnet50.yaml",
+             split("val", kp_file))):
+        scorer = live_norms_(get_model(model_cfg, seed=SEED + 14,
+                                       device=dev), SEED + 14)
+        with torch.no_grad():
+            scorer.roi_heads.box_predictor.cls_score.weight.mul_(300.0)
+        path = os.path.join(root, f"{kind}_scorer.pt")
+        params, state = jax_params_from_state_dict(scorer.state_dict())
+        ckpt_util.save_ckpt(path, params=params, state=state)
+        cfg = dict(org_config, dataset={
+            "name": "fixture", "num_workers": 4,
+            "splits": {"train": base, "val": base, "test": base}},
+            model=dict(model_cfg, ckpt=path))
+        gt = os.path.join(root, f"{kind}_scorer_val.json")
+        n_gt, items, records = teacher_annotations(scorer, cfg, gt)
+        del scorer
+        iou = "segm" if kind == "mask_rcnn" else "keypoints"
+        log(f"[runner] {kind}: {n_gt} val annotations from its own "
+            f"detections ({iou})")
+        if kind == "keypoint_rcnn":
+            kp_decode_checks(dev, items, records)
+        del items, records
+        cfg["dataset"]["splits"] = {"train": base, "val": split("val", gt),
+                                    "test": split("val", gt)}
+        args = coco_runner.get_argparser().parse_args(
+            ["--config", yaml_path, "--device", str(dev)])
+        decodes = ("host", "device") if kind == "keypoint_rcnn" else (None,)
+        for decode in decodes:
+            if decode == "device":
+                cfg["model"] = dict(cfg["model"], params=dict(
+                    cfg["model"]["params"], kp_decode="device"))
+            res = coco_runner.run(cfg, args)
+            ev, stats = res["test"]["eval"], res["test"]["stats"][iou]
+            log(f"[runner] coco_runner {kind} test eval on its own "
+                f"annotations" + (f", kp_decode {decode}" if decode else "")
+                + f": {ev['seconds']:.3f} s, {ev['batches']} forwards "
+                f"{ev['forward_ms'] / 1e3:.3f} s dispatch to host, COCOeval "
+                f"and host postprocess {ev['cocoeval_s']:.3f} s; {iou} stats "
+                + " ".join(f"{v:.6f}" for v in stats))
+            # the device decode picks other maxima than the host's where
+            # the seeded heatmaps have near-equal ones (kp_decode_checks)
+            ok = stats[0] > 0.0 if decode == "device" else \
+                stats[0] >= TEACHER_MAP_MIN
+            check(np.isfinite(stats).all() and ok,
+                  f"coco_runner {kind} ({decode}): {iou} AP {stats[0]}")
+        torch.cuda.empty_cache()
+    return {"mimic": mimic, "coco": coco, **heads}
 
 
 def main() -> int:
@@ -1653,12 +2156,9 @@ def main() -> int:
         **timings(lambda: RK.roi_align(levels, boxes, (h, w), 7, 2, valid)),
         plain_ms=time_ms(lambda: multiscale_roi_align_batch(
             levels, boxes, (h, w), 7, 2, valid)), library_ms=None,
-        **bound(nbytes(*levels, boxes, valid, got),
-                33.0 * n_valid * 49 * levels[0].shape[-1]),
-        tapped_bound_ms=bound(tapped_bytes(levels, boxes, valid, (h, w), 7)
-                              + nbytes(boxes, valid, got),
-                              33.0 * n_valid * 49 * levels[0].shape[-1]
-                              )["bound_ms"])
+        **roi_bound(levels, boxes, valid, (h, w), 7,
+                    nbytes(boxes, valid, got),
+                    33.0 * n_valid * 49 * levels[0].shape[-1]))
     # what the NHWC hand-over costs from the served NCHW maps, and from
     # channels_last ones
     nchw = [f.permute(0, 3, 1, 2).contiguous() for f in levels]
@@ -1676,13 +2176,14 @@ def main() -> int:
     for name, k in kernels.items():
         lib = "" if k["library_ms"] is None else \
             f", {k['library_ms']:.4f} ms library"
-        tapped = "" if "tapped_bound_ms" not in k else \
-            f"; tapped cells {k['tapped_bound_ms']:.4f} ms, " \
-            f"{k['tapped_bound_ms'] / k['device_ms']:.1%} of the card's time"
+        whole = "" if "whole_levels_bound_ms" not in k else \
+            f" (tapped cells; whole levels " \
+            f"{k['whole_levels_bound_ms']:.4f} ms)"
         log(f"[kernels] {name}: {k['ms']:.4f} ms kernel "
             f"({k['device_ms']:.4f} on the card), {k['plain_ms']:.4f} ms "
             f"plain{lib} (median of {REPS}); bound {k['bound_ms']:.4f} ms by "
-            f"{k['bound_by']}, {k['bound_ms'] / k['ms']:.1%} of it{tapped}"
+            f"{k['bound_by']}{whole}, {k['bound_ms'] / k['ms']:.1%} of it, "
+            f"{k['bound_ms'] / k['device_ms']:.1%} of the card's time"
             + ("" if "floor_ms" not in k else
                f"; two-pass floor {k['floor_ms']:.4f} ms, "
                f"{k['floor_ms'] / k['device_ms']:.1%} of the card's time")
@@ -1695,15 +2196,14 @@ def main() -> int:
     model = serving_model(dev)
     batches = serving_batches(np.random.RandomState(SEED + 1))
     served = batches * 2  # the first pass includes cuDNN's first calls
-    QK.quantize.launches = QK.dequantize.launches = RK.roi_align.launches = 0
+    zero_kernel_counts()
     nms_ops.fixpoint.iterations = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     records = evaluate(model, served, use_bottleneck_transformer=True)
     wall = time.perf_counter() - t0
-    launches = {"quantize": QK.quantize.launches,
-                "dequantize": QK.dequantize.launches,
-                "roi_align": RK.roi_align.launches}
+    launches = {k: v for k, v in kernel_counts().items()
+                if k in ("quantize", "dequantize", "roi_align")}
     log(f"[slice] {len(served)} batches in {wall:.3f} s; launches {launches}; "
         f"NMS fixpoint syncs {nms_ops.fixpoint.iterations}; peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
@@ -1815,6 +2315,14 @@ def main() -> int:
     train_cpu_phase(dev)
     torch.cuda.empty_cache()
 
+    # ------------------------------------------- 9b. mask/keypoint training
+    heads_train = heads_train_phase(dev)
+    for name in ("roi_align_bf16_p14", "roi_align_bwd_p14"):
+        launches[name] = sum(c[name] for c in heads_train.values())
+    for cfg in (ORG_MASK_MODEL, ORG_KEYPOINT_MODEL):
+        train_cpu_phase(dev, cfg)
+        torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- 10. runners
     with tempfile.TemporaryDirectory() as root:
         runner = runner_phase(dev, root)
@@ -1830,12 +2338,17 @@ def main() -> int:
                          ("stem_fwd", "stem_fwd_res", "stem_dw")},
              "train": {k: train_launches[k] for k in
                        ("roi_align_bf16", "roi_align_bwd")},
-             "mimic_runner": {k: v for k, v in runner["mimic"].items() if v},
-             "coco_runner": {k: v for k, v in runner["coco"].items() if v}}
+             **{f"train_{kind}": counts
+                for kind, counts in heads_train.items()},
+             **{f"{run}_runner": {k: v for k, v in runner[key].items() if v}
+                for run, key in (("mimic", "mimic"), ("coco", "coco"),
+                                 ("coco_mask", "mask_rcnn"),
+                                 ("coco_keypoint", "keypoint_rcnn"))}}
     out = []
     for name, k in kernels.items():
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
-        on_runner = runner["mimic"][name] + runner["coco"][name]
+        on_runner = sum(runner[key][name] for key in
+                        ("mimic", "coco", "mask_rcnn", "keypoint_rcnn"))
         out.append(dict(name=name, route="cuda",
                         launches=on_runner or launches[name],
                         launches_by_path=by_path, **k))

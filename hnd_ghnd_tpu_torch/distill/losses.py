@@ -4,8 +4,8 @@ Counterpart of hnd_ghnd_tpu/distill/losses.py (reference
 src/distillation/loss.py): ``GeneralizedCustomLoss`` is the weighted sum of
 per-term criteria over (teacher output, student output) pairs.  HND has one
 term (layer1), GHND four (layer1..layer4), each ``MSELoss(reduction=sum)``
-in the shipped configs.  The ``org_loss_factor`` task-loss term needs the
-detection losses (ROADMAP A8) and raises.
+in the shipped configs.  The ``org_loss_factor`` task-loss term is
+ROADMAP A4 and raises.
 """
 from __future__ import annotations
 
@@ -72,8 +72,8 @@ class GeneralizedCustomLoss:
                                                           0.0))
         if self.org_loss_factor != 0:
             raise NotImplementedError(
-                "org_loss_factor != 0 adds the detection losses, which are "
-                "ROADMAP A8")
+                "org_loss_factor != 0 adds the detection losses to the "
+                "distillation loss, which is ROADMAP A4")
         self.terms = {}
         for name, term_cfg in criterion_config["terms"].items():
             sub = term_cfg["criterion"]

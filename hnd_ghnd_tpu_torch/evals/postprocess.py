@@ -7,7 +7,8 @@ postprocess).  They involve per-detection dynamic shapes, so the device
 emits fixed-shape mask probabilities [D, 28, 28] and keypoint heatmaps
 [D, 56, 56, K], and this module finishes the job in numpy and cv2 (imported
 by the functions that resize) exactly like torchvision 0.4.2 (mask
-expand-by-1px trick, bicubic heatmap upsampling).
+expand-by-1px trick, bicubic heatmap upsampling); after the device decode
+(``kp_decode: device``) the keypoints' argmax positions [D, K] instead.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import math
 from typing import Dict, Tuple
 
 import numpy as np
+
+from hnd_ghnd_tpu_torch.ops.kp_decode import keypoints_from_device_argmax
 
 
 def paste_masks(mask_probs: np.ndarray, boxes: np.ndarray,
@@ -115,6 +118,15 @@ def finalize_predictions(dets: Dict[str, np.ndarray], image_index: int,
         out["keypoints"] = kps
         out["keypoints_scores"] = kp_scores
     elif "kp_u" in dets:
-        raise NotImplementedError(
-            "kp_decode: device: the on-device keypoint decode is ROADMAP A8")
+        # the device decode (ops/kp_decode.py): only the argmax positions
+        # [D, K] in heatmap source coordinates reach the host
+        bm = _f32(dets["boxes_model"][image_index])[valid]
+        ih, iw = image_size
+        kps, kp_scores = keypoints_from_device_argmax(
+            _f32(dets["kp_u"][image_index])[valid],
+            _f32(dets["kp_v"][image_index])[valid],
+            _f32(dets["kp_score"][image_index])[valid],
+            bm, (oh / ih, ow / iw))
+        out["keypoints"] = kps
+        out["keypoints_scores"] = kp_scores
     return out

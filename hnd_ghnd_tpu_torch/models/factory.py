@@ -6,12 +6,14 @@ and ``num_keypoints`` from ``params``) with the stock ResNet-50 trunk (the
 org model of config/org and the distillation teacher), or as a student
 whose ``layer1`` is a Bottleneck4LargeResNet, with an optional [quantizer,
 dequantizer] bottleneck transformer; ``params.int8_roi_pool`` turns on the
-eval's int8 pooling tables.  Every other feature of the schema
-raises NotImplementedError naming the ROADMAP item that ports it; nothing
-falls back silently.  ``frozen_modules``, and the trunk's conv1, bn1 and
-layer1 under ``backbone.params.freeze_layers`` (the reference's
-freeze_layers, as hnd_ghnd_tpu/runners/coco_runner.py:53-58 adds them),
-turn ``requires_grad`` off (utils/params.set_trainable).
+eval's int8 pooling tables, and ``params.kp_decode: device`` (with
+``kp_decode_grid``, 224 by default) the keypoint decode on the device.
+Every other feature of the schema raises NotImplementedError naming the
+ROADMAP item that ports it; nothing falls back silently.
+``frozen_modules``, and the trunk's conv1, bn1 and layer1 under
+``backbone.params.freeze_layers`` (the reference's freeze_layers, as
+hnd_ghnd_tpu/runners/coco_runner.py:53-58 adds them), turn
+``requires_grad`` off (utils/params.set_trainable).
 
 ``init_model`` draws seeded random weights from an explicit
 ``torch.Generator`` with the JAX package's init distributions.  The zoo
@@ -90,9 +92,6 @@ def build_model(model_config: Dict[str, Any]) -> RCNN:
     if layer1_cfg is not None and layer1_cfg["name"] not in BOTTLENECK_NAMES:
         raise ValueError(f"layer1 name `{layer1_cfg['name']}` is not expected")
     params_cfg = model_config.get("params", {}) or {}
-    if params_cfg.get("kp_decode", "host") != "host":
-        raise NotImplementedError(
-            "kp_decode: device: the on-device keypoint decode is ROADMAP A8")
     if params_cfg.get("roi_pool_impl", "auto") not in ("auto", "pallas"):
         raise NotImplementedError(
             "roi_pool_impl: the port has one RoIAlign (the CUDA kernel, its "
@@ -104,7 +103,9 @@ def build_model(model_config: Dict[str, Any]) -> RCNN:
     model = RCNN(bottleneck, num_classes=int(params_cfg.get("num_classes", 91)),
                  kind=kind,
                  num_keypoints=int(params_cfg.get("num_keypoints", 17)),
-                 int8_pool=bool(params_cfg.get("int8_roi_pool", False)))
+                 int8_pool=bool(params_cfg.get("int8_roi_pool", False)),
+                 kp_decode=str(params_cfg.get("kp_decode", "host")),
+                 kp_decode_grid=int(params_cfg.get("kp_decode_grid", 224)))
     set_trainable(model, frozen_modules(model_config))
     return model.eval()
 

@@ -1,20 +1,24 @@
 """Faster, Mask and Keypoint R-CNN meta-architecture: eval forward and the
-Faster R-CNN training losses.
+training losses.
 
 Counterpart of hnd_ghnd_tpu/models/rcnn.py (the reference's CustomRCNN):
 normalize -> trunk (with the bottleneck as layer1) -> FPN -> RPN -> RoI
 heads (with the mask or keypoint branch) -> boxes rescaled from the padded
 bucket to each image's original size, ``boxes_model`` keeping the bucket's
-coordinates for the host keypoint decode; in train mode (rcnn.py:156-178) RPN proposals, the RPN loss, the
-RoI sampling and the RoI loss instead.  The batch keeps the JAX package's
-layout: images [B, H, W, 3] in [0, 1], in the compute dtype.  The trunk runs contiguous NCHW: float32 cuDNN convolutions have
-NCHW kernels only, and a channels_last trunk spends more in their layout
-transposes than the NHWC copy of P2-P5 for the RoIAlign kernel costs.
+coordinates for the host keypoint decode; in train mode (rcnn.py:156-178)
+RPN proposals, the RPN loss, the RoI sampling and the RoI losses instead:
+the box loss, and the mask or keypoint loss when the targets hold
+``masks_crop`` or ``keypoints``, all three pooling one NHWC copy of P2-P5.
+The batch keeps the JAX package's layout: images [B, H, W, 3] in [0, 1], in
+the compute dtype.  The trunk runs contiguous NCHW: float32 cuDNN
+convolutions have NCHW kernels only, and a channels_last trunk spends more
+in their layout transposes than the NHWC copy of P2-P5 for the RoIAlign
+kernel costs.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -51,18 +55,21 @@ class RCNN(nn.Module):
     mask_rcnn) or roi_heads.keypoint_head.* with
     roi_heads.keypoint_predictor.* (keypoint_rcnn).  A student has the
     bottleneck as layer1, a teacher (``bottleneck`` None) the stock
-    ResNet-50 layer1.  ``int8_pool``: the eval pools int8 tables."""
+    ResNet-50 layer1.  ``int8_pool``: the eval pools int8 tables;
+    ``kp_decode``/``kp_decode_grid``: the keypoint decode (RoIHeads)."""
 
     def __init__(self, bottleneck: Optional[Bottleneck4LargeResNet],
                  num_classes: int = 91, kind: str = "faster_rcnn",
-                 num_keypoints: int = 17, int8_pool: bool = False):
+                 num_keypoints: int = 17, int8_pool: bool = False,
+                 kp_decode: str = "host", kp_decode_grid: int = 224):
         super().__init__()
         self.kind = kind
         self.backbone = Backbone(bottleneck)
         self.rpn = RPN()
         self.roi_heads = RoIHeads(num_classes, kind=kind,
                                   num_keypoints=num_keypoints,
-                                  int8_pool=int8_pool)
+                                  int8_pool=int8_pool, kp_decode=kp_decode,
+                                  kp_decode_grid=kp_decode_grid)
 
     @staticmethod
     def normalize(images: torch.Tensor) -> torch.Tensor:
@@ -87,11 +94,15 @@ class RCNN(nn.Module):
 
         In eval mode: fixed-shape detections in original-image coordinates
         (``boxes``) and bucket coordinates (``boxes_model``), with
-        ``mask_probs`` or ``keypoint_logits`` for those kinds, without
+        ``mask_probs``, or ``keypoint_logits`` (``kp_u``, ``kp_v`` and
+        ``kp_score`` with the device decode) for those kinds, without
         autograd.  In train mode: the loss dict {loss_classifier,
-        loss_box_reg, loss_objectness, loss_rpn_box_reg}; ``targets`` holds
-        boxes [B, G, 4], labels [B, G] and boxes_valid [B, G] (padded to a
-        fixed G), and ``draw`` the samplers' uniform draws."""
+        loss_box_reg, loss_objectness, loss_rpn_box_reg}, with loss_mask
+        (a Mask R-CNN given ``masks_crop``) or loss_keypoint (a Keypoint
+        R-CNN given ``keypoints``); ``targets`` holds boxes [B, G, 4],
+        labels [B, G] and boxes_valid [B, G] (padded to a fixed G), and
+        masks_crop [B, G, 114, 114] or keypoints [B, G, K, 3] as the loader
+        makes them; ``draw`` gives the samplers' uniform draws."""
         if self.training:
             if targets is None or draw is None:
                 raise ValueError("training forward needs targets and draw")
@@ -102,9 +113,6 @@ class RCNN(nn.Module):
     def losses(self, batch: Dict[str, torch.Tensor],
                targets: Dict[str, torch.Tensor],
                draw: Draw) -> Dict[str, torch.Tensor]:
-        if self.kind != "faster_rcnn":
-            raise NotImplementedError(f"{self.kind}: the mask and keypoint "
-                                      "training losses are ROADMAP A8")
         images = batch["images"]
         image_shape = (images.shape[1], images.shape[2])
         _, feats = self.backbone_features(images)
@@ -113,8 +121,28 @@ class RCNN(nn.Module):
         rpn_losses = self.rpn.loss(raw, targets, draw)
         sampled = self.roi_heads.select_training_samples(
             proposals, prop_valid, targets, draw)
-        roi_losses = self.roi_heads.loss(feats, image_shape, sampled)
-        return {**roi_losses, **rpn_losses}
+        return {**self.roi_losses(feats, image_shape, sampled, targets),
+                **rpn_losses}
+
+    def roi_losses(self, feats: Sequence[torch.Tensor],
+                   image_shape: Tuple[int, int], sampled: tuple,
+                   targets: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """The RoI heads' losses of ``select_training_samples``' output:
+        the box loss, with the mask loss (a Mask R-CNN given
+        ``masks_crop``) or the keypoint loss (a Keypoint R-CNN given
+        ``keypoints``), every pooling from one NHWC copy of P2-P5."""
+        heads = self.roi_heads
+        tables = heads.pool_tables(feats, int8=False)
+        losses = heads.loss(feats, image_shape, sampled, tables)
+        if self.kind == "mask_rcnn" and "masks_crop" in targets:
+            losses.update(heads.mask_loss(
+                feats, image_shape, sampled, targets["boxes"],
+                targets["masks_crop"], tables))
+        if self.kind == "keypoint_rcnn" and "keypoints" in targets:
+            losses.update(heads.keypoint_loss(
+                feats, image_shape, sampled, targets["keypoints"], tables))
+        return losses
 
     def detect(self, batch: Dict[str, torch.Tensor],
                use_bottleneck_transformer: bool) -> Dict[str, torch.Tensor]:

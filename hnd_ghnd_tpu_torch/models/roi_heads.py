@@ -1,5 +1,4 @@
-"""RoI heads: the box branch (eval and training) and the eval of the mask
-and keypoint branches.
+"""RoI heads: the box, mask and keypoint branches, for eval and training.
 
 Counterpart of hnd_ghnd_tpu/models/roi_heads.py (torchvision 0.4.2
 RoIHeads as the reference configures it): 7x7 RoIAlign over P2..P5,
@@ -14,16 +13,25 @@ NCHW on cuDNN: the mask head's 4x (3x3 conv 256 + ReLU), deconv 2x2/2 +
 ReLU and 1x1 conv give ``mask_probs`` [B, 100, 28, 28], the sigmoid of
 each detection's label channel; the keypoint head's 8x (3x3 conv 512 +
 ReLU), deconv 4x4/2 and a 2x bilinear resize give ``keypoint_logits``
-[B, 100, 56, 56, K] for the host decode.  With ``int8_pool`` the levels are
-quantized once per forward and every pooling call shares those tables
-(roi_heads.py:242).  Their training losses are ROADMAP A8.
+[B, 100, 56, 56, K] for the host decode, or with ``kp_decode`` "device"
+the argmax of each heatmap's cubic surface on a ``kp_decode_grid`` grid
+(ops/kp_decode.py: ``kp_u``, ``kp_v``, ``kp_score`` [B, 100, K]).  With
+``int8_pool`` the levels are quantized once per forward and every pooling
+call shares those tables (roi_heads.py:242).
 
 Training (roi_heads.py:332-421): the GT boxes are appended to the
 proposals, matched at IoU 0.5/0.5, 512 sampled per image at 25% positive
 and gathered sampled-first by a stable sort; the pooled samples go through
 ``roi_align_train`` (the forward and backward kernels on the card), and
 the classification and box losses are normalised by the sampled count of
-the whole batch, as torchvision's fastrcnn_loss is.
+the whole batch, as torchvision's fastrcnn_loss is.  The mask and keypoint
+losses (roi_heads.py:424-574) take the first 128 positives of each image,
+pool them at 14x14 over the same NHWC tables (one copy of P2-P5 per
+step), and normalise by the batch's positive count (the BCE of each RoI's
+28x28 mask at its class channel against its GT mask projected from the
+box-aligned 114x114 raster of the loader) or its count of visible
+keypoints inside their box (the cross-entropy over the 56x56 grid), as
+torchvision's maskrcnn_loss and keypointrcnn_loss are.
 """
 from __future__ import annotations
 
@@ -34,9 +42,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from hnd_ghnd_tpu_torch.models.layers import Conv2d, ConvTranspose2d, Linear
-from hnd_ghnd_tpu_torch.models.rpn import Draw, balanced_sample, smooth_l1
+from hnd_ghnd_tpu_torch.models.rpn import (Draw, balanced_sample, bce_logits,
+                                           log_softmax, smooth_l1)
 from hnd_ghnd_tpu_torch.ops import boxes as box_ops
 from hnd_ghnd_tpu_torch.ops import nms as nms_ops
+from hnd_ghnd_tpu_torch.ops.kp_decode import device_keypoint_argmax
+from hnd_ghnd_tpu_torch.ops.roi_align import _bilinear_params
 from hnd_ghnd_tpu_torch.ops.roi_align_kernels import (quantize_levels,
                                                       roi_align,
                                                       roi_align_train)
@@ -56,6 +67,9 @@ FG_IOU_THRESH = 0.5
 BG_IOU_THRESH = 0.5
 BATCH_SIZE_PER_IMAGE = 512
 POSITIVE_FRACTION = 0.25
+# positives per image that the mask and keypoint losses pool: at least the
+# sampler's cap of 512 * 0.25
+MAX_POSITIVES = 128
 
 
 class TwoMLPHead(nn.Module):
@@ -136,15 +150,22 @@ class KeypointPredictor(nn.Module):
 
 class RoIHeads(nn.Module):
     """``kind`` faster_rcnn, mask_rcnn or keypoint_rcnn; ``int8_pool``:
-    the eval pools int8 tables of P2-P5 (``params.int8_roi_pool``)."""
+    the eval pools int8 tables of P2-P5 (``params.int8_roi_pool``);
+    ``kp_decode`` "host" (the heatmaps) or "device" (their argmax on a
+    ``kp_decode_grid`` grid)."""
 
     def __init__(self, num_classes: int = 91, out_channels: int = 256,
                  kind: str = "faster_rcnn", num_keypoints: int = 17,
-                 int8_pool: bool = False):
+                 int8_pool: bool = False, kp_decode: str = "host",
+                 kp_decode_grid: int = 224):
         super().__init__()
+        if kp_decode not in ("host", "device"):
+            raise ValueError(f"kp_decode `{kp_decode}` is not host or device")
         self.num_classes = num_classes
         self.kind = kind
         self.int8_pool = int8_pool
+        self.kp_decode = kp_decode
+        self.kp_decode_grid = int(kp_decode_grid)
         self.box_head = TwoMLPHead(out_channels * BOX_POOL_SIZE ** 2)
         self.box_predictor = FastRCNNPredictor(1024, num_classes)
         if kind == "mask_rcnn":
@@ -187,7 +208,8 @@ class RoIHeads(nn.Module):
                      ) -> Dict[str, torch.Tensor]:
         """The mask or keypoint branch on detections ``boxes`` [B, D, 4]
         (``valid`` [B, D], ``labels`` [B, D]) over ``pool_tables``:
-        {mask_probs [B, D, 28, 28]} or {keypoint_logits [B, D, 56, 56, K]};
+        {mask_probs [B, D, 28, 28]}, {keypoint_logits [B, D, 56, 56, K]}
+        or with ``kp_decode`` "device" {kp_u, kp_v, kp_score [B, D, K]};
         {} for a Faster R-CNN."""
         if self.kind == "faster_rcnn":
             return {}
@@ -208,8 +230,12 @@ class RoIHeads(nn.Module):
             return {"mask_probs": torch.sigmoid(sel).reshape(
                 (b, d) + sel.shape[1:])}
         kp = self.keypoint_predictor(self.keypoint_head(x))  # [BD, K, 56, 56]
-        return {"keypoint_logits": kp.permute(0, 2, 3, 1).reshape(
-            (b, d) + kp.shape[2:] + kp.shape[1:2])}
+        logits = kp.permute(0, 2, 3, 1).reshape(
+            (b, d) + kp.shape[2:] + kp.shape[1:2])
+        if self.kp_decode == "device":
+            u, v, score = device_keypoint_argmax(logits, self.kp_decode_grid)
+            return {"kp_u": u, "kp_v": v, "kp_score": score}
+        return {"keypoint_logits": logits}
 
     def infer(self, feats: Sequence[torch.Tensor], proposals: torch.Tensor,
               prop_valid: torch.Tensor, image_sizes: torch.Tensor,
@@ -300,15 +326,17 @@ class RoIHeads(nn.Module):
         return sel_boxes, cls, reg, sel_pos, sel_on, sel_gt
 
     def loss(self, feats: Sequence[torch.Tensor], image_shape: Tuple[int, int],
-             sampled) -> Dict[str, torch.Tensor]:
+             sampled, tables=None) -> Dict[str, torch.Tensor]:
         """{loss_classifier, loss_box_reg}: cross-entropy summed over the
         sampled slots and smooth-L1 (beta 1) over the positive ones, both
-        over the sampled count of the whole batch."""
+        over the sampled count of the whole batch.  ``tables``: the
+        ``pool_tables`` of ``feats``, made here when None."""
         sel_boxes, cls, reg, sel_pos, sel_on, _ = sampled
         b, r = sel_boxes.shape[:2]
         all_cls, all_deltas = self.box_logits(feats, sel_boxes, sel_on,
-                                              image_shape, roi_align_train)
-        logp = torch.log_softmax(all_cls, dim=-1)
+                                              image_shape, roi_align_train,
+                                              tables)
+        logp = log_softmax(all_cls)
         ce = -torch.gather(logp, 2, cls[..., None])[..., 0]
         on = sel_on.float()
         deltas = all_deltas.reshape(b, r, self.num_classes, 4)
@@ -318,3 +346,141 @@ class RoIHeads(nn.Module):
         n_total = torch.clamp(on.sum(), min=1.0)
         return {"loss_classifier": (ce * on).sum() / n_total,
                 "loss_box_reg": (l1 * sel_pos.float()).sum() / n_total}
+
+    @staticmethod
+    def select_positives(sampled, max_pos: int = MAX_POSITIVES):
+        """(boxes [B, P, 4], labels [B, P], positive [B, P], matched GT
+        [B, P]) of the first ``max_pos`` sample slots of each image, the
+        positives first (stable, jnp.argsort(~pos))."""
+        sel_boxes, cls, _, sel_pos, _, sel_gt = sampled
+        _, order = torch.sort((~sel_pos).to(torch.uint8), dim=1, stable=True)
+        idx = order[:, :max_pos]
+        return (torch.gather(sel_boxes, 1, idx[..., None].expand(-1, -1, 4)),
+                torch.gather(cls, 1, idx), torch.gather(sel_pos, 1, idx),
+                torch.gather(sel_gt, 1, idx))
+
+    def _pool_positives(self, feats, image_shape, sampled, tables, size):
+        """The positives' 14x14 pooling (invalid slots weighted 0) as one
+        NCHW batch for cuDNN: (x [B*P, C, 14, 14], boxes, labels, positive,
+        matched GT)."""
+        boxes, labels, pos, gt_idx = self.select_positives(sampled)
+        levels, _ = (self.pool_tables(feats, int8=False) if tables is None
+                     else tables)
+        pooled = roi_align_train(levels, boxes, image_shape, size,
+                                 boxes_valid=pos)
+        b, p = boxes.shape[:2]
+        x = pooled.reshape((b * p,) + pooled.shape[2:]).permute(0, 3, 1, 2)
+        return x.contiguous(), boxes, labels, pos, gt_idx
+
+    def mask_loss(self, feats: Sequence[torch.Tensor],
+                  image_shape: Tuple[int, int], sampled,
+                  gt_boxes: torch.Tensor, gt_mask_crops: torch.Tensor,
+                  tables=None) -> Dict[str, torch.Tensor]:
+        """{loss_mask}: the BCE of each positive's 28x28 mask logits at its
+        class channel against its GT mask projected onto the proposal
+        (``project_boxes_on_crops`` of ``gt_mask_crops`` [B, G, 114, 114],
+        the loader's box-aligned rasters), averaged over the 28x28 cells,
+        summed over the positives and divided by the batch's positive count
+        (torchvision maskrcnn_loss).  The BCE is in the logits' dtype where
+        JAX's is (rpn.bce_logits), promoted by the float32 targets."""
+        x, boxes, labels, pos, gt_idx = self._pool_positives(
+            feats, image_shape, sampled, tables, MASK_POOL_SIZE)
+        b = boxes.shape[0]
+        logits = self.mask_predictor(self.mask_head(x))  # [BP, K, 28, 28]
+        m = logits.shape[-1]
+        idx = labels.reshape(-1)[:, None, None, None].expand(-1, 1, m, m)
+        sel = torch.gather(logits, 1, idx)[:, 0]          # [BP, 28, 28]
+        g = gt_mask_crops.shape[1]
+        own = (torch.arange(b, device=gt_idx.device)[:, None] * g
+               + gt_idx).reshape(-1)
+        crops = gt_mask_crops.reshape((b * g,) + gt_mask_crops.shape[2:])
+        targets = project_boxes_on_crops(crops[own].to(torch.float32),
+                                         gt_boxes.reshape(-1, 4)[own],
+                                         boxes.reshape(-1, 4), m)
+        per_roi = bce_logits(sel, targets).mean(dim=(1, 2))
+        posf = pos.reshape(-1).to(torch.float32)
+        return {"loss_mask": (per_roi * posf).sum()
+                / torch.clamp(posf.sum(), min=1.0)}
+
+    def keypoint_loss(self, feats: Sequence[torch.Tensor],
+                      image_shape: Tuple[int, int], sampled,
+                      gt_keypoints: torch.Tensor, tables=None
+                      ) -> Dict[str, torch.Tensor]:
+        """{loss_keypoint}: the cross-entropy over each positive's 56x56
+        heatmap at each visible GT keypoint (``gt_keypoints`` [B, G, K, 3])
+        inside the proposal, over the batch's count of such keypoints
+        (torchvision keypointrcnn_loss).  The log-softmax is in the logits'
+        dtype, as JAX's."""
+        x, boxes, _, pos, gt_idx = self._pool_positives(
+            feats, image_shape, sampled, tables, KEYPOINT_POOL_SIZE)
+        b, p = boxes.shape[:2]
+        kp = self.keypoint_predictor(self.keypoint_head(x))  # [BP, K, 56, 56]
+        hm = kp.shape[-1]
+        logits = kp.reshape(b, p, kp.shape[1], hm * hm)
+        own = torch.gather(gt_keypoints, 1, gt_idx[..., None, None].expand(
+            -1, -1, *gt_keypoints.shape[2:]))                  # [B, P, K, 3]
+        x1, y1 = boxes[..., 0:1], boxes[..., 1:2]
+        w = torch.clamp(boxes[..., 2:3] - x1, min=1e-6)
+        h = torch.clamp(boxes[..., 3:4] - y1, min=1e-6)
+        gx = torch.floor((own[..., 0] - x1) * hm / w)
+        gy = torch.floor((own[..., 1] - y1) * hm / h)
+        inside = (gx >= 0) & (gx < hm) & (gy >= 0) & (gy < hm)
+        # the boundary snap of torchvision keypoints_to_heatmap, after the
+        # inside test
+        gx = gx.clamp(0, hm - 1)
+        gy = gy.clamp(0, hm - 1)
+        valid = inside & (own[..., 2] > 0) & pos[..., None]
+        target = (gy * hm + gx).long()                         # [B, P, K]
+        logp = log_softmax(logits)
+        ce = -torch.gather(logp, 3, target[..., None])[..., 0]
+        vf = valid.to(torch.float32)
+        return {"loss_keypoint": (ce * vf).sum()
+                / torch.clamp(vf.sum(), min=1.0)}
+
+
+def project_boxes_on_crops(crops: torch.Tensor, gt_boxes: torch.Tensor,
+                           boxes: torch.Tensor, out_size: int,
+                           sampling_ratio: int = 2) -> torch.Tensor:
+    """The [P, out, out] mask targets of proposals ``boxes`` [P, 4] on
+    their GTs' box-aligned rasters ``crops`` [P, R+2, R+2] (each GT's mask
+    resampled into an R x R grid over its box ``gt_boxes`` [P, 4], pixel
+    centres at gy1 + (u + 0.5) * gh / R, with a 1px zero border): the
+    RoIAlign sample points of torchvision's project_masks_on_boxes,
+    ``sampling_ratio`` squared per bin, evaluated on the raster.  JAX's
+    ``_project_boxes_on_crops``, over all P at once."""
+    p, rp, _ = crops.shape
+    r = rp - 2
+    s = sampling_ratio
+    dev = crops.device
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    bin_w = torch.clamp(x2 - x1, min=1.0) / out_size
+    bin_h = torch.clamp(y2 - y1, min=1.0) / out_size
+    bins = torch.arange(out_size, dtype=torch.float32, device=dev)
+    samp = (torch.arange(s, dtype=torch.float32, device=dev) + 0.5) / s
+    ys = (y1[:, None, None] + bins[None, :, None] * bin_h[:, None, None]
+          + samp[None, None, :] * bin_h[:, None, None])      # [P, out, s]
+    xs = (x1[:, None, None] + bins[None, :, None] * bin_w[:, None, None]
+          + samp[None, None, :] * bin_w[:, None, None])
+    gw = torch.clamp(gt_boxes[:, 2] - gt_boxes[:, 0], min=1.0)
+    gh = torch.clamp(gt_boxes[:, 3] - gt_boxes[:, 1], min=1.0)
+    # image point -> padded-raster coordinate (crop[u + 1] sits at image
+    # y = gy1 + (u + 0.5) * gh / R)
+    u = (ys - gt_boxes[:, 1, None, None]) * r / gh[:, None, None] + 0.5
+    v = (xs - gt_boxes[:, 0, None, None]) * r / gw[:, None, None] + 0.5
+    size = torch.tensor(float(rp), device=dev)
+    y_lo, y_hi, wy_lo, wy_hi, y_ok = _bilinear_params(u, size)
+    x_lo, x_hi, wx_lo, wx_hi, x_ok = _bilinear_params(v, size)
+    ok = (y_ok.to(torch.float32)[:, :, :, None, None]
+          * x_ok.to(torch.float32)[:, None, None, :, :])
+    flat = crops.reshape(p, rp * rp)
+    acc = None
+    for yi, wy in ((y_lo, wy_lo), (y_hi, wy_hi)):
+        for xi, wx in ((x_lo, wx_lo), (x_hi, wx_hi)):
+            idx = (yi[:, :, :, None, None] * rp
+                   + xi[:, None, None, :, :]).reshape(p, -1)
+            vals = torch.gather(flat, 1, idx).reshape(idx.shape[:1]
+                                                      + yi.shape[1:]
+                                                      + xi.shape[1:])
+            wgt = wy[:, :, :, None, None] * wx[:, None, None, :, :] * ok
+            acc = vals * wgt if acc is None else acc + vals * wgt
+    return acc.mean(dim=(2, 4))  # the s x s samples of each bin

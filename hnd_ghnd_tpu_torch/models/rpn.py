@@ -204,3 +204,11 @@ def bce_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Numerically stable BCE with logits, in JAX's operation order."""
     return (torch.clamp(logits, min=0) - logits * labels
             + torch.log1p(torch.exp(-logits.abs())))
+
+
+def log_softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """jax.nn.log_softmax's operations, each in ``x``'s dtype (bfloat16
+    logits round after every one, as JAX's do; torch.log_softmax rounds
+    once): the max without a gradient, the shift, exp, sum, log."""
+    shifted = x - x.amax(dim, keepdim=True).detach()
+    return shifted - torch.log(torch.exp(shifted).sum(dim, keepdim=True))

@@ -12,12 +12,14 @@ The plain versions are ops/roi_align.py's ``multiscale_roi_align_batch``
 tensor goes to them, a CUDA tensor to the kernels, and anything the kernels
 do not take raises.
 
-Launches are counted per kernel: ``roi_align.launches`` (f32 levels),
-``roi_align.launches_bf16`` (bf16 levels), ``roi_align.launches_int8``
-(int8 levels), ``roi_align_backward.launches`` (the scatter and, for bf16
-levels, its rounding pass: one launch) and ``quantize_levels.launches``
-(abs-max and codes: one launch; ``quantize_levels_args`` gives the
-arguments of its passes, which a measurement can launch one at a time).
+Launches are counted per kernel: ``roi_align.launches`` and
+``roi_align_backward.launches`` (the scatter and, for bf16 levels, its
+rounding pass: one launch) are Counters keyed by (levels' dtype, output
+size P), since the train step pools 7x7 for the box loss and 14x14 for the
+mask or keypoint loss; ``launch_count`` sums them over the sizes.
+``quantize_levels.launches`` counts abs-max and codes as one launch
+(``quantize_levels_args`` gives the arguments of its passes, which a
+measurement can launch one at a time).
 
 Each thread of the RoIAlign kernels owns a vector of channels of one bin;
 ``vector_width`` picks its width per call from C, the element size and the
@@ -31,6 +33,7 @@ the NHWC view of the NCHW maps as it is and writes NHWC codes.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import List, Sequence, Tuple
 
 import torch
@@ -160,12 +163,7 @@ def _forward(features, boxes, level, weight, image_size, output_size,
         None if table_scale is None else table_scale.data_ptr(),
         out.data_ptr(), b * n, n, c, int(output_size), int(sampling_ratio),
         _DTYPE_CODES[dtype], vec, _stream(boxes.device)), "hnd_roi_align_fwd")
-    if dtype == torch.bfloat16:
-        roi_align.launches_bf16 += 1
-    elif dtype == torch.int8:
-        roi_align.launches_int8 += 1
-    else:
-        roi_align.launches += 1
+    roi_align.launches[(dtype, int(output_size))] += 1
     return out
 
 
@@ -198,9 +196,13 @@ def roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
                     sampling_ratio, table_scale)
 
 
-roi_align.launches = 0
-roi_align.launches_bf16 = 0
-roi_align.launches_int8 = 0
+roi_align.launches = Counter()
+
+
+def launch_count(wrapper, dtype: torch.dtype) -> int:
+    """The launches of ``roi_align`` or ``roi_align_backward`` on levels of
+    ``dtype``, at any output size."""
+    return sum(n for (d, _), n in wrapper.launches.items() if d == dtype)
 
 
 def quantize_levels(levels: Sequence[torch.Tensor]
@@ -305,11 +307,11 @@ def roi_align_backward(grad_out: torch.Tensor,
                                          acc.numel(), _stream(dev)),
                      "hnd_f32_to_bf16")
         views = list(torch.split(out, sizes))
-    roi_align_backward.launches += 1
+    roi_align_backward.launches[(dtype, int(p))] += 1
     return [v.view(b, h, w, c) for v, (h, w) in zip(views, shapes)]
 
 
-roi_align_backward.launches = 0
+roi_align_backward.launches = Counter()
 
 
 class RoIAlignFunction(torch.autograd.Function):

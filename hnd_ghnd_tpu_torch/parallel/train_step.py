@@ -135,10 +135,10 @@ class DistillStep(_Step):
 
 class DetectionStep(_Step):
     """One supervised detector step (the coco_runner path): zero grads, the
-    model's four-term loss dict in ``compute_dtype``, their sum, backward,
-    lr = schedule(step), optimizer step.  ``draw`` gives the samplers'
-    uniform draws.  Returns the loss and its terms as device tensors,
-    without waiting for the device."""
+    model's loss dict in ``compute_dtype`` (four terms, five with the mask
+    or keypoint loss), their sum, backward, lr = schedule(step), optimizer
+    step.  ``draw`` gives the samplers' uniform draws.  Returns the loss
+    and its terms as device tensors, without waiting for the device."""
 
     def __init__(self, model: RCNN, optimizer: torch.optim.Optimizer,
                  schedule: Callable[[int], float], compute_dtype: torch.dtype,

@@ -85,9 +85,11 @@ def train_epoch(step: DetectionStep, batches: Iterable) -> Dict[str, Any]:
     def record(entries):
         for entry in entries:
             if not math.isfinite(entry[1]):
+                bad = [k for k, v in entry[2].items() if not math.isfinite(v)]
                 raise FloatingPointError(
-                    f"loss is {entry[1]} at step {entry[0]} "
-                    f"({entry[2]}), stopping training")
+                    f"loss is {entry[1]} at step {entry[0]}: non-finite "
+                    f"{', '.join(bad) or 'sum'} ({entry[2]}), stopping "
+                    "training")
             out["steps"].append(entry)
 
     t_start = time.perf_counter()
@@ -115,9 +117,11 @@ def train(model: RCNN, config: Dict[str, Any],
     ``train_batches``: (batch, targets) pairs, the batch with images
     [B, H, W, 3] (uint8, or float in [0, 1]), image_sizes and
     original_sizes [B, 2], the targets with boxes [B, G, 4], labels [B, G]
-    and boxes_valid [B, G] padded to a fixed G.  The model stays on its
-    device (the card unless the caller put it on the CPU) and trains the
-    parameters that ``requires_grad``; ``seed`` seeds the samplers.
+    and boxes_valid [B, G] padded to a fixed G, and for a Mask or Keypoint
+    R-CNN masks_crop [B, G, 114, 114] or keypoints [B, G, K, 3].  The
+    model stays on its device (the card unless the caller put it on the
+    CPU) and trains the parameters that ``requires_grad``; ``seed`` seeds
+    the samplers.
 
     Returns {"steps": [(step, loss, {term: value}, ms)], "evals": [the
     records of ``evaluate`` for each epoch]}; ms is the step's time between

@@ -142,9 +142,10 @@ def test_roi_align_kernel_vs_plain(cuda, c, pool):
              for s in (4, 8, 16, 32)]
     boxes = torch.from_numpy(_boxes(rng, b, n, h, w)).to(cuda)
     valid = torch.from_numpy(rng.rand(b, n) > 0.3).to(cuda)
-    launches = RK.roi_align.launches
+    before = RK.roi_align.launches.copy()
     got = RK.roi_align(feats, boxes, (h, w), pool, 2, valid)
-    assert RK.roi_align.launches == launches + 1
+    before[(torch.float32, pool)] += 1
+    assert RK.roi_align.launches == before
     want = tra.multiscale_roi_align_batch(feats, boxes, (h, w), pool, 2, valid)
     err = float((got - want).abs().max())
     assert err <= ROI_TOL * float(want.abs().max())
@@ -275,10 +276,10 @@ def test_roi_align_int8_kernel_vs_plain(cuda, c, pool):
     boxes = torch.from_numpy(_boxes(rng, 2, 150, 256, 512)).to(cuda)
     valid = torch.from_numpy(rng.rand(2, 150) > 0.3).to(cuda)
     tables = tra.quantize_fpn_levels(feats)
-    counts = (RK.roi_align.launches, RK.roi_align.launches_int8)
+    before = RK.roi_align.launches.copy()
     got = RK.roi_align(feats, boxes, (256, 512), pool, 2, valid, quant=tables)
-    assert (RK.roi_align.launches, RK.roi_align.launches_int8) == (
-        counts[0], counts[1] + 1)
+    before[(torch.int8, pool)] += 1
+    assert RK.roi_align.launches == before
     want = tra.multiscale_roi_align_batch(feats, boxes, (256, 512), pool, 2,
                                           valid, quant=tables)
     assert got.dtype == want.dtype == torch.float32
@@ -329,9 +330,10 @@ def _train_inputs(cuda, dtype, c, seed):
 @pytest.mark.parametrize("c,pool", [(256, 7), (40, 7), (256, 14)])
 def test_roi_align_bf16_kernel_vs_plain(cuda, c, pool):
     feats, boxes, valid, _, size = _train_inputs(cuda, torch.bfloat16, c, 15)
-    launches = RK.roi_align.launches_bf16
+    before = RK.roi_align.launches.copy()
     got = RK.roi_align(feats, boxes, size, pool, 2, valid)
-    assert RK.roi_align.launches_bf16 == launches + 1
+    before[(torch.bfloat16, pool)] += 1
+    assert RK.roi_align.launches == before
     want = tra.multiscale_roi_align_batch(feats, boxes, size, pool, 2, valid)
     assert got.dtype == want.dtype == torch.bfloat16
     # the plain float32 program rounded once, as the kernel rounds
@@ -346,16 +348,16 @@ def test_roi_align_backward_kernel_vs_plain_autograd(cuda, dtype):
     want = torch.autograd.grad(tra.multiscale_roi_align_batch(
         ref, boxes, size, 7, 2, valid), ref, cot)
     got_in = [f.clone().requires_grad_(True) for f in feats]
-    counts = (RK.roi_align.launches, RK.roi_align.launches_bf16,
-              RK.roi_align_backward.launches)
+    fwd, bwd = (RK.roi_align.launches.copy(),
+                RK.roi_align_backward.launches.copy())
     out = RK.roi_align_train(got_in, boxes, size, 7, 2, valid)
     got = torch.autograd.grad(out, got_in, cot)
     torch.cuda.synchronize()
     f32 = dtype == torch.float32
-    assert (RK.roi_align.launches, RK.roi_align.launches_bf16,
-            RK.roi_align_backward.launches) == (counts[0] + f32,
-                                                counts[1] + (not f32),
-                                                counts[2] + 1)
+    fwd[(dtype, 7)] += 1
+    bwd[(dtype, 7)] += 1
+    assert (RK.roi_align.launches, RK.roi_align_backward.launches) == (fwd,
+                                                                        bwd)
     top = max(float(g.float().abs().max()) for g in want)
     # atomics add in another order: f32 within 1e-5 of the largest
     # gradient, bf16 within one bf16 ulp of it
@@ -363,6 +365,79 @@ def test_roi_align_backward_kernel_vs_plain_autograd(cuda, dtype):
     for g, r in zip(got, want):
         assert g.dtype == dtype
         assert float((g.float() - r.float()).abs().max()) <= tol
+
+
+def _mask_train_inputs(cuda, dtype, seed):
+    """The mask and keypoint losses' pooling in training: 2 x 128 RoIs
+    (positives first, then unsampled slots weighted 0; image 1 has no
+    positive) over P2-P5 of one batch-2 832x1344 bucket, 14x14 bins, C=256,
+    and a cotangent."""
+    rng = np.random.RandomState(seed)
+    b, n, h, w = 2, 128, 832, 1344
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    feats = [torch.randn((b, h // s, w // s, 256), generator=gen,
+                         device=cuda).to(dtype) for s in (4, 8, 16, 32)]
+    boxes = torch.from_numpy(_boxes(rng, b, n, h, w)).to(cuda)
+    valid = np.zeros((b, n), bool)
+    valid[0, :40] = True
+    valid = torch.from_numpy(valid).to(cuda)
+    cot = torch.randn((b, n, 14, 14, 256), generator=gen,
+                      device=cuda).to(dtype)
+    return feats, boxes, valid, cot, (h, w)
+
+
+def test_roi_align_bf16_p14_train_shape_bit_identical(cuda):
+    feats, boxes, valid, _, size = _mask_train_inputs(cuda, torch.bfloat16,
+                                                      30)
+    n = RK.roi_align.launches[(torch.bfloat16, 14)]
+    got = RK.roi_align(feats, boxes, size, 14, 2, valid)
+    assert RK.roi_align.launches[(torch.bfloat16, 14)] == n + 1
+    want = tra.multiscale_roi_align_batch(feats, boxes, size, 14, 2, valid)
+    assert got.shape == (2, 128, 14, 14, 256)
+    assert torch.equal(got, want)
+    assert not bool(got[1].any())  # no positive: every slot pools zeros
+
+
+@pytest.mark.parametrize("finite", [True, False],
+                         ids=["finite", "non_finite"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_roi_align_backward_p14_train_shape_vs_plain_autograd(cuda, dtype,
+                                                              finite):
+    """Through ``roi_align_train``'s autograd, against the plain autograd,
+    within the 7x7 tests' bounds; the non-finite case puts +inf on RoI 0,
+    NaN on RoI 1 and -inf on one channel of RoI 2 of image 0 (the C9 rule:
+    NaN and +-inf land where the plain autograd puts them), and NaN on a
+    slot of image 1, which is weighted 0 and adds NaN through its +0 taps
+    as the plain autograd's 0 * NaN does."""
+    feats, boxes, valid, cot, size = _mask_train_inputs(cuda, dtype, 31)
+    if not finite:
+        cot[0, 0] = float("inf")
+        cot[0, 1] = float("nan")
+        cot[0, 2, :, :, 3] = float("-inf")
+        cot[1, 5] = float("nan")
+    ref = [f.clone().requires_grad_(True) for f in feats]
+    want = torch.autograd.grad(tra.multiscale_roi_align_batch(
+        ref, boxes, size, 14, 2, valid), ref, cot)
+    got_in = [f.clone().requires_grad_(True) for f in feats]
+    n = RK.roi_align_backward.launches[(dtype, 14)]
+    out = RK.roi_align_train(got_in, boxes, size, 14, 2, valid)
+    got = torch.autograd.grad(out, got_in, cot)
+    torch.cuda.synchronize()
+    assert RK.roi_align_backward.launches[(dtype, 14)] == n + 1
+    finite_ref = [r[torch.isfinite(r)].float() for r in want]
+    top = max(float(r.abs().max()) for r in finite_ref if r.numel())
+    tol = ROI_TOL * top if dtype == torch.float32 else _bf16_ulp(top)
+    if not finite:
+        assert any(bool(torch.isnan(r).any()) for r in want)
+    for g, r in zip(got, want):
+        assert g.dtype == dtype
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+        assert torch.equal(torch.isinf(g), torch.isinf(r))
+        assert torch.equal(g[torch.isinf(g)], r[torch.isinf(r)])
+        ok = torch.isfinite(r)
+        if bool(ok.any()):
+            assert float((g[ok].float() - r[ok].float()).abs().max()) <= tol
 
 
 def _misaligned(t: torch.Tensor) -> torch.Tensor:

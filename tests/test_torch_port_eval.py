@@ -3,7 +3,8 @@
   * ``mask_rle`` (numpy only) equals the JAX package's (its native
     cocomask library on this host) on random masks and polygons;
   * ``finalize_predictions`` output is equal, with masks pasted and
-    keypoints decoded;
+    keypoints decoded (on the host, or after the device decode, whose
+    ``cubic_resize_matrix`` and ``device_keypoint_argmax`` equal JAX's);
   * ``CocoEvaluator``'s stats for bbox, segm and keypoints are exactly
     JAX's on the same predictions, made by jittering the fixture's ground
     truth (and adding false positives) so that each mAP lies strictly
@@ -19,9 +20,11 @@ from hnd_ghnd_tpu.data.coco import CocoDataset as JaxDataset
 from hnd_ghnd_tpu.evals import coco_eval as jax_eval
 from hnd_ghnd_tpu.evals import mask_rle as jax_rle
 from hnd_ghnd_tpu.evals import postprocess as jax_post
+from hnd_ghnd_tpu.ops import kp_decode as jax_kp
 from hnd_ghnd_tpu_torch.data.coco import CocoDataset
 from hnd_ghnd_tpu_torch.evals import coco_eval, mask_rle
 from hnd_ghnd_tpu_torch.evals import postprocess
+from hnd_ghnd_tpu_torch.ops import kp_decode
 from tests.fixtures import make_coco_fixture
 
 
@@ -73,14 +76,52 @@ def test_finalize_predictions_equals_jax():
         assert got["masks"].shape[1:] == (117, 130)
 
 
-def test_device_keypoint_decode_raises():
-    dets = {"valid": np.ones((1, 1), bool),
-            "boxes": np.zeros((1, 1, 4), np.float32),
-            "scores": np.ones((1, 1), np.float32),
-            "labels": np.ones((1, 1), np.int64),
-            "kp_u": np.zeros((1, 1, 17), np.float32)}
-    with pytest.raises(NotImplementedError, match="A8"):
-        postprocess.finalize_predictions(dets, 0, (10, 10), (10, 10))
+@pytest.mark.parametrize("src,dst", [(56, 112), (56, 224), (7, 3)])
+def test_cubic_resize_matrix_equals_jax(src, dst):
+    got = kp_decode.cubic_resize_matrix(src, dst)
+    assert got.dtype == np.float32 and got.shape == (dst, src)
+    np.testing.assert_array_equal(got, jax_kp.cubic_resize_matrix(src, dst))
+
+
+def test_device_keypoint_decode_equals_jax():
+    """``device_keypoint_argmax`` at grid 112 and the host's
+    ``keypoints_from_device_argmax`` on its output: the argmax positions
+    equal JAX's, the scores within float32 rounding, the keypoints equal;
+    ``finalize_predictions`` of the device outputs equals JAX's."""
+    import jax.numpy as jnp
+    import torch
+    rng = np.random.RandomState(1)
+    b, d, s, k = 2, 5, 56, 17
+    logits = rng.randn(b, d, s, s, k).astype(np.float32)
+    # one clear peak per heatmap, as a trained head gives
+    for i, j, kk in np.ndindex(b, d, k):
+        y, x = rng.randint(0, s, 2)
+        logits[i, j, y, x, kk] += 8.0
+    want = jax_kp.device_keypoint_argmax(jnp.asarray(logits), grid=112)
+    got = kp_decode.device_keypoint_argmax(torch.from_numpy(logits), 112)
+    for name, g, w in zip(("u", "v"), got[:2], want[:2]):
+        assert g.shape == (b, d, k) and g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
+                               rtol=1e-6)
+    dets = fake_dets(rng, b=b, d=d)
+    del dets["keypoint_logits"]
+    dets.update(kp_u=got[0].numpy(), kp_v=got[1].numpy(),
+                kp_score=np.asarray(want[2]))
+    for i in range(b):
+        args = (dets["kp_u"][i], dets["kp_v"][i], dets["kp_score"][i],
+                dets["boxes_model"][i], (1.3, 1.2))
+        for g, w in zip(kp_decode.keypoints_from_device_argmax(*args),
+                        jax_kp.keypoints_from_device_argmax(*args)):
+            assert g.dtype == w.dtype == np.float32
+            np.testing.assert_array_equal(g, w)
+        got_p = postprocess.finalize_predictions(dets, i, (117, 130),
+                                                 (90, 100))
+        want_p = jax_post.finalize_predictions(dets, i, (117, 130), (90, 100))
+        assert set(got_p) == set(want_p) and "keypoints" in got_p
+        for key in want_p:
+            np.testing.assert_array_equal(got_p[key], want_p[key],
+                                          err_msg=key)
 
 
 def jittered_predictions(dataset, rng, with_masks, with_keypoints):

@@ -141,8 +141,8 @@ def test_bf16_backward_no_farther_from_float64_than_jax():
 
 def test_wrappers_on_cpu_are_the_plain_version():
     feats, boxes, valid, _ = _inputs(3, 1, 10, 8)
-    counts = (RK.roi_align.launches, RK.roi_align.launches_bf16,
-              RK.roi_align_backward.launches)
+    counts = (RK.roi_align.launches.copy(),
+              RK.roi_align_backward.launches.copy())
     fs = [torch.from_numpy(f).bfloat16().requires_grad_(True) for f in feats]
     got = RK.roi_align_train(fs, torch.from_numpy(boxes), SIZE, 7, 2,
                              torch.from_numpy(valid))
@@ -151,8 +151,7 @@ def test_wrappers_on_cpu_are_the_plain_version():
                         torch.from_numpy(valid))
     want = _port(feats, boxes, valid, torch.bfloat16)
     assert torch.equal(got, want) and torch.equal(also, want)
-    assert (RK.roi_align.launches, RK.roi_align.launches_bf16,
-            RK.roi_align_backward.launches) == counts
+    assert (RK.roi_align.launches, RK.roi_align_backward.launches) == counts
 
 
 def _non_finite_case(seed):

@@ -124,7 +124,7 @@ def runner_case(root):
     # the teacher as JAX's get_model loads it: from its checkpoint
     loaded = get_model(config["teacher_model"], device="cpu")
     gt = str(root / "teacher_gt.json")
-    n = teacher_annotations(loaded, config, gt)
+    n, _, _ = teacher_annotations(loaded, config, gt)
     assert n >= 8, n
     for name in ("val", "test"):
         config["dataset"]["splits"][name] = split(img_dir, gt)

@@ -204,9 +204,7 @@ def _with(path, value):
           ["quantizer", "jpeg_compressor", "jpeg_decompressor", "dequantizer"]),
     _with(("params", "roi_pool_impl"), "xla"),
     _with(("backbone", "name"), "resnet101"),
-    dict(KEYPOINT_STUDENT_MODEL, params=dict(KEYPOINT_STUDENT_MODEL["params"],
-                                             kp_decode="device")),
-], ids=["ext", "jpeg", "xla_pool", "resnet101", "kp_decode_device"])
+], ids=["ext", "jpeg", "xla_pool", "resnet101"])
 def test_unported_features_raise(cfg):
     with pytest.raises(NotImplementedError):
         build_model(cfg)
@@ -217,9 +215,13 @@ def test_unported_features_raise(cfg):
     (_with(("name",), "keypoint_rcnn"), "keypoint_rcnn",
      "keypoint_predictor", False),
     (_with(("params", "int8_roi_pool"), True), "faster_rcnn", None, True),
-], ids=["mask", "keypoint", "int8_pool"])
+    (dict(KEYPOINT_STUDENT_MODEL, params=dict(KEYPOINT_STUDENT_MODEL["params"],
+                                              kp_decode="device")),
+     "keypoint_rcnn", "keypoint_predictor", False),
+], ids=["mask", "keypoint", "int8_pool", "kp_decode_device"])
 def test_ported_features_build(cfg, kind, head, int8):
     model = build_model(cfg)
     assert model.kind == kind and model.roi_heads.int8_pool == int8
     assert head is None or hasattr(model.roi_heads, head)
+    assert model.roi_heads.kp_decode == cfg["params"].get("kp_decode", "host")
 
