@@ -41,10 +41,18 @@ paths, at full width with random weights and BN statistics from a seed:
     person-keypoint file of the same boxes), scored by COCOeval's segm and
     keypoints; then ``coco_runner.run``'s test eval of a seeded Mask
     R-CNN and Keypoint R-CNN on val annotations made from their own masks
-    and keypoints (near 1 for the host decode), the Keypoint R-CNN's again
-    with the device keypoint decode, itself held on the card against the
-    CPU and the host decode.  It needs PIL and cv2 (the loader's decode
-    and resize, ``mask_box_crop``).
+    and keypoints (near 1 for the host decode; the host postprocess on one
+    thread and on the pool, in turns), the Keypoint R-CNN's again with the
+    device keypoint decode, itself held on the card against the CPU and the
+    host decode.  It needs PIL and cv2 (the loader's decode and resize,
+    ``mask_box_crop``);
+  * the ext filter (``ext_phase``): ``ext_runner.run -train`` of
+    config/ext/keypoint_rcnn-backbone_ext_resnet50-b3ch.yaml on a
+    two-class keypoint fixture with the stem switch on, its ROC-AUC each
+    epoch and the threshold table, then ``coco_runner.run``'s test eval of
+    the gated Keypoint R-CNN, the gate on served batches with the
+    bottleneck round trip, the filter's probabilities against the CPU's,
+    and its times.
 
 Each path checks that every kernel it runs was launched.  Any failed check
 raises.
@@ -172,6 +180,40 @@ ORG_KEYPOINT_MODEL = dict(
     ckpt="./resource/ckpt/org/coco2017-keypoint_rcnn-backbone_resnet50.pt")
 ORG_TPU = {"buckets": [[832, 1344], [1344, 832]], "compute_dtype": "bfloat16",
            "mesh_axis": "data", "eval_batch_size": 8, "pixel_dtype": "float32"}
+# model and train of config/ext/keypoint_rcnn-backbone_ext_resnet50-b3ch.yaml
+# (its tpu block is ORG_TPU): the GHND b3ch Keypoint R-CNN student with the
+# ext filter in its bottleneck
+EXT_MODEL = {
+    "name": "keypoint_rcnn",
+    "backbone": {
+        "name": "custom_resnet50",
+        "params": {
+            "pretrained": True,
+            "freeze_layers": True,
+            "layer1": {"name": "Bottleneck4LargeResNet", "bottleneck_channel": 3},
+        },
+        "ext_config": {
+            "backbone_frozen": True,
+            "threshold": 0.01,
+            "ckpt": "./resource/ckpt/ext/coco2017-keypoint_rcnn-backbone_ext_"
+                    "custom_resnet50-b3ch.pt",
+        },
+    },
+    "bottleneck_transformer": STUDENT_MODEL["bottleneck_transformer"],
+    "params": {"num_classes": 2, "num_keypoints": 17, "pretrained": True},
+    "experiment": "coco2017-keypoint_rcnn-backbone_custom_resnet50_from_"
+                  "keypoint_rcnn-backbone_resnet50-b3ch",
+    "ckpt": KEYPOINT_STUDENT_MODEL["ckpt"],
+}
+EXT_TRAIN = {
+    "num_epochs": 30,
+    "batch_size": 2,
+    "log_freq": 10000,
+    "optimizer": {"type": "SGD", "params": {"lr": 0.001, "momentum": 0.9,
+                                            "weight_decay": 0.0001}},
+    "scheduler": {"type": "MultiStepLR",
+                  "params": {"milestones": [15, 25], "gamma": 0.1}},
+}
 # the training phase: batch 2 (train.batch_size), 3 steps on each bucket and
 # the first batch again (warmup 6 of 7 steps); 1-8 GT boxes per image,
 # padded to the JAX loader's MAX_GT
@@ -274,6 +316,14 @@ KP_SAME_MIN = 0.999
 KP_SCORE_TOL = 1e-5
 KP_AGREE_MIN = 0.98
 # the GHND b3ch config's tpu block
+# the ext phase: ext_runner -train at batch 2 (train.batch_size) for
+# EXT_EPOCHS on a fixture of RUNNER_IMAGES whose person-keypoint files keep
+# the annotations of every second image only (two classes in each split);
+# the filter's probabilities on the card against the CPU's (float32, TF32
+# off, the trunk's convolutions before it: cuDNN against oneDNN)
+EXT_EPOCHS = 2
+EXT_PROB_TOL = 1e-5
+EXT_YAML = "config/ext/keypoint_rcnn-backbone_ext_resnet50-b3ch.yaml"
 GHND_TPU = {"buckets": [[832, 1344], [1344, 832]], "compute_dtype": "float32",
             "mesh_axis": "data", "eval_batch_size": 8, "pixel_dtype": "float32"}
 
@@ -1711,6 +1761,39 @@ def kp_decode_checks(dev: torch.device, items: list, records: list) -> None:
           f"device vs host decode: {blobs} at {n_big} boxes")
 
 
+def postproc_ab(coco_runner, cfg: dict, args, kind: str, iou: str) -> None:
+    """``coco_runner.run``'s test eval at batch EVAL_BATCH (the pool works
+    across a batch's images: at the test protocol's batch 1 it has one)
+    with the host postprocess on one thread (HND_TPU_POSTPROC_THREADS=1)
+    and on the default pool, in turns (one, pool, pool, one): the host's
+    time (the images' finalize, COCOeval update, accumulate and summarize)
+    each way.  cuDNN runs its deterministic algorithms here, so the stats
+    must not move."""
+    cfg = dict(cfg, test={"batch_size": EVAL_BATCH})
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    for threads in ("1", None, None, "1"):
+        if threads is None:
+            os.environ.pop("HND_TPU_POSTPROC_THREADS", None)
+        else:
+            os.environ["HND_TPU_POSTPROC_THREADS"] = threads
+        res = coco_runner.run(cfg, args)
+        runs.setdefault(threads, []).append(res["test"])
+    os.environ.pop("HND_TPU_POSTPROC_THREADS", None)
+    torch.backends.cudnn.deterministic = False
+    one, pool = runs["1"], runs[None]
+    for r in one + pool:
+        check(r["stats"] == one[0]["stats"], f"{kind}: the postprocess "
+              "pool moved the stats")
+    log(f"[runner] {kind} test eval at batch {EVAL_BATCH}, host "
+        f"postprocess and COCOeval: one "
+        f"thread " + " / ".join(f"{r['eval']['cocoeval_s']:.3f}" for r in one)
+        + f" s, pool of {os.cpu_count()} threads " + " / ".join(
+            f"{r['eval']['cocoeval_s']:.3f}" for r in pool)
+        + f" s (in turns one, pool, pool, one); {iou} AP "
+        f"{one[0]['stats'][iou][0]:.6f} both ways")
+
+
 def runner_models(dev: torch.device):
     """The ResNet-50 teacher (seed SEED, live BNs, class logits x300) and
     the b3ch student whose all but ``layer1`` is the teacher's, as the zoo
@@ -2011,6 +2094,8 @@ def runner_phase(dev: torch.device, root: str) -> dict:
             if decode == "device":
                 cfg["model"] = dict(cfg["model"], params=dict(
                     cfg["model"]["params"], kp_decode="device"))
+            else:
+                postproc_ab(coco_runner, cfg, args, kind, iou)
             res = coco_runner.run(cfg, args)
             ev, stats = res["test"]["eval"], res["test"]["stats"][iou]
             log(f"[runner] coco_runner {kind} test eval on its own "
@@ -2027,6 +2112,249 @@ def runner_phase(dev: torch.device, root: str) -> dict:
                   f"coco_runner {kind} ({decode}): {iou} AP {stats[0]}")
         torch.cuda.empty_cache()
     return {"mimic": mimic, "coco": coco, **heads}
+
+
+def ext_operations(ext: torch.nn.Module, shape) -> float:
+    """The filter's arithmetic on an input of ``shape`` [B, C, H, W]: one
+    add an input element for the first pool, the convolutions' and the
+    linear layer's multiply-adds (the pools' products multiply mostly by
+    zero: the function needs only the adds)."""
+    b, cin, _, _ = shape
+    h, w = 64, 64
+    ops = float(np.prod(shape))
+    for m in ext.extractor:
+        if isinstance(m, torch.nn.Conv2d):
+            k, st = m.kernel_size[0], m.stride[0]
+            h, w = (h - k) // st + 1, (w - k) // st + 1
+            ops += 2.0 * b * m.out_channels * cin * k * k * h * w
+            cin = m.out_channels
+    return ops + 2.0 * b * ext.linear.in_features * ext.linear.out_features
+
+
+def drop_every_second_image(ann_file: str, out_file: str) -> tuple:
+    """``ann_file`` without the annotations of its even-numbered images,
+    written to ``out_file``: (images, images keeping annotations)."""
+    with open(ann_file) as f:
+        coco = json.load(f)
+    coco["annotations"] = [a for a in coco["annotations"]
+                           if a["image_id"] % 2 == 1]
+    with open(out_file, "w") as f:
+        json.dump(coco, f)
+    return (len(coco["images"]),
+            len({a["image_id"] for a in coco["annotations"]}))
+
+
+def ext_phase(dev: torch.device, root: str, card: str) -> dict:
+    """The ext filter (ROADMAP A9) through its entry points: a COCO fixture
+    of RUNNER_IMAGES JPEGs with person-keypoint files that keep every
+    second image's people (two classes a split); ``ext_runner.run -train``
+    of config/ext/keypoint_rcnn-backbone_ext_resnet50-b3ch.yaml's blocks for
+    EXT_EPOCHS epochs at batch 2 with the stem switch on, its val ROC-AUC
+    each epoch and the test threshold table at --min_recall 0.98; then
+    ``coco_runner.run``'s test eval of the gated Keypoint R-CNN (the ext
+    checkpoint just written, a seeded student with class logits x300 as
+    ``model.ckpt``); then a served batch of 8 at both buckets with the
+    bottleneck round trip, the gate at 1.1 (nothing valid, every score 0),
+    at 0.0 (the ungated detections, bit for bit) and at the config's 0.01;
+    the card's filter probabilities against the CPU's; the filter's time
+    alone at batch 8 and 1 against its bound, and the gated forward
+    against the ungated one.  Returns the kernels' launches of the two runs
+    ({"ext_runner", "coco_ext"}; the latter with the gate checks' serve)."""
+    from hnd_ghnd_tpu_torch.models.convert import jax_params_from_state_dict
+    from hnd_ghnd_tpu_torch.models.factory import build_model, get_model
+    from hnd_ghnd_tpu_torch.models.rcnn import RCNN
+    from hnd_ghnd_tpu_torch.runners import coco_runner, ext_runner
+    from hnd_ghnd_tpu_torch.runners.common import eval_forward, evaluate
+    from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
+    root = os.path.join(root, "ext")
+    fx = write_runner_fixture(root, np.random.RandomState(SEED + 20))
+    rng = np.random.RandomState(SEED + 21)
+    splits = {}
+    for name, (img_dir, ann) in fx.items():
+        kp = os.path.join(root, f"person_keypoints_{name}.json")
+        write_keypoint_annotations(ann, kp, rng)
+        half = os.path.join(root, f"ext_{name}.json")
+        n, kept = drop_every_second_image(kp, half)
+        log(f"[ext] {name}: {n} images, {kept} with people")
+        splits[name] = {"images": img_dir, "annotations": half,
+                        "remove_non_annotated_imgs": False,
+                        "jpeg_quality": None}
+    splits["test"] = splits["val"]
+    student = live_norms_(get_model(dict(KEYPOINT_STUDENT_MODEL, ckpt=None),
+                                    seed=SEED + 22, device=dev), SEED + 22)
+    with torch.no_grad():
+        student.roi_heads.box_predictor.cls_score.weight.mul_(300.0)
+    student_ckpt = os.path.join(root, "student.pt")
+    params, state = jax_params_from_state_dict(student.state_dict())
+    ckpt_util.save_ckpt(student_ckpt, params=params, state=state)
+    del student
+    model_cfg = copy.deepcopy(EXT_MODEL)
+    model_cfg["ckpt"] = student_ckpt
+    ext_ckpt = model_cfg["backbone"]["ext_config"]["ckpt"] = os.path.join(
+        root, "ext.pt")
+    config = {"dataset": {"name": "fixture", "num_workers": 4,
+                          "splits": splits},
+              "model": model_cfg,
+              "train": dict(EXT_TRAIN, num_epochs=EXT_EPOCHS),
+              "test": {"batch_size": 1}, "tpu": ORG_TPU}
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- ext_runner -train
+    os.environ["HND_TPU_PALLAS_STEM"] = "1"
+    args = ext_runner.get_argparser().parse_args(
+        ["--config", EXT_YAML, "--device", str(dev), "-train",
+         "--min_recall", "0.98"])
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    res = ext_runner.run(config, args)
+    wall = time.perf_counter() - t0
+    ext_launches = kernel_counts()
+    hist, test = res["train"], res["test"]
+    steps = hist["steps"]
+    n_val = sum(e["eval"]["batches"] for e in hist["epochs"])
+    log(f"[ext] ext_runner -train: {len(steps)} float32 steps, {n_val} val "
+        f"and {test['batches']} test batches in {wall:.3f} s; launches "
+        f"{ {k: v for k, v in ext_launches.items() if v} }")
+    want = len(steps) + n_val + test["batches"]
+    check(ext_launches["stem_fwd"] == want,
+          f"ext_runner: stem_fwd launched {ext_launches['stem_fwd']} times, "
+          f"want {want}")
+    check(len(steps) == EXT_EPOCHS * RUNNER_IMAGES["train"] // EXT_TRAIN[
+        "batch_size"], f"ext_runner: {len(steps)} steps")
+    for idx, loss, _, ms in steps:
+        check(np.isfinite(loss), f"ext step {idx}: loss {loss}")
+    per_epoch = len(steps) // EXT_EPOCHS
+    for e, epoch in enumerate(hist["epochs"]):
+        tr, ev = epoch["train"], epoch["eval"]
+        ep_steps = steps[e * per_epoch:(e + 1) * per_epoch]
+        step_s = sum(s[3] for s in ep_steps) / 1e3
+        acc, recall, spec, auc = epoch["val"]
+        wall = tr["seconds"] + ev["seconds"]
+        log(f"[ext] {card}: epoch {e}: {wall:.3f} s = train loop "
+            f"{tr['seconds']:.3f} s ({tr['batches']} steps; loader wait "
+            f"{tr['loader_s']:.3f} s, steps on the card {step_s:.3f} s) + "
+            f"val {ev['seconds']:.3f} s ({ev['batches']} batches; loader "
+            f"wait {ev['loader_s']:.3f} s); loader share "
+            f"{(tr['loader_s'] + ev['loader_s']) / wall:.1%}; val accuracy "
+            f"{acc:.4f} recall {recall:.4f} specificity {spec:.4f} ROC-AUC "
+            f"{auc:.6f}, saved {epoch['saved']}")
+        check(0.0 <= auc <= 1.0, f"epoch {e}: val ROC-AUC {auc} (two "
+              "classes: it must be defined)")
+    steady = [s[3] for s in steps[1:]]
+    log(f"[ext] {card}: train {EXT_TRAIN['batch_size'] * len(steady) / sum(steady) * 1e3:.4f} "
+        f"img/s (CUDA events of steps 1-{len(steps) - 1}; median step "
+        f"{statistics.median(steady):.3f} ms)")
+    check(any(e["saved"] for e in hist["epochs"])
+          and ckpt_util.check_if_exists(ext_ckpt), "no ext checkpoint")
+    best = max(e["val"][3] for e in hist["epochs"])
+    check(ckpt_util.load_ckpt(ext_ckpt)["best_value"] == best,
+          "the ext checkpoint is not the best epoch's")
+    log(f"[ext] {card}: test (best checkpoint, {test['n']} images): accuracy "
+        f"{test['scores'][0]:.4f} recall {test['scores'][1]:.4f} "
+        f"specificity {test['scores'][2]:.4f} ROC-AUC "
+        f"{test['scores'][3]:.6f}; operating points with recall >= 0.98 "
+        "(threshold, tpr, fpr): " + ", ".join(
+            f"({t:.6f}, {r:.6f}, {f:.6f})" for t, r, f in test["table"]))
+    check(len(test["table"]) > 0, "no threshold table")
+    torch.cuda.empty_cache()
+
+    # ------------------------------ the gated Keypoint R-CNN's test eval
+    os.environ["HND_TPU_PALLAS_STEM"] = "0"  # the serving path's default
+    args = coco_runner.get_argparser().parse_args(
+        ["--config", EXT_YAML, "--device", str(dev), "-test_only"])
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    res = coco_runner.run(config, args)
+    wall = time.perf_counter() - t0
+    ev, stats = res["test"]["eval"], res["test"]["stats"]
+    log(f"[ext] coco_runner -test_only, gated Keypoint R-CNN: {wall:.3f} s, "
+        f"{ev['batches']} forwards {ev['forward_ms'] / 1e3:.3f} s dispatch "
+        f"to host, COCOeval and host postprocess {ev['cocoeval_s']:.3f} s; "
+        "keypoints stats " + " ".join(f"{v:.6f}" for v in stats["keypoints"]))
+    check(set(stats) == {"bbox", "keypoints"}
+          and all(np.isfinite(v) for v in stats["keypoints"]),
+          f"gated eval stats {stats}")
+
+    # ------------------------------------- the gate on served batches
+    model = get_model(config["model"], device=dev).requires_grad_(False)
+    check(model.ext_threshold == 0.01, "the config's threshold")
+    served = serving_batches(np.random.RandomState(SEED + 23))[:2]
+    runs = {}
+    # cuDNN's transposed convolution (the keypoint predictor) may pick a
+    # nondeterministic algorithm: two forwards of the same batch then
+    # differ in its logits' last bits, whatever the gate
+    torch.backends.cudnn.deterministic = True
+    for thr in (None, 1.1, 0.0, 0.01):
+        model.ext_threshold = thr
+        runs[thr] = [r["dets"] for r in evaluate(model, served, True)]
+    torch.backends.cudnn.deterministic = False
+    coco_launches = kernel_counts()
+    for k in ("roi_align", "quantize", "dequantize"):
+        check(coco_launches[k] > 0, f"coco_ext: {k} never launched")
+    for batch, gated, ungated, passed in zip(served, runs[1.1], runs[None],
+                                             runs[0.01]):
+        shape = tuple(batch["images"].shape)
+        check(not gated["valid"].any() and gated["scores"].max() == 0.0,
+              f"gate 1.1 {shape}: a detection survived")
+        probs = passed["ext_logits"][:, 1]
+        keep = probs >= 0.01
+        check(np.array_equal(passed["valid"], ungated["valid"]
+                             & keep[:, None]), f"gate 0.01 {shape}: valid")
+        log(f"[ext] gate on {shape}: 1.1 leaves 0 of "
+            f"{int(ungated['valid'].sum())} detections; 0.01 passes "
+            f"{int(keep.sum())} of {len(keep)} images (P(valid) "
+            f"{np.round(probs, 6).tolist()})")
+    for zero, ungated in zip(runs[0.0], runs[None]):
+        for k, v in ungated.items():
+            check(np.array_equal(zero[k], v), f"gate 0.0: {k} differs from "
+                  "the ungated forward")
+    log("[ext] gate 0.0: detections identical to the ungated forward on "
+        "both buckets")
+
+    # ------------------------------------------ card vs CPU, and times
+    model.ext_threshold = 0.01
+    cpu = build_model(config["model"]).requires_grad_(False).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    images = torch.from_numpy(served[0]["images"]).float() \
+        * torch.tensor(1.0 / 255.0)
+    with torch.no_grad():
+        got = model({"images": images.to(dev)}, ext_training=True).cpu()
+        want = cpu({"images": images}, ext_training=True)
+    err = float((got - want).abs().max())
+    log(f"[ext] filter probabilities {tuple(got.shape)}, card vs CPU: max abs "
+        f"err {err:.3e} (bound {EXT_PROB_TOL})")
+    check(err <= EXT_PROB_TOL, f"filter probabilities card vs CPU: {err}")
+    del cpu
+    body = model.backbone.body
+    encoder = body.layer1.encoder
+    ext = encoder.ext_classifier
+    for b in (EVAL_BATCH, 1):
+        with torch.no_grad():
+            x = body.stem(RCNN.normalize(images[:b].to(dev)))
+            t = timings(lambda: ext(x))
+        lim = bound(nbytes(x), ext_operations(ext, tuple(x.shape)))
+        log(f"[ext] {card}: filter alone at batch {b} on "
+            f"{tuple(x.shape)}: {t['ms']:.4f} ms ({t['device_ms']:.4f} on "
+            f"the card); bound {lim['bound_ms']:.4f} ms by "
+            f"{lim['bound_by']} (its input read once, "
+            f"{nbytes(x) / 1e6:.1f} MB)")
+    # the ungated forward runs without the filter; in turns
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in served[0].items()}
+    fwd = {}
+    for gated in (False, True, True, False):
+        encoder.ext_classifier = ext if gated else None
+        model.ext_threshold = 0.01 if gated else None
+        fwd.setdefault(gated, []).append(time_ms(
+            lambda: eval_forward(model, batch, True)))
+    encoder.ext_classifier = ext
+    log(f"[ext] {card}: Keypoint R-CNN forward of batch {EVAL_BATCH} at "
+        f"{tuple(served[0]['images'].shape[1:3])} with the bottleneck round "
+        f"trip, in turns (ungated, gated, gated, ungated): without the "
+        f"filter {fwd[False][0]:.3f} / {fwd[False][1]:.3f} ms, gated "
+        f"{fwd[True][0]:.3f} / {fwd[True][1]:.3f} ms")
+    del model, x, batch
+    torch.cuda.empty_cache()
+    return {"ext_runner": ext_launches, "coco_ext": coco_launches}
 
 
 def main() -> int:
@@ -2326,6 +2654,8 @@ def main() -> int:
     # ---------------------------------------------------------- 10. runners
     with tempfile.TemporaryDirectory() as root:
         runner = runner_phase(dev, root)
+        # ------------------------------------------------------ 11. ext
+        runner.update(ext_phase(dev, root, card))
 
     # ---------------------------------------------------------- result
     # launches: the runners' (the main path) where they run the kernel, else
@@ -2343,12 +2673,14 @@ def main() -> int:
              **{f"{run}_runner": {k: v for k, v in runner[key].items() if v}
                 for run, key in (("mimic", "mimic"), ("coco", "coco"),
                                  ("coco_mask", "mask_rcnn"),
-                                 ("coco_keypoint", "keypoint_rcnn"))}}
+                                 ("coco_keypoint", "keypoint_rcnn"))},
+             "ext_runner": {"stem_fwd": runner["ext_runner"]["stem_fwd"]},
+             "coco_ext": {k: runner["coco_ext"][k] for k in
+                          ("roi_align", "quantize", "dequantize")}}
     out = []
     for name, k in kernels.items():
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
-        on_runner = sum(runner[key][name] for key in
-                        ("mimic", "coco", "mask_rcnn", "keypoint_rcnn"))
+        on_runner = sum(c[name] for c in runner.values())
         out.append(dict(name=name, route="cuda",
                         launches=on_runner or launches[name],
                         launches_by_path=by_path, **k))

@@ -13,13 +13,23 @@ round trip between encoder and decoder (the CUDA kernels on the card).  In
 train mode (the distill step) the BNs use batch statistics and update
 their running ones, and the round trip is never applied, as in the JAX
 package (bottleneck.py:161).
+
+With ``ext`` the encoder holds the ext filter (models/ext.py) as
+``encoder.ext_classifier``, the reference's path.  As in the JAX package
+(bottleneck.py:138-170) it runs on the 64-channel input, before the
+encoder: under ``ext_training`` only the filter runs, otherwise its output
+rides along with the decoder's.  Its BNs train only when the module is in
+train mode and ``ext_training`` holds; otherwise it returns probabilities.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from hnd_ghnd_tpu_torch.codec.quantizer import roundtrip
+from hnd_ghnd_tpu_torch.models.ext import Ext4ResNet
 from hnd_ghnd_tpu_torch.models.layers import BatchNorm2d, Conv2d
 
 
@@ -28,25 +38,28 @@ def _conv(cin: int, cout: int, padding: int) -> Conv2d:
 
 
 class _Encoder(nn.Module):
-    """Holds the Sequential as ``.encoder`` (the reference's nesting)."""
+    """Holds the Sequential as ``.encoder`` and the ext filter, if any, as
+    ``.ext_classifier`` (the reference's nesting)."""
 
-    def __init__(self, bottleneck_channel: int):
+    def __init__(self, bottleneck_channel: int, ext: bool = False):
         super().__init__()
         self.encoder = nn.Sequential(
             _conv(64, 64, 1), BatchNorm2d(64),
             _conv(64, 256, 1), BatchNorm2d(256), nn.ReLU(inplace=True),
             _conv(256, 64, 1), BatchNorm2d(64),
             _conv(64, bottleneck_channel, 1))
+        self.ext_classifier = Ext4ResNet(64) if ext else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.encoder(x)
 
 
 class Bottleneck4LargeResNet(nn.Module):
-    def __init__(self, bottleneck_channel: int, quant_bits: int = 8):
+    def __init__(self, bottleneck_channel: int, quant_bits: int = 8,
+                 ext: bool = False):
         super().__init__()
         self.quant_bits = quant_bits
-        self.encoder = _Encoder(bottleneck_channel)
+        self.encoder = _Encoder(bottleneck_channel, ext)
         self.decoder = nn.Sequential(
             BatchNorm2d(bottleneck_channel), nn.ReLU(inplace=True),
             _conv(bottleneck_channel, 64, 0), BatchNorm2d(64),
@@ -54,9 +67,19 @@ class Bottleneck4LargeResNet(nn.Module):
             _conv(128, 256, 0), BatchNorm2d(256),
             _conv(256, 256, 0), BatchNorm2d(256), nn.ReLU(inplace=True))
 
-    def forward(self, x: torch.Tensor,
-                use_bottleneck_transformer: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_bottleneck_transformer: bool = False,
+                ext_training: bool = False
+                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """-> (layer1's output, None under ``ext_training``; the filter's
+        logits or probabilities, None without a filter)."""
+        ext = self.encoder.ext_classifier
+        ext_out = None
+        if ext is not None:
+            ext.train(self.training and ext_training)
+            ext_out = ext(x)
+            if ext_training:
+                return None, ext_out
         z = self.encoder(x)
         if use_bottleneck_transformer and not self.training:
             z = roundtrip(z, self.quant_bits)
-        return self.decoder(z)
+        return self.decoder(z), ext_out

@@ -15,6 +15,9 @@ output does not change).
     the same scale and bias);
   * bottleneck BN {gamma, beta} + state {mean, var} -> nn.BatchNorm2d fields
     at the reference's Sequential indices;
+  * the ext filter (``layer1.ext_classifier.{conv,bn}{0,1,2}`` and
+    ``.linear``) -> ``layer1.encoder.ext_classifier.extractor.{1,2,4,5,7,8}``
+    and ``.linear``, its BNs as the bottleneck's;
   * a stock layer1 (the teacher's: ``layer1.0.conv1``,
     ``layer1.0.downsample.0``, ...) keeps its path, like layer2-4;
   * the mask head: ``mask_head.mask_fcnN`` keeps its path,
@@ -39,9 +42,13 @@ _ENC_IDX = {"conv0": "0", "bn0": "1", "conv1": "2", "bn1": "3",
 _DEC_IDX = {"bn_in": "0", "conv0": "2", "bn0": "3", "conv1": "4", "bn1": "5",
             "conv2": "7", "bn2": "8", "conv3": "9", "bn3": "10"}
 _LAYER1 = ("backbone", "body", "layer1")
+_EXT_IDX = {"conv0": "1", "bn0": "2", "conv1": "4", "bn1": "5",
+            "conv2": "7", "bn2": "8"}
+_EXT = "ext_classifier"
 _TRANSPOSED = ("conv5_mask", "kps_score_lowres")
 _ENC_NAME = {v: k for k, v in _ENC_IDX.items()}
 _DEC_NAME = {v: k for k, v in _DEC_IDX.items()}
+_EXT_NAME = {v: k for k, v in _EXT_IDX.items()}
 
 
 def _leaves(tree: Dict[str, Any], path=()) -> Iterator[Tuple[tuple, Dict]]:
@@ -54,6 +61,10 @@ def _leaves(tree: Dict[str, Any], path=()) -> Iterator[Tuple[tuple, Dict]]:
 
 
 def _torch_prefix(path: tuple) -> str:
+    if path[:4] == _LAYER1 + (_EXT,):
+        inner = ("linear",) if path[4] == "linear" \
+            else ("extractor", _EXT_IDX[path[4]])
+        return ".".join(_LAYER1 + ("encoder", _EXT) + inner)
     if path[:3] == _LAYER1 and path[3] in ("encoder", "decoder"):
         part, name = path[3], path[4]
         idx = (_ENC_IDX if part == "encoder" else _DEC_IDX)[name]
@@ -111,6 +122,9 @@ def state_dict_from_jax(params: Dict[str, Any],
 def _jax_path(prefix: str) -> tuple:
     """The inverse of ``_torch_prefix``."""
     parts = tuple(prefix.split("."))
+    if parts[:5] == _LAYER1 + ("encoder", _EXT):
+        return _LAYER1 + (_EXT, "linear" if parts[5] == "linear"
+                          else _EXT_NAME[parts[6]])
     if parts[:4] == _LAYER1 + ("encoder",):
         return _LAYER1 + ("encoder", _ENC_NAME[parts[5]])
     if parts[:4] == _LAYER1 + ("decoder",):

@@ -5,9 +5,11 @@ runs: a ``faster_rcnn``, ``mask_rcnn`` or ``keypoint_rcnn`` (``num_classes``
 and ``num_keypoints`` from ``params``) with the stock ResNet-50 trunk (the
 org model of config/org and the distillation teacher), or as a student
 whose ``layer1`` is a Bottleneck4LargeResNet, with an optional [quantizer,
-dequantizer] bottleneck transformer; ``params.int8_roi_pool`` turns on the
-eval's int8 pooling tables, and ``params.kp_decode: device`` (with
-``kp_decode_grid``, 224 by default) the keypoint decode on the device.
+dequantizer] bottleneck transformer and, under ``backbone.ext_config``,
+the ext filter with its gate (``threshold``, 0.01 by default);
+``params.int8_roi_pool`` turns on the eval's int8 pooling tables, and
+``params.kp_decode: device`` (with ``kp_decode_grid``, 224 by default) the
+keypoint decode on the device.
 Every other feature of the schema raises NotImplementedError naming the
 ROADMAP item that ports it; nothing falls back silently.
 ``frozen_modules``, and the trunk's conv1, bn1 and layer1 under
@@ -20,8 +22,9 @@ hnd_ghnd_tpu/runners/coco_runner.py:53-58 adds them), turn
 weights that ``params.pretrained`` asks for are not in the repository:
 ``get_model`` says so and keeps the seeded init, as JAX's does.  Then, as
 in the JAX package (src/models/__init__.py:38-57's order), ``get_model``
-loads the model's own ``ckpt`` when that file exists: a checkpoint of
-utils/ckpt.py, written by either package.
+loads the ext filter's ``ext_config.ckpt`` and then the model's own
+``ckpt``, each when that file exists: a checkpoint of utils/ckpt.py,
+written by either package, merged non-strictly.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from torch import nn
 from hnd_ghnd_tpu_torch.models import layers as L
 from hnd_ghnd_tpu_torch.models.bottleneck import Bottleneck4LargeResNet
 from hnd_ghnd_tpu_torch.models.convert import state_dict_from_jax
+from hnd_ghnd_tpu_torch.models.ext import Ext4ResNet, init_ext_
 from hnd_ghnd_tpu_torch.models.rcnn import RCNN
 from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
 from hnd_ghnd_tpu_torch.utils.params import set_trainable
@@ -86,8 +90,7 @@ def build_model(model_config: Dict[str, Any]) -> RCNN:
     if backbone_cfg["name"] not in ("resnet50", "custom_resnet50"):
         raise NotImplementedError(
             f"backbone {backbone_cfg['name']}: only resnet50 is ported")
-    if backbone_cfg.get("ext_config") is not None:
-        raise NotImplementedError("ext_config: the ext filter is ROADMAP A9")
+    ext_cfg = backbone_cfg.get("ext_config")
     layer1_cfg = (backbone_cfg.get("params", {}) or {}).get("layer1")
     if layer1_cfg is not None and layer1_cfg["name"] not in BOTTLENECK_NAMES:
         raise ValueError(f"layer1 name `{layer1_cfg['name']}` is not expected")
@@ -96,16 +99,21 @@ def build_model(model_config: Dict[str, Any]) -> RCNN:
         raise NotImplementedError(
             "roi_pool_impl: the port has one RoIAlign (the CUDA kernel, its "
             "plain version on the CPU)")
-    # the reference builds the Large variant for the Small name too
+    # the reference builds the Large variant for the Small name too; the
+    # ext filter lives in the bottleneck (JAX factory.py:59-72)
     bottleneck = None if layer1_cfg is None else Bottleneck4LargeResNet(
         int(layer1_cfg["bottleneck_channel"]),
-        quant_bits=_quant_bits(model_config.get("bottleneck_transformer")))
+        quant_bits=_quant_bits(model_config.get("bottleneck_transformer")),
+        ext=ext_cfg is not None)
+    ext_threshold = None if bottleneck is None or ext_cfg is None \
+        else float(ext_cfg.get("threshold", 0.01))
     model = RCNN(bottleneck, num_classes=int(params_cfg.get("num_classes", 91)),
                  kind=kind,
                  num_keypoints=int(params_cfg.get("num_keypoints", 17)),
                  int8_pool=bool(params_cfg.get("int8_roi_pool", False)),
                  kp_decode=str(params_cfg.get("kp_decode", "host")),
-                 kp_decode_grid=int(params_cfg.get("kp_decode_grid", 224)))
+                 kp_decode_grid=int(params_cfg.get("kp_decode_grid", 224)),
+                 ext_threshold=ext_threshold)
     set_trainable(model, frozen_modules(model_config))
     return model.eval()
 
@@ -115,10 +123,15 @@ def init_model(model: RCNN, generator: torch.Generator) -> RCNN:
     convs kaiming-normal(fan_out), bottleneck convs and linears torch's
     default uniform, FPN uniform(a=1) with zero bias, RPN normal(0.01), the
     mask and keypoint heads' MSRA normals with zero bias, identity frozen
-    BN except a zero scale on each block's last BN."""
+    BN except a zero scale on each block's last BN, and the ext filter's
+    own (models/ext.init_ext_)."""
     injected = model.backbone.body.injected
     for name, m in model.named_modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) \
+        if isinstance(m, Ext4ResNet):
+            init_ext_(m, generator)
+        elif ".ext_classifier." in name:
+            continue
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) \
                 and name.startswith(_HEAD_PREFIXES):
             kh, kw = m.kernel_size
             n = (m.out_channels if name.startswith("roi_heads.mask_")
@@ -168,9 +181,9 @@ def load_weights(model: RCNN, params, state) -> RCNN:
 
 def get_model(model_config: Dict[str, Any], seed: int = 0,
               device: str | torch.device = "cuda") -> RCNN:
-    """Build, init from ``seed``, load ``model_config["ckpt"]`` when it
-    exists, and move to ``device``: the card unless the caller asks for the
-    CPU."""
+    """Build, init from ``seed``, load ``backbone.ext_config.ckpt`` and then
+    ``model_config["ckpt"]`` when they exist, and move to ``device``: the
+    card unless the caller asks for the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("get_model: no CUDA device; pass device='cpu' to "
@@ -180,11 +193,12 @@ def get_model(model_config: Dict[str, Any], seed: int = 0,
     if (model_config.get("params", {}) or {}).get("pretrained"):
         logger.warning("pretrained=True but the zoo weights are not in the "
                        "repository; using the seeded init")
-    path = model_config.get("ckpt")
-    if ckpt_util.check_if_exists(path):
-        payload = ckpt_util.load_ckpt(path)
-        load_weights(model, payload["params"], payload.get("state"))
-        logger.info("loaded checkpoint %s", path)
+    ext_cfg = model_config["backbone"].get("ext_config") or {}
+    for path in (ext_cfg.get("ckpt"), model_config.get("ckpt")):
+        if ckpt_util.check_if_exists(path):
+            payload = ckpt_util.load_ckpt(path)
+            load_weights(model, payload["params"], payload.get("state"))
+            logger.info("loaded checkpoint %s", path)
     return model.to(device)
 
 

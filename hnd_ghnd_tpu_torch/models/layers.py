@@ -31,6 +31,7 @@ float32 and so compute another function than JAX's explicit casts.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -125,3 +126,37 @@ def normal_(w: torch.Tensor, std: float, gen: torch.Generator) -> None:
 def linear_init_(m: nn.Linear, gen: torch.Generator) -> None:
     kaiming_uniform_(m.weight, gen)
     _uniform_(m.bias, 1.0 / math.sqrt(m.in_features), gen)
+
+
+def adaptive_avg_pool_matrices(in_size: int, out_size: int) -> torch.Tensor:
+    """Pooling matrix P [in, out] with torch AdaptiveAvgPool2d's bin edges:
+    bin i averages input[floor(i * in / out) : ceil((i + 1) * in / out)]
+    (hnd_ghnd_tpu/models/layers.py:adaptive_avg_pool_matrices)."""
+    p = torch.zeros((in_size, out_size), dtype=torch.float32)
+    for i in range(out_size):
+        lo = (i * in_size) // out_size
+        hi = -(-((i + 1) * in_size) // out_size)
+        p[lo:hi, i] = 1.0 / (hi - lo)
+    return p
+
+
+@functools.lru_cache(maxsize=16)
+def _pool_matrix(in_size: int, out_size: int, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """Made once per device: a copy from host memory on every forward would
+    block the host until the stream drains."""
+    return adaptive_avg_pool_matrices(in_size, out_size).to(device, dtype)
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """AdaptiveAvgPool2d of NCHW ``x`` as two products, H then W, each
+    accumulated in float32 and cast back to ``x.dtype``, as the JAX
+    package's einsums with ``preferred_element_type=float32`` compute it
+    (hnd_ghnd_tpu/models/layers.py:adaptive_avg_pool).  Bins that overlap
+    (in / out not an integer) sum in another order than
+    ``F.adaptive_avg_pool2d``."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    ph = _pool_matrix(x.shape[2], out_hw[0], x.dtype, x.device)
+    pw = _pool_matrix(x.shape[3], out_hw[1], x.dtype, x.device)
+    y = torch.einsum("nchw,hH->ncHw", x.to(acc), ph.to(acc)).to(x.dtype)
+    return torch.einsum("ncHw,wW->ncHW", y.to(acc), pw.to(acc)).to(x.dtype)

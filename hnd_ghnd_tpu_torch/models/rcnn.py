@@ -9,6 +9,11 @@ coordinates for the host keypoint decode; in train mode (rcnn.py:156-178)
 RPN proposals, the RPN loss, the RoI sampling and the RoI losses instead:
 the box loss, and the mask or keypoint loss when the targets hold
 ``masks_crop`` or ``keypoints``, all three pooling one NHWC copy of P2-P5.
+With the ext filter in the bottleneck, ``ext_training`` returns its output
+alone, and ``ext_threshold`` gates the detections (JAX's
+rcnn.py:187-193): an image whose probability of holding something is
+below it keeps its detections' shapes with every ``valid`` off and every
+score 0.
 The batch keeps the JAX package's layout: images [B, H, W, 3] in [0, 1], in
 the compute dtype.  The trunk runs contiguous NCHW: float32 cuDNN
 convolutions have NCHW kernels only, and a channels_last trunk spends more
@@ -56,14 +61,18 @@ class RCNN(nn.Module):
     roi_heads.keypoint_predictor.* (keypoint_rcnn).  A student has the
     bottleneck as layer1, a teacher (``bottleneck`` None) the stock
     ResNet-50 layer1.  ``int8_pool``: the eval pools int8 tables;
-    ``kp_decode``/``kp_decode_grid``: the keypoint decode (RoIHeads)."""
+    ``kp_decode``/``kp_decode_grid``: the keypoint decode (RoIHeads);
+    ``ext_threshold``: the gate of the bottleneck's ext filter (None: no
+    gate)."""
 
     def __init__(self, bottleneck: Optional[Bottleneck4LargeResNet],
                  num_classes: int = 91, kind: str = "faster_rcnn",
                  num_keypoints: int = 17, int8_pool: bool = False,
-                 kp_decode: str = "host", kp_decode_grid: int = 224):
+                 kp_decode: str = "host", kp_decode_grid: int = 224,
+                 ext_threshold: Optional[float] = None):
         super().__init__()
         self.kind = kind
+        self.ext_threshold = ext_threshold
         self.backbone = Backbone(bottleneck)
         self.rpn = RPN()
         self.roi_heads = RoIHeads(num_classes, kind=kind,
@@ -85,10 +94,20 @@ class RCNN(nn.Module):
         fpn = self.backbone.fpn([body[f"layer{i}"] for i in (1, 2, 3, 4)])
         return body, fpn
 
+    def ext_logits(self, images: torch.Tensor) -> torch.Tensor:
+        """The ext filter on ``images`` [B, H, W, 3]: logits [B, 2] in train
+        mode (its BNs on batch statistics), probabilities in eval mode; the
+        trunk stops after the stem."""
+        body = self.backbone.body(self.normalize(images), ext_training=True)
+        if "ext_logits" not in body:
+            raise ValueError("ext_training: the model has no ext filter")
+        return body["ext_logits"]
+
     def forward(self, batch: Dict[str, torch.Tensor],
                 targets: Optional[Dict[str, torch.Tensor]] = None,
                 draw: Optional[Draw] = None,
-                use_bottleneck_transformer: bool = False) -> Dict[str, torch.Tensor]:
+                use_bottleneck_transformer: bool = False,
+                ext_training: bool = False) -> Dict[str, torch.Tensor]:
         """batch: images [B, H, W, 3] in [0, 1], image_sizes [B, 2] valid
         (h, w) inside the bucket, original_sizes [B, 2].
 
@@ -102,7 +121,16 @@ class RCNN(nn.Module):
         R-CNN given ``keypoints``); ``targets`` holds boxes [B, G, 4],
         labels [B, G] and boxes_valid [B, G] (padded to a fixed G), and
         masks_crop [B, G, 114, 114] or keypoints [B, G, K, 3] as the loader
-        makes them; ``draw`` gives the samplers' uniform draws."""
+        makes them; ``draw`` gives the samplers' uniform draws.
+
+        ``ext_training``: the ext filter's logits [B, 2] (train mode) or,
+        without autograd, its probabilities (eval mode), the trunk cut
+        after the stem."""
+        if ext_training:
+            if self.training:
+                return self.ext_logits(batch["images"])
+            with torch.no_grad():
+                return self.ext_logits(batch["images"])
         if self.training:
             if targets is None or draw is None:
                 raise ValueError("training forward needs targets and draw")
@@ -148,11 +176,18 @@ class RCNN(nn.Module):
                use_bottleneck_transformer: bool) -> Dict[str, torch.Tensor]:
         images = batch["images"]
         image_shape = (images.shape[1], images.shape[2])
-        _, feats = self.backbone_features(images, use_bottleneck_transformer)
+        body, feats = self.backbone_features(images, use_bottleneck_transformer)
         proposals, prop_valid, _ = self.rpn.propose(
             feats, batch["image_sizes"], image_shape)
         dets = self.roi_heads.infer(feats, proposals, prop_valid,
                                     batch["image_sizes"], image_shape)
+        if self.ext_threshold is not None and "ext_logits" in body:
+            probs = body["ext_logits"]
+            passed = probs[:, 1] >= self.ext_threshold            # [B]
+            dets["valid"] = dets["valid"] & passed[:, None]
+            dets["scores"] = dets["scores"] * passed[:, None].to(
+                dets["scores"].dtype)
+            dets["ext_logits"] = probs
         scale = (batch["original_sizes"].float()
                  / batch["image_sizes"].float())  # [B, 2] (h, w)
         sy = scale[:, 0][:, None]

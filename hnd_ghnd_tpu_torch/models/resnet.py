@@ -99,15 +99,25 @@ class ResNetBody(nn.Module):
         return F.max_pool2d(y, 3, 2, 1)
 
     def forward(self, x: torch.Tensor, use_bottleneck_transformer: bool = False,
-                upto: int = 4) -> Dict[str, torch.Tensor]:
+                upto: int = 4, ext_training: bool = False
+                ) -> Dict[str, torch.Tensor]:
         """{layer1..layer``upto``}: ``upto`` truncates the trunk, as the
-        distill step needs no deeper stage than its loss terms."""
+        distill step needs no deeper stage than its loss terms.  A
+        bottleneck with the ext filter adds its output as ``ext_logits``;
+        under ``ext_training`` that is all the trunk computes
+        (hnd_ghnd_tpu/models/resnet.py:212-222)."""
         y = self.stem(x)
+        feats = {}
         if self.injected:
-            y = self.layer1(y, use_bottleneck_transformer)
+            y, ext_out = self.layer1(y, use_bottleneck_transformer,
+                                     ext_training)
+            if ext_out is not None:
+                feats["ext_logits"] = ext_out
+            if ext_training:
+                return feats
         else:
             y = self.layer1(y)
-        feats = {"layer1": y}
+        feats["layer1"] = y
         for stage in range(2, upto + 1):
             y = getattr(self, f"layer{stage}")(y)
             feats[f"layer{stage}"] = y

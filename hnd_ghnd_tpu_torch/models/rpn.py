@@ -16,6 +16,10 @@ objectness and smooth-L1 (beta 1/9) on the positive regressions, both over
 the sampled count of the whole batch.  The sampler's uniform draws are
 inputs (``draw``), so a test can hand it JAX's.  Dtypes promote as in JAX:
 bfloat16 logits against float32 labels and targets give float32 losses.
+The BCE of bfloat16 objectness is computed in float32: inside JAX's jitted
+step XLA keeps the whole fused BCE and its sum in float32 (excess
+precision), where op-by-op bfloat16 rounding of log1p(exp(-|x|)) moves the
+loss by ~1e-3 of its value on the near-zero logits of a seeded model.
 """
 from __future__ import annotations
 
@@ -136,7 +140,9 @@ class RPN(nn.Module):
         box_sum = (smooth_l1(deltas, reg_targets, BOX_BETA).sum(-1)
                    * pos).sum()
         sampled = pos + neg
-        obj_sum = (bce_logits(objectness, labels) * sampled).sum()
+        obj = objectness.to(torch.promote_types(objectness.dtype,
+                                                torch.float32))
+        obj_sum = (bce_logits(obj, labels) * sampled).sum()
         n_total = torch.clamp(sampled.sum(), min=1.0)
         return {"loss_objectness": obj_sum / n_total,
                 "loss_rpn_box_reg": box_sum / n_total}

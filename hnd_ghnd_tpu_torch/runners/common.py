@@ -8,7 +8,12 @@ parallel/mesh.py:images_to_compute does), and ``evaluate`` is the lag-1
 device loop of its ``evaluate``: batch k's detections are copied to pinned
 host memory behind a CUDA event while batch k+1 is dispatched, and only then
 turned into numpy and, under ``coco_evaluate``, finalized and fed to the
-CocoEvaluator on the host while batch k+1 runs on the card.  The forward
+CocoEvaluator on the host while batch k+1 runs on the card.  When the eval
+has ``segm`` or ``keypoints``, a batch's images are finalized on a thread
+pool (their mask paste and heatmap resize are cv2 work that releases the
+GIL), as JAX's ``evaluate`` does (common.py:258-287): its size is
+``HND_TPU_POSTPROC_THREADS``, ``os.cpu_count()`` by default, and 0 or 1
+turns it off.  The forward
 runs in float32 whatever the config's compute dtype, as JAX's eval forward
 does (runners/common.py:180-184).  ``StepMetrics`` is its counterpart for
 the training loops: each step's loss and terms go to pinned host memory
@@ -21,8 +26,10 @@ counterpart (XLA-only, or measured slower, BASELINE.md round 5).
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -138,12 +145,12 @@ def save_checkpoint(path: str, model: RCNN, step, best_value: float,
         args=vars(args))
 
 
-def resume(path: str, model: RCNN, step) -> float:
+def resume(path: str, model: RCNN, step, metric: str = "val mAP") -> float:
     """Resume from ``path`` (JAX's mimic_runner.py:88-96,
-    coco_runner.py:75-87): the model's weights, and the optimizer state and
-    schedule step when the port wrote the file (a JAX checkpoint's optax
-    state is not read: a fresh optimizer state).  Returns the best value
-    so far."""
+    coco_runner.py:75-87, ext_runner.py:206-214): the model's weights, and
+    the optimizer state and schedule step when the port wrote the file (a
+    JAX checkpoint's optax state is not read: a fresh optimizer state).
+    Returns the best value of ``metric`` so far."""
     payload = ckpt_util.load_ckpt(path)
     load_weights(model, payload["params"], payload.get("state"))
     if payload.get("torch_opt_state") is not None:
@@ -153,7 +160,7 @@ def resume(path: str, model: RCNN, step) -> float:
               "optimizer state", flush=True)
     step.step = int(payload.get("lr_step") or 0)
     best = float(payload.get("best_value", 0.0))
-    print(f"resumed from {path} (best val mAP {best:.4f}, step {step.step})",
+    print(f"resumed from {path} (best {metric} {best:.4f}, step {step.step})",
           flush=True)
     return best
 
@@ -199,11 +206,13 @@ def to_device(batch: Dict[str, Any], device: torch.device):
 
 class Timed:
     """Iterates ``iterable`` and adds the time each item took to arrive to
-    ``seconds`` (a loader's share of a loop)."""
+    ``seconds`` (a loader's share of a loop), counting the items in
+    ``items``."""
 
     def __init__(self, iterable: Iterable):
         self.iterable = iterable
         self.seconds = 0.0
+        self.items = 0
 
     def __iter__(self):
         it = iter(self.iterable)
@@ -213,6 +222,7 @@ class Timed:
             self.seconds += time.perf_counter() - t0
             if item is None:
                 return
+            self.items += 1
             yield item
 
 
@@ -229,7 +239,25 @@ def evaluate(model: RCNN, batches: Iterable, use_bottleneck_transformer:
     ``evaluator`` (loader batches), each batch's detections are finalized
     and fed to it, skipping the ``is_padding`` rows, while the next batch
     runs, as JAX's evaluate does (common.py:272-287); its records then hold
-    ``host_ms``, the time of that step, in place of ``dets``."""
+    ``host_ms``, the time of that step, in place of ``dets``.  The
+    images of a batch are finalized on ``HND_TPU_POSTPROC_THREADS``
+    threads (``os.cpu_count()`` unless set) when the evaluator has ``segm``
+    or ``keypoints`` and that is more than one."""
+    heavy = evaluator is not None and bool(
+        {"segm", "keypoints"} & set(evaluator.iou_types))
+    n_threads = int(os.environ.get("HND_TPU_POSTPROC_THREADS",
+                                   os.cpu_count() or 1))
+    if heavy and n_threads > 1:
+        with ThreadPoolExecutor(n_threads) as pool:
+            return _evaluate(model, batches, use_bottleneck_transformer,
+                             evaluator, pool)
+    return _evaluate(model, batches, use_bottleneck_transformer, evaluator,
+                     None)
+
+
+def _evaluate(model: RCNN, batches: Iterable, use_bottleneck_transformer:
+              bool, evaluator: Optional[CocoEvaluator],
+              pool: Optional[ThreadPoolExecutor]) -> List[Dict[str, Any]]:
     configure_precision(torch.float32)
     device = next(model.parameters()).device
     cuda = device.type == "cuda"
@@ -248,12 +276,17 @@ def evaluate(model: RCNN, batches: Iterable, use_bottleneck_transformer:
             records.append({"dets": dets, "ms": ms})
             return
         t1 = time.perf_counter()
-        evaluator.update({
-            tgt["image_id"]: finalize_predictions(
+        live = [(i, tgt) for i, tgt in enumerate(host_targets)
+                if not tgt.get("is_padding")]
+
+        def one(item):
+            i, tgt = item
+            return tgt["image_id"], finalize_predictions(
                 dets, i, tuple(tgt["original_size"]),
                 (int(sizes[i][0]), int(sizes[i][1])))
-            for i, tgt in enumerate(host_targets)
-            if not tgt.get("is_padding")})
+
+        evaluator.update(dict(map(one, live) if pool is None
+                              else pool.map(one, live)))
         records.append({"ms": ms,
                         "host_ms": (time.perf_counter() - t1) * 1e3})
 

@@ -165,10 +165,12 @@ def test_rpn_loss_matches_jax(dtype):
     t = _targets(rng)
     key = jax.random.PRNGKey(3)
     jdt = getattr(jnp, dtype)
-    want = jrpn.RPN().loss(
-        ([jnp.asarray(o, jdt) for o in obj],
-         [jnp.asarray(d, jdt) for d in deltas], anchors),
-        {k: jnp.asarray(v) for k, v in t.items()}, key)
+    # jitted, as JAX's step runs it: XLA keeps the fused bfloat16 BCE in
+    # float32 there, where eager JAX rounds each op to bfloat16
+    want = jax.jit(lambda o, d: jrpn.RPN().loss(
+        (o, d, anchors), {k: jnp.asarray(v) for k, v in t.items()}, key))(
+        [jnp.asarray(o, jdt) for o in obj], [jnp.asarray(d, jdt)
+                                             for d in deltas])
     n = sum(a.shape[0] for a in anchors)
     tdt = getattr(torch, dtype)
     got = trpn.RPN().loss(

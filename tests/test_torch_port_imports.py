@@ -2,14 +2,16 @@
 without a GPU or without the package beside it.
 
 Each check runs in a fresh interpreter: the serving, distill,
-supervised-training and heads slices are imported, built and run once on a
-tiny input (one distill epoch of one step, one coco_runner epoch of one
-bfloat16 step, each with its eval, and the eval of the Mask and Keypoint
-R-CNN students with int8 pooling tables), then jax, the JAX package, PIL,
-cv2 and yaml must be absent from ``sys.modules`` (they are not promised on
-the GPU host).  The host modules of the runners (config, data, evals,
-checkpoints, logging) import none of them either: PIL, cv2 and yaml are
-imported by the functions that decode, resize and load a config."""
+supervised-training, heads and ext slices are imported, built and run once
+on a tiny input (one distill epoch of one step, one coco_runner epoch of one
+bfloat16 step, each with its eval, the eval of the Mask and Keypoint R-CNN
+students with int8 pooling tables, and the gated ext model's eval and one
+ext step), then jax, the JAX package, PIL, cv2, yaml, sklearn and pandas
+must be absent from ``sys.modules`` (they are not promised on the GPU
+host).  The host modules of the runners (config, data, evals with the ROC
+metrics, checkpoints, logging) import none of them either: PIL, cv2 and
+yaml are imported by the functions that decode, resize and load a
+config."""
 import os
 import shutil
 import subprocess
@@ -21,22 +23,24 @@ REPO = Path(__file__).resolve().parent.parent
 SLICE = r"""
 import sys
 import numpy as np
+import torch
 import hnd_ghnd_tpu_torch
 import hnd_ghnd_tpu_torch._build
 from hnd_ghnd_tpu_torch.codec import quantizer
-from hnd_ghnd_tpu_torch.models import (bottleneck, convert, factory, fpn,
-    layers, rcnn, resnet, roi_heads, rpn)
+from hnd_ghnd_tpu_torch.models import (bottleneck, convert, ext, factory,
+    fpn, layers, rcnn, resnet, roi_heads, rpn)
 from hnd_ghnd_tpu_torch.ops import (anchors, boxes, nms, quant_kernels,
     roi_align, roi_align_kernels, stem, stem_kernels)
 from hnd_ghnd_tpu_torch.distill import box, losses
 from hnd_ghnd_tpu_torch.parallel import train_step
-from hnd_ghnd_tpu_torch.runners import coco_runner, common, mimic_runner
+from hnd_ghnd_tpu_torch.runners import (coco_runner, common, ext_runner,
+    mimic_runner)
 from hnd_ghnd_tpu_torch.utils import ckpt, logging, params
 from hnd_ghnd_tpu_torch.core import config
 from hnd_ghnd_tpu_torch.data import coco, loader, transforms
-from hnd_ghnd_tpu_torch.evals import coco_eval, mask_rle, postprocess
-from chip_smoke import (KEYPOINT_STUDENT_MODEL, MASK_STUDENT_MODEL, ORG_MODEL,
-    ORG_TRAIN, STUDENT_MODEL, TEACHER_MODEL, TRAIN)
+from hnd_ghnd_tpu_torch.evals import coco_eval, mask_rle, postprocess, roc
+from chip_smoke import (EXT_MODEL, KEYPOINT_STUDENT_MODEL, MASK_STUDENT_MODEL,
+    ORG_MODEL, ORG_TRAIN, STUDENT_MODEL, TEACHER_MODEL, TRAIN)
 model = factory.get_model(STUDENT_MODEL, seed=0, device="cpu")
 batch = {"images": np.zeros((1, 64, 64, 3), np.uint8),
          "image_sizes": np.array([[64, 64]], np.int32),
@@ -62,9 +66,18 @@ for cfg, head in ((MASK_STUDENT_MODEL, "mask_probs"),
     m = factory.get_model(cfg, seed=3, device="cpu")
     (rec,) = common.evaluate(m, [batch], use_bottleneck_transformer=True)
     assert rec["dets"][head].shape[:2] == (1, 100)
+gated = factory.get_model(dict(EXT_MODEL, ckpt=None, backbone=dict(
+    EXT_MODEL["backbone"], ext_config={"threshold": 0.01})), seed=4,
+    device="cpu")
+(rec,) = common.evaluate(gated, [batch], use_bottleneck_transformer=True)
+assert rec["dets"]["ext_logits"].shape == (1, 2)
+step = ext_runner.make_ext_train_step(gated.train(), {"type": "SGD",
+    "params": {"lr": 0.001, "momentum": 0.9, "weight_decay": 1e-4}})
+step(torch.zeros(2, 64, 64, 3), torch.tensor([0, 1]))
+assert roc.roc_auc_score([0, 1, 1], [0.2, 0.4, 0.9]) == 1.0
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "hnd_ghnd_tpu", "PIL",
-                                 "cv2", "yaml")]
+                                 "cv2", "yaml", "sklearn", "pandas")]
 assert not banned, banned
 print("clean")
 """
@@ -74,17 +87,20 @@ HOST = r"""
 import sys
 from hnd_ghnd_tpu_torch.core import config
 from hnd_ghnd_tpu_torch.data import coco, loader, transforms
-from hnd_ghnd_tpu_torch.evals import coco_eval, mask_rle, postprocess
+from hnd_ghnd_tpu_torch.evals import coco_eval, mask_rle, postprocess, roc
 from hnd_ghnd_tpu_torch.utils import ckpt, logging
-from hnd_ghnd_tpu_torch.runners import coco_runner, common, mimic_runner
+from hnd_ghnd_tpu_torch.runners import (coco_runner, common, ext_runner,
+    mimic_runner)
 for name in ("load_config", "overwrite_config"):
     assert callable(getattr(config, name))
 ev = coco_eval.CocoEvaluator(None, ["bbox", "segm", "keypoints"])
 assert set(ev.evals) == {"bbox", "segm", "keypoints"}
 mimic_runner.get_argparser().parse_args(["--config", "x.yaml", "-distill"])
+ext_runner.get_argparser().parse_args(["--config", "x.yaml", "-train"])
 banned = sorted({m.split(".")[0] for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "hnd_ghnd_tpu",
-                                        "PIL", "cv2", "yaml", "optax")})
+                                        "PIL", "cv2", "yaml", "optax",
+                                        "sklearn", "pandas")})
 assert not banned, banned
 print("clean")
 """

@@ -5,7 +5,8 @@
 and org Faster R-CNN cross to the port and back bit for bit, with their
 init's identity BNs and with the live BNs of ``live_models``.  The config
 literals of chip_smoke.py are the parsed YAML, every schema feature the
-port does not run raises (and those it ports build), ``freeze_layers`` freezes the trunk's conv1, bn1
+port does not run raises (and those it ports build, the ext filter among
+them), ``freeze_layers`` freezes the trunk's conv1, bn1
 and layer1, and ``get_model`` builds on the CPU only when asked.
 
 ``live_models`` is the pair of models the other port tests compare."""
@@ -199,12 +200,11 @@ def _with(path, value):
 
 
 @pytest.mark.parametrize("cfg", [
-    _with(("backbone", "ext_config"), {"threshold": 0.5}),
     _with(("bottleneck_transformer", "order"),
           ["quantizer", "jpeg_compressor", "jpeg_decompressor", "dequantizer"]),
     _with(("params", "roi_pool_impl"), "xla"),
     _with(("backbone", "name"), "resnet101"),
-], ids=["ext", "jpeg", "xla_pool", "resnet101"])
+], ids=["jpeg", "xla_pool", "resnet101"])
 def test_unported_features_raise(cfg):
     with pytest.raises(NotImplementedError):
         build_model(cfg)
@@ -218,10 +218,16 @@ def test_unported_features_raise(cfg):
     (dict(KEYPOINT_STUDENT_MODEL, params=dict(KEYPOINT_STUDENT_MODEL["params"],
                                               kp_decode="device")),
      "keypoint_rcnn", "keypoint_predictor", False),
-], ids=["mask", "keypoint", "int8_pool", "kp_decode_device"])
+    (_with(("backbone", "ext_config"), {"threshold": 0.5}), "faster_rcnn",
+     None, False),
+], ids=["mask", "keypoint", "int8_pool", "kp_decode_device", "ext"])
 def test_ported_features_build(cfg, kind, head, int8):
     model = build_model(cfg)
     assert model.kind == kind and model.roi_heads.int8_pool == int8
     assert head is None or hasattr(model.roi_heads, head)
     assert model.roi_heads.kp_decode == cfg["params"].get("kp_decode", "host")
+    ext = cfg["backbone"].get("ext_config") or {}
+    assert model.ext_threshold == ext.get("threshold")
+    assert (model.backbone.body.layer1.encoder.ext_classifier is not None) \
+        == bool(ext)
 
