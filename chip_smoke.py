@@ -52,7 +52,15 @@ paths, at full width with random weights and BN statistics from a seed:
     epoch and the threshold table, then ``coco_runner.run``'s test eval of
     the gated Keypoint R-CNN, the gate on served batches with the
     bottleneck round trip, the filter's probabilities against the CPU's,
-    and its times.
+    and its times;
+  * the split deployment (``split_phase``), with the stem switch on: the
+    serving student's edge head and server tail over the byte wire, at
+    batch 1 on each image of a serving batch of each bucket and at batch 8,
+    their detections equal to the full forward's with the 8-bit (and the
+    16-bit) round trip, the wire's size, the gated Keypoint R-CNN's edge
+    stopping a batch of one, ``cost_analyzer`` on the runner fixture (its
+    split mAP equal to the round trip eval's) and ``visualizer`` on two of
+    its JPEGs, and the head's and tail's times at batch 1 and 8.
 
 Each path checks that every kernel it runs was launched.  Any failed check
 raises.
@@ -326,6 +334,11 @@ EXT_PROB_TOL = 1e-5
 EXT_YAML = "config/ext/keypoint_rcnn-backbone_ext_resnet50-b3ch.yaml"
 GHND_TPU = {"buckets": [[832, 1344], [1344, 832]], "compute_dtype": "float32",
             "mesh_axis": "data", "eval_batch_size": 8, "pixel_dtype": "float32"}
+# the split phase: the b3ch student's head and tail over the byte wire at
+# batch 1 on each image of a serving batch of each bucket and at batch
+# EVAL_BATCH on one; the wire's body is B x (H/4 + 4) x (W/4 + 4) x 3 bytes
+SPLIT_TIMED_BATCHES = (1, EVAL_BATCH)
+VIZ_IMAGES = 2
 
 
 def log(msg: str) -> None:
@@ -2144,6 +2157,16 @@ def drop_every_second_image(ann_file: str, out_file: str) -> tuple:
             len({a["image_id"] for a in coco["annotations"]}))
 
 
+def ext_model_config(root: str) -> dict:
+    """EXT_MODEL with the checkpoints ``ext_phase`` writes under
+    ``root``/ext: the seeded student and the trained filter."""
+    cfg = copy.deepcopy(EXT_MODEL)
+    cfg["ckpt"] = os.path.join(root, "ext", "student.pt")
+    cfg["backbone"]["ext_config"]["ckpt"] = os.path.join(root, "ext",
+                                                         "ext.pt")
+    return cfg
+
+
 def ext_phase(dev: torch.device, root: str, card: str) -> dict:
     """The ext filter (ROADMAP A9) through its entry points: a COCO fixture
     of RUNNER_IMAGES JPEGs with person-keypoint files that keep every
@@ -2166,6 +2189,7 @@ def ext_phase(dev: torch.device, root: str, card: str) -> dict:
     from hnd_ghnd_tpu_torch.runners import coco_runner, ext_runner
     from hnd_ghnd_tpu_torch.runners.common import eval_forward, evaluate
     from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
+    model_cfg = ext_model_config(root)
     root = os.path.join(root, "ext")
     fx = write_runner_fixture(root, np.random.RandomState(SEED + 20))
     rng = np.random.RandomState(SEED + 21)
@@ -2184,14 +2208,10 @@ def ext_phase(dev: torch.device, root: str, card: str) -> dict:
                                     seed=SEED + 22, device=dev), SEED + 22)
     with torch.no_grad():
         student.roi_heads.box_predictor.cls_score.weight.mul_(300.0)
-    student_ckpt = os.path.join(root, "student.pt")
     params, state = jax_params_from_state_dict(student.state_dict())
-    ckpt_util.save_ckpt(student_ckpt, params=params, state=state)
+    ckpt_util.save_ckpt(model_cfg["ckpt"], params=params, state=state)
     del student
-    model_cfg = copy.deepcopy(EXT_MODEL)
-    model_cfg["ckpt"] = student_ckpt
-    ext_ckpt = model_cfg["backbone"]["ext_config"]["ckpt"] = os.path.join(
-        root, "ext.pt")
+    ext_ckpt = model_cfg["backbone"]["ext_config"]["ckpt"]
     config = {"dataset": {"name": "fixture", "num_workers": 4,
                           "splits": splits},
               "model": model_cfg,
@@ -2355,6 +2375,211 @@ def ext_phase(dev: torch.device, root: str, card: str) -> dict:
     del model, x, batch
     torch.cuda.empty_cache()
     return {"ext_runner": ext_launches, "coco_ext": coco_launches}
+
+
+def wire_body(wire: bytes) -> int:
+    """Bytes of a split wire's tensor (its header and metadata left out)."""
+    from hnd_ghnd_tpu_torch.split.deploy import unpack_wire
+    return unpack_wire(wire).tensor.nbytes
+
+
+def split_phase(dev: torch.device, root: str, card: str) -> dict:
+    """The split deployment (ROADMAP A10) at full width, with the stem
+    switch on: the serving phase's b3ch student, head -> ``pack_wire`` ->
+    bytes -> ``unpack_wire`` -> tail at batch 1 on each image of a serving
+    batch of each bucket and at batch EVAL_BATCH on one, the detections
+    equal to ``evaluate``'s with the bottleneck round trip (deterministic
+    cuDNN), the wire's body B x 212 x 340 x 3 bytes at 832x1344, the 16-bit
+    wire twice that and its detections equal to the 16-bit round trip's;
+    the gated Keypoint R-CNN of ``ext_phase`` stopping a batch of one at
+    threshold 1.1 and sending it at 0.0; ``cost_analyzer.run`` on
+    ``runner_phase``'s fixture and distilled student (-model_params
+    --modules backbone.body.layer1 --data_size -resized --bottleneck_size
+    --split_model), its split mAP equal to ``coco_evaluate``'s with the
+    round trip; ``visualizer.run`` on VIZ_IMAGES of its JPEGs; the head's
+    and tail's times at the SPLIT_TIMED_BATCHES beside the full
+    forward's.  Returns the kernels' launches of the split runs."""
+    from hnd_ghnd_tpu_torch.models.factory import get_model
+    from hnd_ghnd_tpu_torch.runners import cost_analyzer, visualizer
+    from hnd_ghnd_tpu_torch.runners.common import (coco_evaluate,
+                                                   eval_forward, evaluate,
+                                                   loaders_from_config,
+                                                   to_device)
+    from hnd_ghnd_tpu_torch.split.deploy import SplitRCNN, unpack_wire
+    os.environ["HND_TPU_PALLAS_STEM"] = "1"
+    model = serving_model(dev)
+    served = serving_batches(np.random.RandomState(SEED + 30))[:2]
+    split = SplitRCNN(model, 8)
+    head, tail, (head_sd, tail_sd) = split.build()
+    check(not set(head_sd) & set(tail_sd)
+          and set(head_sd) | set(tail_sd) == set(model.state_dict()),
+          "the head and tail entries are not a partition of the state_dict")
+
+    def one_image(batch, i):
+        return {k: v[i:i + 1] for k, v in batch.items()}
+
+    def serve(sp, head_call, tail_call, batch):
+        wire = sp.run_edge(head_call, batch["images"], batch["image_sizes"],
+                           batch["original_sizes"])
+        return wire, sp.run_server(tail_call, wire,
+                                   tuple(batch["images"].shape[1:3]))
+
+    torch.backends.cudnn.deterministic = True
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    runs = [(one_image(batch, i),
+             *serve(split, head, tail, one_image(batch, i)))
+            for batch in served for i in range(batch["images"].shape[0])]
+    runs.append((served[0], *serve(split, head, tail, served[0])))
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    log(f"[split] {len(runs)} head -> bytes -> tail runs in {wall:.3f} s; "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    for k in ("quantize", "dequantize", "roi_align", "stem_fwd"):
+        check(launches[k] == len(runs), f"split: {k} launched "
+              f"{launches[k]} times for {len(runs)} runs")
+    for batch, wire, dets in runs:
+        (rec,) = evaluate(model, [batch], use_bottleneck_transformer=True)
+        shape = tuple(batch["images"].shape)
+        check(set(dets) == set(rec["dets"]), f"split {shape}: keys")
+        for k, v in rec["dets"].items():
+            check(np.array_equal(dets[k], v), f"split {shape}: {k} differs "
+                  "from the full forward with the round trip")
+        b, h, w = shape[:3]
+        check(wire_body(wire) == b * (h // 4 + 4) * (w // 4 + 4) * 3,
+              f"split {shape}: wire body {wire_body(wire)} bytes")
+    log(f"[split] detections of all {len(runs)} runs equal the full "
+        "forward's with the 8-bit round trip; wire body "
+        f"{wire_body(runs[-1][1])} bytes at {tuple(served[0]['images'].shape)}")
+    split16 = SplitRCNN(model, 16)
+    head16, tail16, _ = split16.build()
+    wire16, dets16 = serve(split16, head16, tail16, served[0])
+    check(wire_body(wire16) == 2 * wire_body(runs[-1][1]),
+          "the 16-bit wire is not twice the 8-bit one")
+    check(unpack_wire(wire16).tensor.dtype == np.float16, "16-bit wire dtype")
+    model.backbone.body.layer1.quant_bits = 16
+    (rec,) = evaluate(model, [served[0]], use_bottleneck_transformer=True)
+    model.backbone.body.layer1.quant_bits = 8
+    for k, v in rec["dets"].items():
+        check(np.array_equal(dets16[k], v), f"16-bit split: {k} differs "
+              "from the full forward with the 16-bit round trip")
+    log(f"[split] 16-bit wire: {wire_body(wire16)} body bytes, detections "
+        "equal the full forward's with the 16-bit round trip")
+    torch.backends.cudnn.deterministic = False
+
+    # --------------------------------------------------------- times
+    for b in SPLIT_TIMED_BATCHES:
+        batch = served[0] if b == EVAL_BATCH else one_image(served[0], 0)
+        bucket = tuple(batch["images"].shape[1:3])
+        images = torch.from_numpy(batch["images"]).to(dev)
+        sizes = torch.from_numpy(batch["image_sizes"]).to(dev)
+        head_ms = time_ms(lambda: split.head_fn(images))
+        q, scale, zp, _ = split.head_fn(images)
+        tail_ms = time_ms(lambda: split.tail_fn(q, scale, zp, sizes, bucket))
+        on_dev = to_device(batch, dev)
+        full_ms = time_ms(lambda: eval_forward(model, on_dev, True))
+        walls = {"head": [], "tail": []}
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            wire = split.run_edge(head, batch["images"], batch["image_sizes"],
+                                  batch["original_sizes"])
+            t1 = time.perf_counter()
+            split.run_server(tail, wire, bucket)
+            walls["head"].append((t1 - t0) * 1e3)
+            walls["tail"].append((time.perf_counter() - t1) * 1e3)
+        wire16 = split16.run_edge(head16, batch["images"],
+                                  batch["image_sizes"],
+                                  batch["original_sizes"])
+        log(f"[split] {card}: batch {b} at {bucket}: head {head_ms:.3f} ms "
+            f"(CUDA events, median of {REPS}), "
+            f"{statistics.median(walls['head']):.3f} ms wall from host "
+            f"pixels to packed bytes; tail {tail_ms:.3f} ms (CUDA events), "
+            f"{statistics.median(walls['tail']):.3f} ms wall from bytes to "
+            f"host detections; the full forward with the round trip "
+            f"{full_ms:.3f} ms (CUDA events); wire {len(wire) / 1024:.2f} "
+            f"KB at 8 bits, {len(wire16) / 1024:.2f} KB at 16 bits")
+    del model, runs, q, images, on_dev
+    torch.cuda.empty_cache()
+
+    # ------------------------------------ the gated Keypoint R-CNN's edge
+    gated = get_model(ext_model_config(root), device=dev).requires_grad_(False)
+    ext_split = SplitRCNN(gated, 8)
+    ext_head, _, _ = ext_split.build()
+    one = one_image(served[0], 0)
+    args = (one["images"], one["image_sizes"], one["original_sizes"])
+    check(ext_split.run_edge(ext_head, *args, ext_threshold=1.1) is None,
+          "the ext filter did not stop a batch of one at 1.1")
+    wire = ext_split.run_edge(ext_head, *args, ext_threshold=0.0)
+    check(isinstance(wire, bytes)
+          and unpack_wire(wire).ext_logits is not None,
+          "the ext filter stopped a batch of one at 0.0")
+    check(ext_split.run_edge(ext_head, served[0]["images"],
+                             served[0]["image_sizes"],
+                             served[0]["original_sizes"],
+                             ext_threshold=1.1) is not None,
+          f"the ext filter stopped a batch of {EVAL_BATCH}")
+    log(f"[split] gated Keypoint R-CNN edge: batch 1 stopped at 1.1, sent "
+        f"at 0.0 ({len(wire)} bytes, P(something) "
+        f"{float(unpack_wire(wire).ext_logits[0, 1]):.6f}); batch "
+        f"{EVAL_BATCH} sent at 1.1")
+    del gated
+    torch.cuda.empty_cache()
+
+    # ------------------------- cost_analyzer and visualizer, the fixture
+    val = {"images": os.path.join(root, "val"),
+           "annotations": os.path.join(root, "instances_val_teacher.json"),
+           "remove_non_annotated_imgs": False, "jpeg_quality": None}
+    config = {"dataset": {"name": "fixture", "num_workers": 4,
+                          "splits": {k: val for k in ("train", "val",
+                                                      "test")}},
+              "student_model": dict(STUDENT_MODEL, ckpt=os.path.join(
+                  root, "student.pt")),
+              "test": {"batch_size": 1}, "tpu": GHND_TPU}
+    yaml_path = "config/ghnd/faster_rcnn-backbone_resnet50-b3ch.yaml"
+    args = cost_analyzer.get_argparser().parse_args(
+        ["--config", yaml_path, "--device", str(dev), "-model_params",
+         "--modules", "backbone.body.layer1", "--data_size", "-resized",
+         "--bottleneck_size", "--split_model"])
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    res = cost_analyzer.run(config, args)
+    wall = time.perf_counter() - t0
+    student = get_model(config["student_model"], device=dev)
+    _, _, test_loader = loaders_from_config(config, student.kind, 1)
+    ev, _ = coco_evaluate(student, test_loader, True)
+    torch.backends.cudnn.deterministic = False
+    got = res["split_model"]["evaluator"].stats["bbox"]
+    check(np.array_equal(got, ev.stats["bbox"]),
+          f"cost_analyzer's split stats {got} differ from the round trip "
+          f"eval's {ev.stats['bbox']}")
+    counts = res["model_params"]
+    check(counts["head"] + counts["tail"] == counts["total"],
+          "head and tail parameters do not add up")
+    shapes = res["bottleneck_size"].get_data()[3]
+    check(shapes and all(s[0] == 3 for s in shapes),
+          f"bottleneck shapes {shapes}")
+    log(f"[split] cost_analyzer on the fixture in {wall:.3f} s: "
+        f"parameters head {counts['head']:,} tail {counts['tail']:,} "
+        f"layer1 {counts['backbone.body.layer1']:,}; split mAP "
+        f"{got[0]:.6f} = the round trip eval's; head "
+        f"{np.median(res['split_model']['head_s']) * 1e3:.3f} ms, tail "
+        f"{np.median(res['split_model']['tail_s']) * 1e3:.3f} ms wall "
+        f"(medians at batch 1); wire "
+        f"{np.mean(res['split_model']['wire_kb']):.2f} KB")
+    del student
+    images = sorted(os.listdir(val["images"]))[:VIZ_IMAGES]
+    out_dir = os.path.join(root, "viz")
+    args = visualizer.get_argparser().parse_args(
+        ["--config", yaml_path, "--device", str(dev), "--output", out_dir,
+         "--score_threshold", "0.5", "--image"]
+        + [os.path.join(val["images"], f) for f in images])
+    written = visualizer.run(config, args)
+    check(sorted(os.listdir(out_dir)) == images
+          and len(written) == VIZ_IMAGES, f"visualizer wrote {written}")
+    log(f"[split] visualizer wrote {len(written)} overlays")
+    torch.cuda.empty_cache()
+    os.environ["HND_TPU_PALLAS_STEM"] = "0"
+    return launches
 
 
 def main() -> int:
@@ -2656,6 +2881,8 @@ def main() -> int:
         runner = runner_phase(dev, root)
         # ------------------------------------------------------ 11. ext
         runner.update(ext_phase(dev, root, card))
+        # ------------------------------------------------------ 12. split
+        split_launches = split_phase(dev, root, card)
 
     # ---------------------------------------------------------- result
     # launches: the runners' (the main path) where they run the kernel, else
@@ -2676,7 +2903,9 @@ def main() -> int:
                                  ("coco_keypoint", "keypoint_rcnn"))},
              "ext_runner": {"stem_fwd": runner["ext_runner"]["stem_fwd"]},
              "coco_ext": {k: runner["coco_ext"][k] for k in
-                          ("roi_align", "quantize", "dequantize")}}
+                          ("roi_align", "quantize", "dequantize")},
+             "split": {k: split_launches[k] for k in
+                       ("quantize", "dequantize", "roi_align", "stem_fwd")}}
     out = []
     for name, k in kernels.items():
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}

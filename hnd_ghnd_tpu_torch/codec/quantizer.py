@@ -9,12 +9,22 @@ The min/max runs over the whole ``[B, ...]`` tensor, bucket padding
 included, exactly like the JAX package (ROADMAP C3).  Non-finite inputs
 follow JAX on the CPU (ROADMAP C12): min and max propagate NaN, a NaN
 scale becomes 1, and a NaN zero point or code becomes 0.
+
+``Quantizer``, ``Dequantizer``, ``Compose`` and
+``get_bottleneck_transformer`` build the reference YAML's
+``bottleneck_transformer`` chain (JAX quantizer.py:56-138).  A chain of
+quantizers and dequantizers holds these tensor classes (the kernels for a
+CUDA tensor); a chain that names a JPEG component is a host chain of
+codec/jpeg.py's numpy classes (``host_side``), which the bottleneck runs
+per image between its encoder and decoder.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+
+from hnd_ghnd_tpu_torch.codec import jpeg as jpeg_codec
 
 
 class QuantizedTensor(NamedTuple):
@@ -56,3 +66,78 @@ def roundtrip(z: torch.Tensor, num_bits: int = 8) -> torch.Tensor:
     from hnd_ghnd_tpu_torch.ops import quant_kernels
     return quant_kernels.dequantize(quant_kernels.quantize(z, num_bits)).to(
         z.dtype)
+
+
+class Quantizer:
+    """num_bits 16: a float16 cast; otherwise the affine quantization (the
+    kernel for a CUDA tensor)."""
+
+    def __init__(self, num_bits: int = 8):
+        self.num_bits = num_bits
+
+    def __call__(self, z, target=None):
+        if self.num_bits == 16:
+            return z.half(), target
+        from hnd_ghnd_tpu_torch.ops import quant_kernels
+        return quant_kernels.quantize(z, self.num_bits), target
+
+
+class Dequantizer:
+    def __init__(self, num_bits: int = 8):
+        self.num_bits = num_bits
+
+    def __call__(self, qz, target=None):
+        if self.num_bits == 16:
+            return qz.float(), target
+        from hnd_ghnd_tpu_torch.ops import quant_kernels
+        return quant_kernels.dequantize(qz), target
+
+
+class Compose:
+    def __init__(self, components, host_side: bool = False):
+        self.components = list(components)
+        # a host chain (JPEG components) runs on numpy, one image at a time
+        self.host_side = host_side
+
+    def __call__(self, z, target=None):
+        for c in self.components:
+            z, target = c(z, target)
+        return z, target
+
+
+TRANSFORMER_CLASS_DICT = {
+    "quantizer": Quantizer,
+    "dequantizer": Dequantizer,
+}
+
+HOST_TRANSFORMER_NAMES = ("jpeg_compressor", "jpeg_decompressor")
+
+
+def get_bottleneck_transformer(transformer_config: Optional[Dict[str, Any]]):
+    """The chain of ``bottleneck_transformer: {order, components}`` (the
+    reference's quantizer, dequantizer, jpeg_compressor and
+    jpeg_decompressor), None without one.  A chain naming a JPEG component
+    is built from codec/jpeg.py's host classes, ``host_side=True``.  The
+    reference's ``tmp_dir_path`` is dropped: the payload stays in memory."""
+    if transformer_config is None:
+        return None
+    order = list(transformer_config["order"])
+    comp_cfg = transformer_config["components"]
+    host_side = any(name in HOST_TRANSFORMER_NAMES for name in order)
+    if host_side:
+        class_dict = {
+            "quantizer": jpeg_codec.HostQuantizer,
+            "dequantizer": jpeg_codec.HostDequantizer,
+            "jpeg_compressor": jpeg_codec.JpegCompressor,
+            "jpeg_decompressor": jpeg_codec.JpegDecompressor,
+        }
+    else:
+        class_dict = TRANSFORMER_CLASS_DICT
+    components = []
+    for name in order:
+        if name not in class_dict:
+            raise KeyError(f"transformer `{name}` is not expected")
+        params = (comp_cfg.get(name, {}) or {}).get("params", {}) or {}
+        params = {k: v for k, v in params.items() if k != "tmp_dir_path"}
+        components.append(class_dict[name](**params))
+    return Compose(components, host_side=host_side) if components else None

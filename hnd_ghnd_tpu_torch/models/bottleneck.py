@@ -9,7 +9,12 @@ state_dict keys (``encoder.encoder.0.weight``, ``decoder.10.running_var``)
 are the ones hnd_ghnd_tpu/models/convert.py maps.
 
 At eval, ``use_bottleneck_transformer`` puts the 8-bit quantize/dequantize
-round trip between encoder and decoder (the CUDA kernels on the card).  In
+round trip between encoder and decoder (the CUDA kernels on the card), or,
+given a host chain (a ``bottleneck_transformer`` naming a JPEG component,
+codec/quantizer.get_bottleneck_transformer), runs that chain on the host,
+one NHWC image at a time, as the JAX package's ``_host_roundtrip`` does
+(bottleneck.py:61-71, :159-166).  ``encode`` and ``decode`` are the two
+halves the split deployment's head and tail call (split/deploy.py).  In
 train mode (the distill step) the BNs use batch statistics and update
 their running ones, and the round trip is never applied, as in the JAX
 package (bottleneck.py:161).
@@ -25,6 +30,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -56,9 +62,10 @@ class _Encoder(nn.Module):
 
 class Bottleneck4LargeResNet(nn.Module):
     def __init__(self, bottleneck_channel: int, quant_bits: int = 8,
-                 ext: bool = False):
+                 ext: bool = False, host_transformer=None):
         super().__init__()
         self.quant_bits = quant_bits
+        self.host_transformer = host_transformer
         self.encoder = _Encoder(bottleneck_channel, ext)
         self.decoder = nn.Sequential(
             BatchNorm2d(bottleneck_channel), nn.ReLU(inplace=True),
@@ -79,7 +86,29 @@ class Bottleneck4LargeResNet(nn.Module):
             ext_out = ext(x)
             if ext_training:
                 return None, ext_out
-        z = self.encoder(x)
+        z = self.encode(x)
         if use_bottleneck_transformer and not self.training:
-            z = roundtrip(z, self.quant_bits)
-        return self.decoder(z), ext_out
+            z = (roundtrip(z, self.quant_bits) if self.host_transformer is None
+                 else self._host_roundtrip(z))
+        return self.decode(z), ext_out
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """The 64-channel stem output -> the bottleneck tensor, NCHW."""
+        return self.encoder(x)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """The bottleneck tensor, NCHW -> layer1's output."""
+        return self.decoder(z)
+
+    def _host_roundtrip(self, z: torch.Tensor) -> torch.Tensor:
+        """The host chain on each image as NHWC float32 numpy (a JPEG
+        component encodes only a [H, W, 3] image), back in ``z``'s shape,
+        dtype and device, contiguous NCHW."""
+        zn = z.detach().permute(0, 2, 3, 1).float().cpu().numpy()
+        out = []
+        for i in range(zn.shape[0]):
+            r, _ = self.host_transformer(zn[i])
+            out.append(np.asarray(r, dtype=zn.dtype).reshape(zn[i].shape))
+        back = torch.from_numpy(np.stack(out)).to(device=z.device,
+                                                   dtype=z.dtype)
+        return back.permute(0, 3, 1, 2).contiguous()

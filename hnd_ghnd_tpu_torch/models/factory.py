@@ -4,8 +4,10 @@ Counterpart of hnd_ghnd_tpu/models/factory.py for the slices this package
 runs: a ``faster_rcnn``, ``mask_rcnn`` or ``keypoint_rcnn`` (``num_classes``
 and ``num_keypoints`` from ``params``) with the stock ResNet-50 trunk (the
 org model of config/org and the distillation teacher), or as a student
-whose ``layer1`` is a Bottleneck4LargeResNet, with an optional [quantizer,
-dequantizer] bottleneck transformer and, under ``backbone.ext_config``,
+whose ``layer1`` is a Bottleneck4LargeResNet, with an optional
+bottleneck transformer (a quantizer/dequantizer chain is the kernels' round
+trip; one that names a JPEG component runs on the host) and, under
+``backbone.ext_config``,
 the ext filter with its gate (``threshold``, 0.01 by default);
 ``params.int8_roi_pool`` turns on the eval's int8 pooling tables, and
 ``params.kp_decode: device`` (with ``kp_decode_grid``, 224 by default) the
@@ -35,6 +37,7 @@ from typing import Any, Dict, List
 import torch
 from torch import nn
 
+from hnd_ghnd_tpu_torch.codec.quantizer import get_bottleneck_transformer
 from hnd_ghnd_tpu_torch.models import layers as L
 from hnd_ghnd_tpu_torch.models.bottleneck import Bottleneck4LargeResNet
 from hnd_ghnd_tpu_torch.models.convert import state_dict_from_jax
@@ -61,14 +64,17 @@ FREEZE_LAYERS = ["backbone.body.conv1", "backbone.body.bn1",
 def _quant_bits(transformer_cfg) -> int:
     if not transformer_cfg:
         return 8
-    order = list(transformer_cfg["order"])
-    if order != ["quantizer", "dequantizer"]:
-        raise NotImplementedError(
-            f"bottleneck transformer {order}: only [quantizer, dequantizer] is "
-            "ported; JPEG chains are ROADMAP A10")
     comp = transformer_cfg.get("components", {}) or {}
     q = (comp.get("quantizer", {}) or {}).get("params", {}) or {}
     return int(q.get("num_bits", 8))
+
+
+def _host_chain(transformer_cfg):
+    """The host chain of a ``bottleneck_transformer`` that names a JPEG
+    component, else None (a quantizer/dequantizer chain is the kernels'
+    round trip at ``_quant_bits``), as JAX's factory.py:64-69 decides."""
+    chain = get_bottleneck_transformer(transformer_cfg)
+    return chain if chain is not None and chain.host_side else None
 
 
 def frozen_modules(model_config: Dict[str, Any]) -> List[str]:
@@ -101,10 +107,11 @@ def build_model(model_config: Dict[str, Any]) -> RCNN:
             "plain version on the CPU)")
     # the reference builds the Large variant for the Small name too; the
     # ext filter lives in the bottleneck (JAX factory.py:59-72)
+    transformer_cfg = model_config.get("bottleneck_transformer")
     bottleneck = None if layer1_cfg is None else Bottleneck4LargeResNet(
         int(layer1_cfg["bottleneck_channel"]),
-        quant_bits=_quant_bits(model_config.get("bottleneck_transformer")),
-        ext=ext_cfg is not None)
+        quant_bits=_quant_bits(transformer_cfg), ext=ext_cfg is not None,
+        host_transformer=_host_chain(transformer_cfg))
     ext_threshold = None if bottleneck is None or ext_cfg is None \
         else float(ext_cfg.get("threshold", 0.01))
     model = RCNN(bottleneck, num_classes=int(params_cfg.get("num_classes", 91)),

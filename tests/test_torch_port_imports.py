@@ -2,15 +2,17 @@
 without a GPU or without the package beside it.
 
 Each check runs in a fresh interpreter: the serving, distill,
-supervised-training, heads and ext slices are imported, built and run once
-on a tiny input (one distill epoch of one step, one coco_runner epoch of one
-bfloat16 step, each with its eval, the eval of the Mask and Keypoint R-CNN
-students with int8 pooling tables, and the gated ext model's eval and one
-ext step), then jax, the JAX package, PIL, cv2, yaml, sklearn and pandas
+supervised-training, heads, ext and split slices are imported, built and
+run once on a tiny input (one distill epoch of one step, one coco_runner
+epoch of one bfloat16 step, each with its eval, the eval of the Mask and
+Keypoint R-CNN students with int8 pooling tables, the gated ext model's
+eval and one ext step, and a split head -> bytes -> tail with the
+DataLogger), then jax, the JAX package, PIL, cv2, yaml, sklearn and pandas
 must be absent from ``sys.modules`` (they are not promised on the GPU
 host).  The host modules of the runners (config, data, evals with the ROC
-metrics, checkpoints, logging) import none of them either: PIL, cv2 and
-yaml are imported by the functions that decode, resize and load a
+metrics, checkpoints, logging, the cost analyzer and the visualizer with
+its drawing and the JPEG codec) import none of them either: PIL, cv2 and
+yaml are imported by the functions that decode, resize, draw and load a
 config."""
 import os
 import shutil
@@ -26,16 +28,17 @@ import numpy as np
 import torch
 import hnd_ghnd_tpu_torch
 import hnd_ghnd_tpu_torch._build
-from hnd_ghnd_tpu_torch.codec import quantizer
+from hnd_ghnd_tpu_torch.codec import datalogger, jpeg, quantizer
 from hnd_ghnd_tpu_torch.models import (bottleneck, convert, ext, factory,
     fpn, layers, rcnn, resnet, roi_heads, rpn)
 from hnd_ghnd_tpu_torch.ops import (anchors, boxes, nms, quant_kernels,
     roi_align, roi_align_kernels, stem, stem_kernels)
 from hnd_ghnd_tpu_torch.distill import box, losses
 from hnd_ghnd_tpu_torch.parallel import train_step
-from hnd_ghnd_tpu_torch.runners import (coco_runner, common, ext_runner,
-    mimic_runner)
-from hnd_ghnd_tpu_torch.utils import ckpt, logging, params
+from hnd_ghnd_tpu_torch.runners import (coco_runner, common, cost_analyzer,
+    ext_runner, mimic_runner, visualizer)
+from hnd_ghnd_tpu_torch.split import deploy
+from hnd_ghnd_tpu_torch.utils import ckpt, logging, params, visual_util
 from hnd_ghnd_tpu_torch.core import config
 from hnd_ghnd_tpu_torch.data import coco, loader, transforms
 from hnd_ghnd_tpu_torch.evals import coco_eval, mask_rle, postprocess, roc
@@ -47,6 +50,14 @@ batch = {"images": np.zeros((1, 64, 64, 3), np.uint8),
          "original_sizes": np.array([[64, 64]], np.int32)}
 (rec,) = common.evaluate(model, [batch], use_bottleneck_transformer=True)
 assert rec["dets"]["boxes"].shape == (1, 100, 4)
+split = deploy.SplitRCNN(model, 8)
+head, tail, _ = split.build()
+wire = split.run_edge(head, batch["images"], batch["image_sizes"],
+                      batch["original_sizes"])
+dets = split.run_server(tail, wire, (64, 64))
+assert np.array_equal(dets["boxes"], rec["dets"]["boxes"])
+z, _, _, _ = deploy.SplitRCNN(model, None).build()[0](batch["images"])
+assert datalogger.DataLogger(8)(z)[0].shape == (1, 20, 20, 3)
 teacher = factory.get_model(TEACHER_MODEL, seed=1, device="cpu")
 config = {"student_model": STUDENT_MODEL, "train": dict(TRAIN, num_epochs=1),
           "tpu": {"compute_dtype": "float32"}}
@@ -89,14 +100,21 @@ from hnd_ghnd_tpu_torch.core import config
 from hnd_ghnd_tpu_torch.data import coco, loader, transforms
 from hnd_ghnd_tpu_torch.evals import coco_eval, mask_rle, postprocess, roc
 from hnd_ghnd_tpu_torch.utils import ckpt, logging
-from hnd_ghnd_tpu_torch.runners import (coco_runner, common, ext_runner,
-    mimic_runner)
+from hnd_ghnd_tpu_torch.runners import (coco_runner, common, cost_analyzer,
+    ext_runner, mimic_runner, visualizer)
+from hnd_ghnd_tpu_torch.codec import datalogger, jpeg
+from hnd_ghnd_tpu_torch.split import deploy
+from hnd_ghnd_tpu_torch.utils import visual_util
 for name in ("load_config", "overwrite_config"):
     assert callable(getattr(config, name))
 ev = coco_eval.CocoEvaluator(None, ["bbox", "segm", "keypoints"])
 assert set(ev.evals) == {"bbox", "segm", "keypoints"}
 mimic_runner.get_argparser().parse_args(["--config", "x.yaml", "-distill"])
 ext_runner.get_argparser().parse_args(["--config", "x.yaml", "-train"])
+cost_analyzer.get_argparser().parse_args(["--config", "x.yaml",
+                                          "--split_model"])
+visualizer.get_argparser().parse_args(["--config", "x.yaml", "--image",
+                                       "a.jpg"])
 banned = sorted({m.split(".")[0] for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "hnd_ghnd_tpu",
                                         "PIL", "cv2", "yaml", "optax",
@@ -109,6 +127,8 @@ print("clean")
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO)
+    # two torch threads: the tier-1 run shares the cores among its workers
+    env["OMP_NUM_THREADS"] = "2"
     return env
 
 

@@ -5,9 +5,10 @@
 and org Faster R-CNN cross to the port and back bit for bit, with their
 init's identity BNs and with the live BNs of ``live_models``.  The config
 literals of chip_smoke.py are the parsed YAML, every schema feature the
-port does not run raises (and those it ports build, the ext filter among
-them), ``freeze_layers`` freezes the trunk's conv1, bn1
-and layer1, and ``get_model`` builds on the CPU only when asked.
+port does not run raises (and those it ports build, the ext filter and a
+JPEG bottleneck chain among them), ``freeze_layers`` freezes the trunk's
+conv1, bn1 and layer1, and ``get_model`` builds on the CPU only when
+asked.
 
 ``live_models`` is the pair of models the other port tests compare."""
 import copy
@@ -200,11 +201,9 @@ def _with(path, value):
 
 
 @pytest.mark.parametrize("cfg", [
-    _with(("bottleneck_transformer", "order"),
-          ["quantizer", "jpeg_compressor", "jpeg_decompressor", "dequantizer"]),
     _with(("params", "roi_pool_impl"), "xla"),
     _with(("backbone", "name"), "resnet101"),
-], ids=["jpeg", "xla_pool", "resnet101"])
+], ids=["xla_pool", "resnet101"])
 def test_unported_features_raise(cfg):
     with pytest.raises(NotImplementedError):
         build_model(cfg)
@@ -220,10 +219,16 @@ def test_unported_features_raise(cfg):
      "keypoint_rcnn", "keypoint_predictor", False),
     (_with(("backbone", "ext_config"), {"threshold": 0.5}), "faster_rcnn",
      None, False),
-], ids=["mask", "keypoint", "int8_pool", "kp_decode_device", "ext"])
+    (_with(("bottleneck_transformer", "order"),
+           ["quantizer", "jpeg_compressor", "jpeg_decompressor",
+            "dequantizer"]), "faster_rcnn", None, False),
+], ids=["mask", "keypoint", "int8_pool", "kp_decode_device", "ext", "jpeg"])
 def test_ported_features_build(cfg, kind, head, int8):
     model = build_model(cfg)
     assert model.kind == kind and model.roi_heads.int8_pool == int8
+    chain = model.backbone.body.layer1.host_transformer
+    order = cfg["bottleneck_transformer"]["order"]
+    assert (chain is not None) == ("jpeg_compressor" in order)
     assert head is None or hasattr(model.roi_heads, head)
     assert model.roi_heads.kp_decode == cfg["params"].get("kp_decode", "host")
     ext = cfg["backbone"].get("ext_config") or {}
