@@ -60,7 +60,20 @@ paths, at full width with random weights and BN statistics from a seed:
     16-bit) round trip, the wire's size, the gated Keypoint R-CNN's edge
     stopping a batch of one, ``cost_analyzer`` on the runner fixture (its
     split mAP equal to the round trip eval's) and ``visualizer`` on two of
-    its JPEGs, and the head's and tail's times at batch 1 and 8.
+    its JPEGs, and the head's and tail's times at batch 1 and 8;
+  * the int8 server tail (``int8_tail_phase``, ROADMAP A11): the serving
+    student calibrated on four served images, head -> bytes -> int8 tail
+    at batch 8 on both buckets and batch 1, its detections with the float
+    tail's keys and shapes, finite; each stage output's cosine with the
+    float folded walk above 0.95; the card's int8 walk and the CPU's on
+    the same wire, the codes of all 44 sites identical; the Mask and
+    Keypoint students' int8 tails at batch 1; ``cost_analyzer
+    --split_model --int8_tail`` on the runner fixture with its mAP delta;
+    the float and int8 tails' times at batch 1 and 8.  The kernel phase
+    holds the int8 convolution (``int8_conv_kernels_phase``) against its
+    plain version, bit for bit in int32, on every conv shape of the tail's
+    trunk at batch 8 and three odd cases, and times the trunk's 46
+    launches beside ``torch._int_mm`` on im2col'd codes.
 
 Each path checks that every kernel it runs was launched.  Any failed check
 raises.
@@ -250,6 +263,7 @@ SPIN_CYCLES = 10_000_000
 # the card's peaks for the bound of a kernel (H100 SXM data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12        # float32 outside the tensor cores
+PEAK_INT8_PER_S = 1979e12      # dense int8 on the tensor cores
 # the distill phase: batch 4 (train.batch_size), pixel_dtype float32; the
 # first batch comes back last, so the loss must have fallen on it
 TRAIN_BATCH = 4
@@ -339,6 +353,13 @@ GHND_TPU = {"buckets": [[832, 1344], [1344, 832]], "compute_dtype": "float32",
 # EVAL_BATCH on one; the wire's body is B x (H/4 + 4) x (W/4 + 4) x 3 bytes
 SPLIT_TIMED_BATCHES = (1, EVAL_BATCH)
 VIZ_IMAGES = 2
+# the int8 tail (int8_tail_phase): served images it calibrates on; each
+# stage output's cosine with the float folded walk must pass
+# tests/test_int8.py's bound; the card's walk and the CPU's compared on a
+# smaller bucket at full channel width
+INT8_CALIB_IMAGES = 4
+INT8_COS_MIN = 0.95
+INT8_CPU_SHAPE = (256, 384)
 
 
 def log(msg: str) -> None:
@@ -507,11 +528,13 @@ def roi_bound(levels, boxes, valid, image_size, pool: int, rest: int,
     return out
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
+def bound(n_bytes: float, n_ops: float,
+          peak_ops_per_s: float = PEAK_FP32_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the float32 operations over their peak rate."""
+    the memory rate and the operations over their peak rate (float32
+    unless another is given)."""
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = n_ops / PEAK_FP32_PER_S * 1e3
+    by_ops = n_ops / peak_ops_per_s * 1e3
     if by_bytes >= by_ops:
         return {"bound_ms": by_bytes, "bound_by": "bytes"}
     return {"bound_ms": by_ops, "bound_by": "operations"}
@@ -1105,6 +1128,180 @@ def int8_kernels_phase(dev: torch.device, kernels: dict) -> None:
     torch.cuda.empty_cache()
 
 
+BOTTLENECK_CHANNEL = \
+    STUDENT_MODEL["backbone"]["params"]["layer1"]["bottleneck_channel"]
+# the B6 kernel's odd cases: (name, NHWC codes shape, C_out, kernel, stride,
+# pad, groups): the byte path of C = 3, groups 2 (JAX's zero-point test),
+# a strided padded conv on a ragged tile of M and N
+INT8_CONV_ODD = (("cin3", (2, 37, 53, 3), 64, 2, 1, 0, 1),
+                 ("groups2", (2, 29, 31, 64), 64, 3, 1, 1, 2),
+                 ("s2p1", (3, 41, 27, 32), 48, 3, 2, 1, 1))
+
+
+def int8_trunk_convs(bucket, batch: int) -> list:
+    """The int8 tail's 46 convolutions at ``bucket``, in the walk's order
+    (split/int8.py ``_trunk_walk``): (site, NHWC codes shape, C_out,
+    kernel, stride, pad).  The wire is [B, H/4 + 4, W/4 + 4, 3]; the
+    decoder's k2 convs take 1 off each side's length, then layers 2-4 (4,
+    6 and 3 blocks, the first of each with stride 2 and a downsample)."""
+    h, w = bucket[0] // 4 + 4, bucket[1] // 4 + 4
+    c = BOTTLENECK_CHANNEL
+    convs = []
+    for i, cout in enumerate((64, 128, 256, 256)):
+        convs.append((f"dec{i}", (batch, h, w, c), cout, 2, 1, 0))
+        h, w, c = h - 1, w - 1, cout
+    for s_i, (planes, count) in enumerate(((128, 4), (256, 6), (512, 3))):
+        for b_i in range(count):
+            stride = 2 if b_i == 0 else 1
+            ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+            name = f"s{s_i}b{b_i}"
+            convs.append((name + "c1", (batch, h, w, c), planes, 1, 1, 0))
+            convs.append((name + "c2", (batch, h, w, planes), planes, 3,
+                          stride, 1))
+            convs.append((name + "c3", (batch, ho, wo, planes), 4 * planes,
+                          1, 1, 0))
+            if b_i == 0:
+                convs.append((name + "ds", (batch, h, w, c), 4 * planes, 1,
+                              stride, 0))
+            h, w, c = ho, wo, 4 * planes
+    return convs
+
+
+def conv_work(shape, cout: int, k: int, stride: int, pad: int,
+              groups: int = 1):
+    """(multiply-adds, bytes: codes and weights read once, int32 sums
+    written once) of one int8 convolution."""
+    b, h, w, c = shape
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    macs = b * ho * wo * cout * k * k * (c // groups)
+    return macs, b * h * w * c + cout * k * k * (c // groups) \
+        + 4 * b * ho * wo * cout
+
+
+def im2col_int8(q: torch.Tensor, k: int, stride: int, pad: int,
+                k_cols: int) -> torch.Tensor:
+    """[B Ho Wo, k_cols] int8 rows of each output pixel's taps in the
+    weights' (kh, kw, C) order, zero columns past k k C: the A operand of
+    ``torch._int_mm`` (the library yardstick of B6, never on the path)."""
+    import torch.nn.functional as F
+    b, h, w, c = q.shape
+    x = F.pad(q, (0, 0, pad, pad, pad, pad)) if pad else q
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    sb, sh, sw, sc = x.stride()
+    cols = x.as_strided((b, ho, wo, k, k, c),
+                        (sb, sh * stride, sw * stride, sh, sw, sc))
+    a = cols.reshape(b * ho * wo, k * k * c)
+    if k_cols > a.shape[1]:
+        a = F.pad(a, (0, k_cols - a.shape[1]))
+    return a.contiguous()
+
+
+def int8_conv_kernels_phase(dev: torch.device, kernels: dict) -> None:
+    """B6, the int8 tail's s8 x s8 -> s32 convolution, against its plain
+    version (a float64 convolution on the card, exact) on every distinct
+    conv shape of the trunk at batch EVAL_BATCH on the 832x1344 bucket and
+    on INT8_CONV_ODD, bit for bit in int32, on seeded codes in [-128, 127]
+    and weights in [-127, 127] (sums up to ~2^26, past float32's 2^24).
+    Timed: the trunk's 46 launches in the walk's order, and its largest
+    conv alone; the library yardstick is ``torch._int_mm`` on im2col'd
+    codes built beforehand (the copies timed apart), K padded to a
+    multiple of 8."""
+    from hnd_ghnd_tpu_torch.ops import int8_conv as IC
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+
+    def codes(shape, lo=-128):
+        return torch.randint(lo, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    convs = int8_trunk_convs(BUCKETS[0], EVAL_BATCH)
+    inputs = {shape: codes(shape) for _, shape, *_ in convs}
+    weights = [codes((cout, k, k, shape[3]), lo=-127)
+               for _, shape, cout, k, _, _ in convs]
+    checked, err = set(), 0
+
+    def compare(what, x, wt, stride, pad, groups=1):
+        got = IC.int8_conv(x, wt, stride, pad, groups)
+        want = IC.int8_conv_plain(x, wt, stride, pad, groups)
+        e = int((got.long() - want.long()).abs().max())
+        check(e == 0 and got.dtype == torch.int32, f"int8_conv {what}: "
+              f"differs from the plain version by up to {e}")
+        return e
+
+    for (name, shape, cout, k, stride, pad), wt in zip(convs, weights):
+        key = (shape, cout, k, stride, pad)
+        if key not in checked:
+            checked.add(key)
+            err = max(err, compare(f"{name} {shape} -> {cout} k{k} "
+                                   f"s{stride} p{pad}", inputs[shape], wt,
+                                   stride, pad))
+    for name, shape, cout, k, stride, pad, groups in INT8_CONV_ODD:
+        err = max(err, compare(name, codes(shape),
+                               codes((cout, k, k, shape[3] // groups),
+                                     lo=-127), stride, pad, groups))
+    log(f"[kernels] int8_conv: {len(checked)} trunk shapes at batch "
+        f"{EVAL_BATCH} on {BUCKETS[0]} and {len(INT8_CONV_ODD)} odd cases "
+        "equal the plain version bit for bit (int32)")
+
+    def run(i):
+        _, shape, _, _, stride, pad = convs[i]
+        return IC.int8_conv(inputs[shape], weights[i], stride, pad)
+
+    def plain(i):
+        _, shape, _, _, stride, pad = convs[i]
+        return IC.int8_conv_plain(inputs[shape], weights[i], stride, pad)
+
+    # torch._int_mm: A [M, K'] row-major, B [K', N] (the weights' [N, K']
+    # transposed), K' the multiple of 8 at or above K
+    k_cols = [-(-k * k * shape[3] // 8) * 8 for _, shape, _, k, _, _ in convs]
+    lib_args = []
+    for (_, shape, cout, k, stride, pad), wt, kc in zip(convs, weights,
+                                                        k_cols):
+        wm = wt.reshape(cout, -1)
+        if kc > wm.shape[1]:
+            wm = torch.nn.functional.pad(wm, (0, kc - wm.shape[1]))
+        lib_args.append((im2col_int8(inputs[shape], k, stride, pad, kc),
+                         wm.t()))
+    work = [conv_work(shape, cout, k, stride, pad)
+            for _, shape, cout, k, stride, pad in convs]
+    big = max(range(len(convs)), key=lambda i: work[i][0])
+    a, b = lib_args[big]
+    check(torch.equal(torch._int_mm(a, b).view(run(big).shape), run(big)),
+          "torch._int_mm disagrees with int8_conv on the largest conv")
+    trunk = timings(lambda: [run(i) for i in range(len(convs))])
+    alone = timings(lambda: run(big))
+    im2col_ms = time_ms(lambda: [
+        im2col_int8(inputs[shape], k, stride, pad, kc)
+        for (_, shape, _, k, stride, pad), kc in zip(convs, k_cols)])
+    macs = sum(m for m, _ in work)
+    kernels["int8_conv"] = dict(
+        source="hnd_ghnd_tpu_torch/csrc/int8_conv.cu",
+        replaces="hnd_ghnd_tpu/split/int8.py:206",
+        max_abs_err=float(err), **trunk,
+        plain_ms=time_ms(lambda: [plain(i) for i in range(len(convs))]),
+        library_ms=time_ms(lambda: [torch._int_mm(a, b) for a, b in lib_args]),
+        library_im2col_ms=im2col_ms,
+        **bound(sum(n for _, n in work), 2.0 * macs, PEAK_INT8_PER_S),
+        shape=f"the trunk's {len(convs)} convs at batch {EVAL_BATCH} on "
+              f"{BUCKETS[0]}, {macs / 1e9:.3f} G multiply-adds",
+        largest={"site": convs[big][0], "macs": work[big][0], **alone,
+                 "plain_ms": time_ms(lambda: plain(big)),
+                 "library_ms": time_ms(lambda: torch._int_mm(a, b)),
+                 **bound(work[big][1], 2.0 * work[big][0], PEAK_INT8_PER_S)})
+    k = kernels["int8_conv"]
+    log(f"[kernels] int8_conv trunk ({k['shape']}): {k['ms']:.3f} ms "
+        f"({k['device_ms']:.3f} on the card), {2e-9 * macs / k['device_ms']:.1f}"
+        f" TOPS; plain {k['plain_ms']:.3f} ms; torch._int_mm "
+        f"{k['library_ms']:.3f} ms (+ {im2col_ms:.3f} ms of im2col copies, "
+        f"not counted); bound {k['bound_ms']:.4f} ms by {k['bound_by']}. "
+        f"Largest conv {k['largest']['site']}: {k['largest']['ms']:.4f} ms "
+        f"({k['largest']['device_ms']:.4f} on the card), plain "
+        f"{k['largest']['plain_ms']:.4f}, torch._int_mm "
+        f"{k['largest']['library_ms']:.4f}, bound "
+        f"{k['largest']['bound_ms']:.4f} ms by {k['largest']['bound_by']}")
+    del inputs, weights, lib_args, a, b
+    torch.cuda.empty_cache()
+
+
 def heads_phase(dev: torch.device, serving, fpn_cpu, props, pvalid,
                 one: dict, served: list) -> dict:
     """The GHND b3ch Mask and Keypoint R-CNN students (the serving model's
@@ -1552,6 +1749,7 @@ def kernel_counts() -> dict:
     """Every kernel wrapper's launch count: the RoIAlign forward by levels'
     dtype (f32 and int8 at any pool size), its bf16 forward and the bf16
     backward by pool size (7x7 box loss, 14x14 mask or keypoint loss)."""
+    from hnd_ghnd_tpu_torch.ops import int8_conv as IC
     from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
     from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
@@ -1567,15 +1765,17 @@ def kernel_counts() -> dict:
             "quantize_levels": RK.quantize_levels.launches,
             "stem_fwd": SK.stem_fwd.launches,
             "stem_fwd_res": SK.stem_fwd_res.launches,
-            "stem_dw": SK.stem_dw.launches}
+            "stem_dw": SK.stem_dw.launches,
+            "int8_conv": IC.int8_conv.launches}
 
 
 def zero_kernel_counts() -> None:
+    from hnd_ghnd_tpu_torch.ops import int8_conv as IC
     from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
     from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
     for fn in (QK.quantize, QK.dequantize, RK.quantize_levels, SK.stem_fwd,
-               SK.stem_fwd_res, SK.stem_dw):
+               SK.stem_fwd_res, SK.stem_dw, IC.int8_conv):
         fn.launches = 0
     RK.roi_align.launches.clear()
     RK.roi_align_backward.launches.clear()
@@ -2582,6 +2782,240 @@ def split_phase(dev: torch.device, root: str, card: str) -> dict:
     return launches
 
 
+def wire_tensor(p, device: torch.device) -> torch.Tensor:
+    """A packet's 8-bit wire dequantized on ``device`` (the kernel on the
+    card, the plain version on the CPU), NHWC float32."""
+    from hnd_ghnd_tpu_torch.codec.quantizer import QuantizedTensor
+    from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
+    return QK.dequantize(QuantizedTensor(
+        torch.from_numpy(p.tensor.copy()).to(device),
+        torch.tensor(p.scale, dtype=torch.float32, device=device),
+        torch.tensor(p.zero_point, dtype=torch.float32, device=device)))
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def int8_tail_phase(dev: torch.device, root: str, card: str) -> dict:
+    """The int8 server tail (ROADMAP A11) at full width on the serving
+    phase's b3ch student (live BNs, class logits x300): calibrated on
+    INT8_CALIB_IMAGES served images; head -> bytes -> int8 tail at batch
+    EVAL_BATCH on a served batch of each bucket and at batch 1 on one image
+    of each, its detections with the float tail's keys and shapes, finite;
+    each stage output's cosine with the float folded walk above
+    INT8_COS_MIN on both batch-8 wires; the same wire (an INT8_CPU_SHAPE
+    image) through the card's int8 walk and the CPU's, the codes of all 44
+    sites identical; one batch-1 int8 tail each of the Mask and Keypoint
+    R-CNN students; ``cost_analyzer --split_model --int8_tail`` on
+    ``runner_phase``'s fixture and distilled student, its int8 mAP delta;
+    the float and int8 tails' times at batch 1 and 8 (CUDA events and
+    wall), and their trunks alone at batch 8.  Returns the kernels'
+    launches of the int8 runs and of the cost_analyzer run."""
+    from hnd_ghnd_tpu_torch.codec.quantizer import QuantizedTensor
+    from hnd_ghnd_tpu_torch.models.factory import build_model, get_model
+    from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
+    from hnd_ghnd_tpu_torch.runners import cost_analyzer
+    from hnd_ghnd_tpu_torch.split import int8 as qi
+    from hnd_ghnd_tpu_torch.split.deploy import SplitRCNN, unpack_wire
+    os.environ["HND_TPU_PALLAS_STEM"] = "0"
+    model = serving_model(dev)
+    served = serving_batches(np.random.RandomState(SEED + 50))[:2]
+
+    def one_image(batch, i):
+        return {k: v[i:i + 1] for k, v in batch.items()}
+
+    t0 = time.perf_counter()
+    scales = qi.calibrate_from_images(
+        model, [served[0]["images"][i:i + 1]
+                for i in range(INT8_CALIB_IMAGES)])
+    calib_s = time.perf_counter() - t0
+    check(len(scales) == 44 and all(np.isfinite(v) and v > 0
+                                    for v in scales.values()),
+          f"calibration gave {len(scales)} sites: {scales}")
+    split = SplitRCNN(model, 8)
+    head, tail, _ = split.build()
+    int8 = qi.Int8SplitTail(model, scales)
+    int8_call = int8.build()
+    runs = [served[0], served[1], one_image(served[0], 0),
+            one_image(served[1], 0)]
+    wires = [split.run_edge(head, b["images"], b["image_sizes"],
+                            b["original_sizes"]) for b in runs]
+    buckets = [tuple(b["images"].shape[1:3]) for b in runs]
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    dets8 = [split.run_server(int8_call, w, bk)
+             for w, bk in zip(wires, buckets)]
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    log(f"[int8] calibrated on {INT8_CALIB_IMAGES} images in {calib_s:.3f} "
+        f"s; {len(runs)} int8 tails in {wall:.3f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for k, n in (("int8_conv", 46), ("dequantize", 1), ("roi_align", 1)):
+        check(launches[k] == n * len(runs), f"int8 tail: {k} launched "
+              f"{launches[k]} times for {len(runs)} runs")
+    check(launches["quantize"] == 0, "the int8 tail quantized a wire")
+    for b, w, bk, d8 in zip(runs, wires, buckets, dets8):
+        dfp = split.run_server(tail, w, bk)
+        shape = tuple(b["images"].shape)
+        check(set(d8) == set(dfp), f"int8 tail {shape}: keys")
+        for k, v in dfp.items():
+            check(d8[k].shape == v.shape, f"int8 tail {shape}: {k} shape")
+            check(d8[k].dtype.kind != "f" or bool(np.isfinite(d8[k]).all()),
+                  f"int8 tail {shape}: non-finite {k}")
+        log(f"[int8] {shape}: {int(d8['valid'].sum())} detections (float "
+            f"tail {int(dfp['valid'].sum())}), keys and shapes the float "
+            "tail's, finite")
+
+    # ------------------------------- stage outputs against the float walk
+    for b, w in zip(runs[:2], wires[:2]):
+        p = unpack_wire(w)
+        z = wire_tensor(p, dev)
+        cos = [cosine(f, g) for f, g in zip(qi.trunk_features_fp(model, z),
+                                             int8.trunk(z))]
+        log(f"[int8] {tuple(b['images'].shape)}: stage cosines with the "
+            f"float folded walk {[round(c, 6) for c in cos]}")
+        check(min(cos) > INT8_COS_MIN, f"int8 stage cosine {min(cos)}")
+
+    # ------------------------------------------- the card against the CPU
+    rng = np.random.RandomState(SEED + 51)
+    h, w = INT8_CPU_SHAPE
+    small = {"images": rng.randint(0, 256, (1, h, w, 3), dtype=np.uint8),
+             "image_sizes": np.array([[h, w]], np.int32),
+             "original_sizes": np.array([[h, w]], np.int32)}
+    p = unpack_wire(split.run_edge(head, small["images"],
+                                   small["image_sizes"],
+                                   small["original_sizes"]))
+    cpu_model = build_model(STUDENT_MODEL).requires_grad_(False)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    sites = {}
+    for side, m in (("gpu", model), ("cpu", cpu_model)):
+        tail_q = int8 if side == "gpu" else qi.Int8SplitTail(m, scales)
+        z = wire_tensor(p, tail_q.device)
+        sites[side] = {}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            tail_q.trunk(z, sites[side])
+        if side == "gpu":
+            torch.cuda.synchronize()
+        log(f"[int8] {side} walk of the {tuple(p.tensor.shape)} wire: "
+            f"{time.perf_counter() - t0:.3f} s")
+    check(list(sites["gpu"]) == list(sites["cpu"]) and len(sites["cpu"]) == 44,
+          "the card's and the CPU's walks have other sites")
+    for name, q in sites["cpu"].items():
+        check(torch.equal(sites["gpu"][name].cpu(), q),
+              f"int8 site {name}: the card's codes differ from the CPU's")
+    log(f"[int8] card vs CPU on the {tuple(p.tensor.shape)} wire: the codes "
+        f"of all 44 sites identical "
+        f"({sum(q.numel() for q in sites['cpu'].values())} codes)")
+    del cpu_model, sites
+
+    # ------------------------------------------ the Mask and Keypoint heads
+    for i, cfg in enumerate((MASK_STUDENT_MODEL, KEYPOINT_STUDENT_MODEL)):
+        m = live_norms_(get_model(cfg, seed=SEED + 52 + i, device=dev),
+                        SEED + 52 + i).requires_grad_(False)
+        one = one_image(served[0], 0)
+        sp = SplitRCNN(m, 8)
+        h_call, t_call, _ = sp.build()
+        t8 = qi.Int8SplitTail(m, qi.calibrate_from_images(
+            m, [one["images"]])).build()
+        wire = sp.run_edge(h_call, one["images"], one["image_sizes"],
+                           one["original_sizes"])
+        d8 = sp.run_server(t8, wire, BUCKETS[0])
+        dfp = sp.run_server(t_call, wire, BUCKETS[0])
+        check(set(d8) == set(dfp), f"{cfg['name']} int8 tail: keys")
+        for k, v in dfp.items():
+            check(d8[k].shape == v.shape, f"{cfg['name']} int8 tail: {k}")
+            check(d8[k].dtype.kind != "f" or bool(np.isfinite(d8[k]).all()),
+                  f"{cfg['name']} int8 tail: non-finite {k}")
+        log(f"[int8] {cfg['name']} batch 1: int8 tail keys and shapes the "
+            f"float tail's, finite ({sorted(d8)})")
+        del m
+    torch.cuda.empty_cache()
+
+    # ----------------------------------- cost_analyzer on the fixture
+    val = {"images": os.path.join(root, "val"),
+           "annotations": os.path.join(root, "instances_val_teacher.json"),
+           "remove_non_annotated_imgs": False, "jpeg_quality": None}
+    config = {"dataset": {"name": "fixture", "num_workers": 4,
+                          "splits": {k: val for k in ("train", "val",
+                                                      "test")}},
+              "student_model": dict(STUDENT_MODEL, ckpt=os.path.join(
+                  root, "student.pt")),
+              "test": {"batch_size": 1}, "tpu": GHND_TPU}
+    args = cost_analyzer.get_argparser().parse_args(
+        ["--config", "config/ghnd/faster_rcnn-backbone_resnet50-b3ch.yaml",
+         "--device", str(dev), "--split_model", "--int8_tail",
+         "--calib_images", str(INT8_CALIB_IMAGES)])
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    res = cost_analyzer.run(config, args)["split_model"]
+    wall = time.perf_counter() - t0
+    analyzer = kernel_counts()
+    n = len(res["int8_tail_s"])
+    check(n == len(res["tail_s"]) and n > 0
+          and analyzer["int8_conv"] == 46 * n,
+          f"cost_analyzer --int8_tail: {n} int8 tails, "
+          f"{analyzer['int8_conv']} int8_conv launches")
+    delta = res["int8_map_delta"]["bbox"]
+    check(bool(np.isfinite(delta)), f"int8 mAP delta {delta}")
+    log(f"[int8] cost_analyzer --split_model --int8_tail on the fixture in "
+        f"{wall:.3f} s: {n} images, int8 tail mAP delta [bbox] {delta:+.6f} "
+        f"(float {res['evaluator'].stats['bbox'][0]:.6f}, int8 "
+        f"{res['int8_evaluator'].stats['bbox'][0]:.6f}); tails "
+        f"{np.median(res['tail_s']) * 1e3:.3f} / "
+        f"{np.median(res['int8_tail_s']) * 1e3:.3f} ms wall (float / int8, "
+        "medians at batch 1)")
+
+    # --------------------------------------------------------- times
+    times = {}
+    for b in SPLIT_TIMED_BATCHES:
+        batch = served[0] if b == EVAL_BATCH else one_image(served[0], 0)
+        bucket = tuple(batch["images"].shape[1:3])
+        images = torch.from_numpy(batch["images"]).to(dev)
+        sizes = torch.from_numpy(batch["image_sizes"]).to(dev)
+        q, scale, zp, _ = split.head_fn(images)
+        fp_ms = time_ms(lambda: split.tail_fn(q, scale, zp, sizes, bucket))
+        q8_ms = time_ms(lambda: int8.tail_fn(q, scale, zp, sizes, bucket))
+        wire = split.run_edge(head, batch["images"], batch["image_sizes"],
+                              batch["original_sizes"])
+        walls = {"fp": [], "int8": []}
+        for _ in range(REPS):
+            for key, call in (("fp", tail), ("int8", int8_call)):
+                t0 = time.perf_counter()
+                split.run_server(call, wire, bucket)
+                walls[key].append((time.perf_counter() - t0) * 1e3)
+        times[b] = {"fp_ms": fp_ms, "int8_ms": q8_ms,
+                    "fp_wall_ms": statistics.median(walls["fp"]),
+                    "int8_wall_ms": statistics.median(walls["int8"])}
+        log(f"[int8] {card}: batch {b} at {bucket}: float tail {fp_ms:.3f} "
+            f"ms, int8 tail {q8_ms:.3f} ms (CUDA events, median of {REPS}); "
+            f"wall from bytes to host detections {times[b]['fp_wall_ms']:.3f}"
+            f" / {times[b]['int8_wall_ms']:.3f} ms")
+        if b == EVAL_BATCH:
+            z = QK.dequantize(QuantizedTensor(q, scale, zp))
+            body = model.backbone.body
+            zc = z.permute(0, 3, 1, 2).contiguous()
+
+            def float_trunk():
+                y = body.layer1.decode(zc)
+                for stage in (2, 3, 4):
+                    y = getattr(body, f"layer{stage}")(y)
+                return y
+
+            with torch.no_grad():
+                trunk_fp = time_ms(float_trunk)
+                trunk_q8 = time_ms(lambda: int8.trunk(z))
+            log(f"[int8] batch {b}: trunk alone (decoder + layers 2-4) "
+                f"float {trunk_fp:.3f} ms, int8 {trunk_q8:.3f} ms (CUDA "
+                "events)")
+    del model, int8, served
+    torch.cuda.empty_cache()
+    return {"int8_tail": launches, "cost_analyzer_int8": analyzer}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2726,6 +3160,7 @@ def main() -> int:
     stem_kernels_phase(dev, kernels)
     roi_train_kernels_phase(dev, kernels)
     int8_kernels_phase(dev, kernels)
+    int8_conv_kernels_phase(dev, kernels)
     for name, k in kernels.items():
         lib = "" if k["library_ms"] is None else \
             f", {k['library_ms']:.4f} ms library"
@@ -2883,6 +3318,11 @@ def main() -> int:
         runner.update(ext_phase(dev, root, card))
         # ------------------------------------------------------ 12. split
         split_launches = split_phase(dev, root, card)
+        # --------------------------------------------- 13. the int8 tail
+        int8_launches = int8_tail_phase(dev, root, card)
+    # the int8 convolution's launches: cost_analyzer --int8_tail's, the
+    # entry point a user calls
+    launches["int8_conv"] = int8_launches["cost_analyzer_int8"]["int8_conv"]
 
     # ---------------------------------------------------------- result
     # launches: the runners' (the main path) where they run the kernel, else
@@ -2905,7 +3345,9 @@ def main() -> int:
              "coco_ext": {k: runner["coco_ext"][k] for k in
                           ("roi_align", "quantize", "dequantize")},
              "split": {k: split_launches[k] for k in
-                       ("quantize", "dequantize", "roi_align", "stem_fwd")}}
+                       ("quantize", "dequantize", "roi_align", "stem_fwd")},
+             **{path: {k: v for k, v in int8_launches[path].items() if v}
+                for path in ("int8_tail", "cost_analyzer_int8")}}
     out = []
     for name, k in kernels.items():
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}

@@ -14,11 +14,14 @@ src/cost_analyzer.py), with its flags and its printed lines:
     float16 and 8-bit (codec/datalogger.py);
   * ``--split_model`` (with ``--quantization 8|16|<=0``, ``-skip_tail`` and
     ``--max_images``): the split deployment (split/deploy.py) image by
-    image, head -> bytes -> tail, its latencies, wire sizes and COCO mAP.
+    image, head -> bytes -> tail, its latencies, wire sizes and COCO mAP;
+    with ``--int8_tail`` (an 8-bit wire), the int8 server tail
+    (split/int8.py) calibrated on the first ``--calib_images`` images also
+    serves every wire, with its latency and its mAP delta against the
+    float tail.
 
-The analysis selectors take a split name; a bare flag means ``test``.
-``--int8_tail`` raises: the int8 server tail is ROADMAP A11.  The models
-run on the card unless ``--device cpu``.
+The analysis selectors take a split name; a bare flag means ``test``.  The
+models run on the card unless ``--device cpu``.
 
     python -m hnd_ghnd_tpu_torch.runners.cost_analyzer --config <yaml> \\
         -model_params --data_size --bottleneck_size --split_model \\
@@ -43,6 +46,7 @@ from hnd_ghnd_tpu_torch.models.convert import jax_params_from_state_dict
 from hnd_ghnd_tpu_torch.models.factory import get_iou_types, get_model
 from hnd_ghnd_tpu_torch.models.rcnn import RCNN
 from hnd_ghnd_tpu_torch.runners import common
+from hnd_ghnd_tpu_torch.split import int8 as qi
 from hnd_ghnd_tpu_torch.split.deploy import (SplitRCNN, _split_head_params,
                                              _split_tail_params)
 from hnd_ghnd_tpu_torch.utils.params import count_tree_params, get_by_path
@@ -72,7 +76,8 @@ def get_argparser() -> argparse.ArgumentParser:
     parser.add_argument("-skip_tail", action="store_true",
                         help="skip measuring inference time for tail model")
     parser.add_argument("--int8_tail", action="store_true",
-                        help="not ported (ROADMAP A11): raises")
+                        help="also serve with the int8 server tail "
+                             "(8-bit wire)")
     parser.add_argument("--calib_images", type=int, default=8,
                         help="calibration images for --int8_tail")
     parser.add_argument("--max_images", type=int, default=None,
@@ -239,21 +244,43 @@ def analyze_bottleneck_size(model: RCNN, loader, quant_bits: int,
     return logger
 
 
+def _int8_tail(model: RCNN, loader, calib_images: int):
+    """The int8 server tail (split/int8.py) calibrated on the first
+    ``calib_images`` real images of ``loader``, as its tail_call."""
+    calib = [batch["images"][i:i + 1]
+             for batch, i, _ in _live_images(loader, calib_images)]
+    scales = qi.calibrate_from_images(model, calib)
+    print(f"int8 tail calibrated on {len(calib)} images "
+          f"({len(scales)} activation sites)")
+    return qi.Int8SplitTail(model, scales).build()
+
+
 def analyze_split_model_inference(model: RCNN, loader, quant_bits: int,
                                   max_images: Optional[int],
                                   ext_threshold: Optional[float],
-                                  skip_tail: bool = False) -> Dict[str, Any]:
+                                  skip_tail: bool = False,
+                                  int8_tail: bool = False,
+                                  calib_images: int = 8) -> Dict[str, Any]:
     """Each image through run_edge -> bytes -> run_server, fed to a
-    CocoEvaluator.  The latency lines are the mean ± std of the host's wall
-    times without the first sample, which carries the first calls at a new
-    shape (the kernels' build, cuDNN's first calls), as JAX's leaves out
-    its compile.  Returns {"head_s", "tail_s", "wire_kb", "evaluator"
-    (None under ``skip_tail``)}."""
+    CocoEvaluator; with ``int8_tail`` each wire also goes through the int8
+    tail, fed to a second one.  The latency lines are the mean ± std of the
+    host's wall times without the first sample, which carries the first
+    calls at a new shape (the kernels' build, cuDNN's first calls), as
+    JAX's leaves out its compile.  Returns {"head_s", "tail_s", "wire_kb",
+    "evaluator" (None under ``skip_tail``), and under ``int8_tail``
+    "int8_tail_s", "int8_evaluator", "int8_map_delta" (by IoU type)}."""
     common.configure_precision(torch.float32)
     split = SplitRCNN(model, quant_bits if quant_bits > 0 else None)
     head_call, tail_call, _ = split.build()
     evaluator = CocoEvaluator(loader.dataset, get_iou_types(model))
-    head_times, tail_times, wire_kb = [], [], []
+    int8_call = int8_evaluator = None
+    if int8_tail:
+        if quant_bits != 8:
+            raise ValueError("--int8_tail requires an 8-bit wire "
+                             f"(--quantization 8), not {quant_bits}")
+        int8_call = _int8_tail(model, loader, calib_images)
+        int8_evaluator = CocoEvaluator(loader.dataset, get_iou_types(model))
+    head_times, tail_times, int8_times, wire_kb = [], [], [], []
     for batch, i, tgt in _live_images(loader, max_images):
         bucket = tuple(batch["images"].shape[1:3])
         t0 = time.perf_counter()
@@ -263,9 +290,11 @@ def analyze_split_model_inference(model: RCNN, loader, quant_bits: int,
                               ext_threshold=ext_threshold)
         head_times.append(time.perf_counter() - t0)
         if wire is None:  # the ext filter stopped it: an empty prediction
-            evaluator.update({tgt["image_id"]: {
-                "boxes": np.zeros((0, 4)), "scores": np.zeros(0),
-                "labels": np.zeros(0, np.int64)}})
+            for ev in (evaluator, int8_evaluator):
+                if ev is not None:
+                    ev.update({tgt["image_id"]: {
+                        "boxes": np.zeros((0, 4)), "scores": np.zeros(0),
+                        "labels": np.zeros(0, np.int64)}})
             continue
         wire_kb.append(len(wire) / 1024.0)
         if skip_tail:
@@ -279,7 +308,14 @@ def analyze_split_model_inference(model: RCNN, loader, quant_bits: int,
         tail_times.append(time.perf_counter() - t0)
         evaluator.update({tgt["image_id"]: finalize_predictions(
             dets, 0, tuple(tgt["original_size"]), valid)})
-    for name, times in (("head", head_times), ("tail", tail_times)):
+        if int8_call is not None:
+            t0 = time.perf_counter()
+            dets8 = split.run_server(int8_call, wire, bucket)
+            int8_times.append(time.perf_counter() - t0)
+            int8_evaluator.update({tgt["image_id"]: finalize_predictions(
+                dets8, 0, tuple(tgt["original_size"]), valid)})
+    for name, times in (("head", head_times), ("tail", tail_times),
+                        ("int8 tail", int8_times)):
         if times:
             arr = np.asarray(times[1:] or times)
             print(f"{name} latency: {arr.mean() * 1000:.2f} ± "
@@ -287,10 +323,23 @@ def analyze_split_model_inference(model: RCNN, loader, quant_bits: int,
     summarize_data_sizes(wire_kb, "wire payload")
     out = {"head_s": head_times, "tail_s": tail_times, "wire_kb": wire_kb,
            "evaluator": None}
-    if not skip_tail:
-        evaluator.accumulate()
-        evaluator.summarize()
-        out["evaluator"] = evaluator
+    if skip_tail:
+        return out
+    evaluator.accumulate()
+    stats = evaluator.summarize()
+    out["evaluator"] = evaluator
+    if int8_evaluator is not None:
+        print("int8 tail evaluation:")
+        int8_evaluator.accumulate()
+        stats8 = int8_evaluator.summarize()
+        out.update(int8_tail_s=int8_times, int8_evaluator=int8_evaluator,
+                   int8_map_delta={})
+        for t in stats:
+            delta = float(stats8[t][0]) - float(stats[t][0])
+            out["int8_map_delta"][t] = delta
+            print(f"int8 tail mAP delta [{t}]: {delta:+.4f} "
+                  f"(fp {float(stats[t][0]):.4f} -> "
+                  f"int8 {float(stats8[t][0]):.4f})")
     return out
 
 
@@ -298,9 +347,6 @@ def run(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
     """``main`` after the config is loaded.  Returns each analysis' result
     by its flag's name."""
     common.check_unported_args(args)
-    if getattr(args, "int8_tail", False):
-        raise NotImplementedError("--int8_tail: the int8 server tail "
-                                  "(split/int8.py) is ROADMAP A11")
     model_cfg = config.get("student_model", config.get("model"))
     model = get_model(model_cfg, seed=args.seed, device=args.device).eval()
     loaders = dict(zip(("train", "val", "test"),
@@ -338,7 +384,9 @@ def run(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
         out["split_model"] = analyze_split_model_inference(
             model, loader_for(args.split_model), args.quantization,
             args.max_images, ext_threshold,
-            skip_tail=getattr(args, "skip_tail", False))
+            skip_tail=getattr(args, "skip_tail", False),
+            int8_tail=getattr(args, "int8_tail", False),
+            calib_images=getattr(args, "calib_images", 8))
     return out
 
 

@@ -15,7 +15,10 @@ changed detection shows.
     same loader and weights;
   * ``--bottleneck_size`` logs the (C, H, W) of the b3ch bottleneck;
   * ``-skip_tail`` prints the head's latency and the wire's size only;
-    bare selector flags mean ``test``; ``--int8_tail`` raises naming A11;
+    bare selector flags mean ``test``;
+  * ``--split_model --int8_tail`` calibrates the int8 tail and prints its
+    latency and mAP delta lines in JAX's format; a 16-bit wire with
+    ``--int8_tail`` raises, as JAX's assert does;
   * ``visualizer`` writes one overlay and one count line an image, from an
     image and from a directory.
 """
@@ -159,10 +162,29 @@ def test_bare_selector_flags_mean_test():
     assert args.device == "cuda"
 
 
-def test_int8_tail_raises_naming_a11(setup):
+def test_int8_tail_prints_latency_and_map_delta(setup, capsys):
     cfg_path, _, _, _ = setup
-    with pytest.raises(NotImplementedError, match="A11"):
-        cost_analyzer.main(_args(cfg_path, "--split_model", "--int8_tail"))
+    out = cost_analyzer.main(_args(cfg_path, "--split_model", "--int8_tail",
+                                   "--calib_images", "1"))
+    printed = capsys.readouterr().out
+    assert "int8 tail calibrated on 1 images (44 activation sites)" in printed
+    assert "int8 tail latency:" in printed
+    assert "int8 tail evaluation:" in printed
+    split = out["split_model"]
+    assert len(split["int8_tail_s"]) == len(split["tail_s"]) == 2
+    delta = split["int8_map_delta"]["bbox"]
+    stats, stats8 = (split[k].stats["bbox"]
+                     for k in ("evaluator", "int8_evaluator"))
+    assert delta == float(stats8[0]) - float(stats[0])
+    assert (f"int8 tail mAP delta [bbox]: {delta:+.4f} (fp {stats[0]:.4f} "
+            f"-> int8 {stats8[0]:.4f})") in printed
+
+
+def test_int8_tail_requires_an_8_bit_wire(setup):
+    cfg_path, _, _, _ = setup
+    with pytest.raises(ValueError, match="8-bit wire"):
+        cost_analyzer.main(_args(cfg_path, "--split_model", "--int8_tail",
+                                 "--quantization", "16"))
 
 
 @pytest.mark.parametrize("from_dir", [False, True], ids=["image", "dir"])

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import BUCKETS, EVAL_BATCH, INT8_CONV_ODD, int8_trunk_convs
 from chip_smoke import box_mix as _boxes
 from chip_smoke import quant_input as _x
 from hnd_ghnd_tpu_torch.codec import quantizer as tq
@@ -676,3 +677,65 @@ def test_stem_kernels_reject_what_they_do_not_take(cuda):
         SK.stem_fwd(x, weight[:32], scale, bias)
     with pytest.raises(ValueError):
         SK.stem_dw(x, torch.zeros(1, 64, 16, 15, device=cuda))
+
+
+def _int8_conv_cases():
+    """Every distinct conv of the int8 tail's trunk at batch 8 on the
+    832x1344 bucket, then chip_smoke's odd cases: (id, NHWC codes shape,
+    C_out, kernel, stride, pad, groups)."""
+    seen, cases = set(), []
+    for name, shape, cout, k, stride, pad in int8_trunk_convs(BUCKETS[0],
+                                                             EVAL_BATCH):
+        if (shape, cout, k, stride, pad) not in seen:
+            seen.add((shape, cout, k, stride, pad))
+            cases.append((name, shape, cout, k, stride, pad, 1))
+    return cases + list(INT8_CONV_ODD)
+
+
+@pytest.mark.parametrize("name,shape,cout,k,stride,pad,groups",
+                         _int8_conv_cases(), ids=lambda v: str(v))
+def test_int8_conv_kernel_bit_exact_vs_plain(cuda, name, shape, cout, k,
+                                             stride, pad, groups):
+    from hnd_ghnd_tpu_torch.ops import int8_conv as IC
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + cout)
+    x = torch.randint(-128, 128, shape, generator=gen, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (cout, k, k, shape[3] // groups),
+                      generator=gen, device=cuda, dtype=torch.int8)
+    n = IC.int8_conv.launches
+    got = IC.int8_conv(x, w, stride, pad, groups)
+    assert IC.int8_conv.launches == n + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, IC.int8_conv_plain(x, w, stride, pad, groups))
+
+
+def test_int8_conv_kernel_at_storage_offset_1(cuda):
+    """Codes 1 byte past an aligned address load byte by byte."""
+    from hnd_ghnd_tpu_torch.ops import int8_conv as IC
+    base = torch.randint(-128, 128, (2 * 19 * 23 * 64 + 1,), device=cuda,
+                         dtype=torch.int8)
+    x = base[1:].view(2, 19, 23, 64)
+    w = torch.randint(-127, 128, (96, 3, 3, 64), device=cuda,
+                      dtype=torch.int8)
+    assert torch.equal(IC.int8_conv(x, w, 1, 1),
+                       IC.int8_conv_plain(x, w, 1, 1))
+
+
+def test_int8_conv_kernel_rejects_what_it_does_not_take(cuda):
+    from hnd_ghnd_tpu_torch.ops import int8_conv as IC
+    x = torch.zeros(1, 8, 8, 16, device=cuda, dtype=torch.int8)
+    w = torch.zeros(32, 3, 3, 16, device=cuda, dtype=torch.int8)
+    with pytest.raises(TypeError):
+        IC.int8_conv(x.float(), w)
+    with pytest.raises(TypeError):
+        IC.int8_conv(x, w.to(torch.uint8))
+    with pytest.raises(ValueError):
+        IC.int8_conv(x.transpose(1, 2), w)    # not contiguous NHWC
+    with pytest.raises(ValueError):
+        IC.int8_conv(x, w[..., :8].contiguous())  # C / groups does not fit
+    with pytest.raises(ValueError):
+        IC.int8_conv(x, w, groups=3)
+    with pytest.raises(ValueError):
+        IC.int8_conv(x[:, :2, :2].contiguous(), w)  # no output pixel
+    with pytest.raises(ValueError):
+        IC.int8_conv(x, w.cpu())

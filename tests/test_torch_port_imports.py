@@ -6,8 +6,8 @@ supervised-training, heads, ext and split slices are imported, built and
 run once on a tiny input (one distill epoch of one step, one coco_runner
 epoch of one bfloat16 step, each with its eval, the eval of the Mask and
 Keypoint R-CNN students with int8 pooling tables, the gated ext model's
-eval and one ext step, and a split head -> bytes -> tail with the
-DataLogger), then jax, the JAX package, PIL, cv2, yaml, sklearn and pandas
+eval and one ext step, a split head -> bytes -> tail with the DataLogger,
+and the int8 server tail on the same wire), then jax, the JAX package, PIL, cv2, yaml, sklearn and pandas
 must be absent from ``sys.modules`` (they are not promised on the GPU
 host).  The host modules of the runners (config, data, evals with the ROC
 metrics, checkpoints, logging, the cost analyzer and the visualizer with
@@ -31,13 +31,13 @@ import hnd_ghnd_tpu_torch._build
 from hnd_ghnd_tpu_torch.codec import datalogger, jpeg, quantizer
 from hnd_ghnd_tpu_torch.models import (bottleneck, convert, ext, factory,
     fpn, layers, rcnn, resnet, roi_heads, rpn)
-from hnd_ghnd_tpu_torch.ops import (anchors, boxes, nms, quant_kernels,
-    roi_align, roi_align_kernels, stem, stem_kernels)
+from hnd_ghnd_tpu_torch.ops import (anchors, boxes, int8_conv, nms,
+    quant_kernels, roi_align, roi_align_kernels, stem, stem_kernels)
 from hnd_ghnd_tpu_torch.distill import box, losses
 from hnd_ghnd_tpu_torch.parallel import train_step
 from hnd_ghnd_tpu_torch.runners import (coco_runner, common, cost_analyzer,
     ext_runner, mimic_runner, visualizer)
-from hnd_ghnd_tpu_torch.split import deploy
+from hnd_ghnd_tpu_torch.split import deploy, int8
 from hnd_ghnd_tpu_torch.utils import ckpt, logging, params, visual_util
 from hnd_ghnd_tpu_torch.core import config
 from hnd_ghnd_tpu_torch.data import coco, loader, transforms
@@ -56,6 +56,9 @@ wire = split.run_edge(head, batch["images"], batch["image_sizes"],
                       batch["original_sizes"])
 dets = split.run_server(tail, wire, (64, 64))
 assert np.array_equal(dets["boxes"], rec["dets"]["boxes"])
+int8_tail = int8.Int8SplitTail(model, int8.calibrate_from_images(
+    model, [batch["images"]])).build()
+assert split.run_server(int8_tail, wire, (64, 64))["boxes"].shape == (1, 100, 4)
 z, _, _, _ = deploy.SplitRCNN(model, None).build()[0](batch["images"])
 assert datalogger.DataLogger(8)(z)[0].shape == (1, 20, 20, 3)
 teacher = factory.get_model(TEACHER_MODEL, seed=1, device="cpu")
@@ -103,7 +106,7 @@ from hnd_ghnd_tpu_torch.utils import ckpt, logging
 from hnd_ghnd_tpu_torch.runners import (coco_runner, common, cost_analyzer,
     ext_runner, mimic_runner, visualizer)
 from hnd_ghnd_tpu_torch.codec import datalogger, jpeg
-from hnd_ghnd_tpu_torch.split import deploy
+from hnd_ghnd_tpu_torch.split import deploy, int8
 from hnd_ghnd_tpu_torch.utils import visual_util
 for name in ("load_config", "overwrite_config"):
     assert callable(getattr(config, name))
