@@ -31,6 +31,18 @@ training phase, batch 2 at 832x1344): its stages between device syncs
 (trunk and FPN, RPN proposals, RPN loss, RoI sampling, RoI loss, backward,
 SGD update), host syncs per step, and the same profiler breakdown.
 
+    python3 chip_profile.py --int8 [--out ...]
+
+profiles only the int8 server tail's trunk (split/int8.py) at batch 8 on
+832x1344: the serving student calibrated as chip_smoke.py's int8 phase
+calibrates it, one wire, and the trunk up to the NCHW float32 stage
+features the FPN reads.  Its latency (CUDA events), then a profiler trace:
+device time by kernel name and by aten op and input shapes (which tells
+the border-map add, the dequantized features and the NCHW copies from the
+other elementwise passes).  It needs only ``Int8SplitTail.trunk`` (and
+``trunk_nchw`` where the package has it), so the same script profiles an
+older checkout when run from that checkout's root.
+
 Prints one line per result and, last, one JSON object holding them all.
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -388,13 +400,120 @@ def layout_ab(model, batches):
     return out
 
 
+def _self_device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def int8_trunk_profile(dev):
+    """The int8 trunk at batch 8 on 832x1344, to the FPN's NCHW inputs:
+    latency, device time by kernel name and by aten op and input shapes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import INT8_CALIB_IMAGES
+    from hnd_ghnd_tpu_torch.codec.quantizer import QuantizedTensor
+    from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
+    from hnd_ghnd_tpu_torch.split import int8 as qi
+    from hnd_ghnd_tpu_torch.split.deploy import SplitRCNN
+    os.environ["HND_TPU_PALLAS_STEM"] = "0"
+    model = serving_model(dev)
+    served = serving_batches(np.random.RandomState(SEED + 50))[0]
+    scales = qi.calibrate_from_images(
+        model, [served["images"][i:i + 1] for i in range(INT8_CALIB_IMAGES)])
+    tail = qi.Int8SplitTail(model, scales)
+    q, scale, zp, _ = SplitRCNN(model, 8).head_fn(
+        torch.from_numpy(served["images"]).to(dev))
+    z = QK.dequantize(QuantizedTensor(q, scale, zp))
+    if hasattr(tail, "trunk_nchw"):
+        features = tail.trunk_nchw
+    else:  # the int8 tail before the fused epilogue: NHWC features
+        def features(x):
+            return [f.permute(0, 3, 1, 2).contiguous() for f in tail.trunk(x)]
+
+    def unit():
+        with torch.no_grad():
+            return features(z)
+
+    for _ in range(3):
+        unit()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        unit()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    out = {"batch": tuple(z.shape), "trunk_ms": statistics.median(times),
+           "trunk_ms_runs": times}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(FORWARDS):
+            unit()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = {}
+    for e in device:
+        n, tot = kernels.get(e.name, (0, 0.0))
+        kernels[e.name] = (n + 1, tot + e.time_range.end - e.time_range.start)
+    busy = _busy_us([(e.time_range.start, e.time_range.end)
+                     for e in device]) / 1e3 / FORWARDS
+    out.update(busy_ms=busy, device_events=len(device) / FORWARDS,
+               kernels=[{"name": k[:160], "calls": n / FORWARDS,
+                         "ms": v / 1e3 / FORWARDS}
+                        for k, (n, v) in sorted(kernels.items(),
+                                                key=lambda kv: -kv[1][1])])
+    ops = []
+    for evt in prof.key_averages(group_by_input_shape=True):
+        us = _self_device_us(evt)
+        if us > 0 and evt.key.startswith("aten::"):
+            ops.append({"op": evt.key, "shapes": str(evt.input_shapes)[:160],
+                        "calls": evt.count / FORWARDS,
+                        "ms": us / 1e3 / FORWARDS})
+    out["aten_ops"] = sorted(ops, key=lambda o: -o["ms"])
+    del model, tail, z
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON result to this file")
+    ap.add_argument("--int8", action="store_true",
+                    help="profile only the int8 tail's trunk")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
+    if args.int8:
+        from hnd_ghnd_tpu_torch.runners.common import configure_precision
+        dev = torch.device("cuda", 0)
+        card = gpu_name_and_power()
+        log(f"[setup] card: {card}; torch {torch.__version__} "
+            f"cuda {torch.version.cuda}")
+        configure_precision(torch.float32)
+        result = {"card": card, "int8_trunk": int8_trunk_profile(dev)}
+        r = result["int8_trunk"]
+        log(f"[int8] trunk {r['batch']}: {r['trunk_ms']:.3f} ms (CUDA "
+            f"events, median of {REPEATS}); device busy {r['busy_ms']:.3f} "
+            f"ms, {r['device_events']:.0f} device events per trunk")
+        for k in r["kernels"][:TOP_KERNELS * 2]:
+            log(f"[int8] kernel {k['ms']:.3f} ms x{k['calls']:.0f} "
+                f"{k['name'][:110]}")
+        for o in r["aten_ops"][:TOP_KERNELS * 3]:
+            log(f"[int8] op {o['ms']:.3f} ms x{o['calls']:.0f} {o['op']} "
+                f"{o['shapes'][:100]}")
+        line = json.dumps(result)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(line + "\n")
+        print(line, flush=True)
+        return 0
     from hnd_ghnd_tpu_torch.runners.common import (configure_precision,
                                                    eval_forward)
 

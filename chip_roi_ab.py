@@ -1,5 +1,6 @@
-"""The bottleneck quantizer pair, RoIAlign, level quantizer and stem kernels
-of two checkouts of the repository, in turns, on one GPU.
+"""The bottleneck quantizer pair, RoIAlign, level quantizer, stem kernels
+and the int8 tail's trunk of two checkouts of the repository, in turns, on
+one GPU.
 
     python3 chip_roi_ab.py --old-tree OLD --out DIR/ab.json [--groups G,...]
 
@@ -24,7 +25,13 @@ at the main path's shapes:
     float32 levels;
   * the stem's ``stem_fwd``, ``stem_fwd_res`` and ``stem_dw`` on a batch-4
     input of each bucket (the distill step's), [4, 3, 832, 1344] and
-    [4, 3, 1344, 832].
+    [4, 3, 1344, 832];
+  * the int8 server tail's trunk (``Int8SplitTail``, its 46 convolutions
+    on csrc/int8_conv.cu, B6) at batch 8 on a served batch of each bucket,
+    from the dequantized wire to the NCHW float32 features the FPN reads;
+    the serving student of chip_smoke.py calibrated as its int8 phase
+    calibrates it.  The codes of all 44 sites and the features must agree
+    bit for bit between the checkouts.
 
 Each time is a median of chip_smoke.REPS CUDA-event timings, read both ways
 chip_smoke reads them (``chip_smoke.timings``): ``ms`` as the caller sees
@@ -47,7 +54,8 @@ quantizer's abs-max pass (with its memset) and codes pass
 pair, the launch floors (an empty cooperative kernel with one grid barrier
 on quantize's grid, an empty kernel on dequantize's) and ``torch.aminmax``.
 
-``--groups`` runs only some of them (pair, roi, levels, backward, stem).
+``--groups`` runs only some of them (pair, roi, levels, backward, stem,
+int8).
 Writes the turns and, per case, old and new (each the mean of its two
 turns) and their ratio, with the card's name and power limit, to FILE as
 JSON; each turn's own record goes beside it.  Without a GPU it exits
@@ -59,6 +67,7 @@ import argparse
 import contextlib
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -67,16 +76,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chip_smoke import (BUCKETS, EVAL_BATCH, ORG_BATCH, ROI_TOL, SEED,
-                        STEM_DW_TOL, STEM_FWD_TOL, TRAIN_BATCH, TRAIN_ROIS,
-                        bf16_ulp, box_mix, gpu_name_and_power, log,
-                        quant_input, stem_inputs, time_ms, timings)
+from chip_smoke import (BUCKETS, EVAL_BATCH, INT8_CALIB_IMAGES, ORG_BATCH,
+                        ROI_TOL, SEED, STEM_DW_TOL, STEM_FWD_TOL, TRAIN_BATCH,
+                        TRAIN_ROIS, bf16_ulp, box_mix, gpu_name_and_power,
+                        log, quant_input, serving_batches, serving_model,
+                        stem_inputs, time_ms, timings)
 
 HERE = Path(__file__).resolve().parent
 TURNS = ("old", "new", "new", "old")
 # the bottleneck pair, the RoIAlign forwards, the level quantizer, the
-# RoIAlign backward, the stem
-GROUPS = ("pair", "roi", "levels", "backward", "stem")
+# RoIAlign backward, the stem, the int8 tail's trunk
+GROUPS = ("pair", "roi", "levels", "backward", "stem", "int8")
 
 
 def digest(t: torch.Tensor) -> str:
@@ -223,6 +233,55 @@ def stem_cases(tree: Path, dev: torch.device, saved: Path):
         log(f"[ab {tree.name}] stem {shape} max abs errors: {errs}")
         del x, g, got, dw
         torch.cuda.empty_cache()
+
+
+def int8_trunk_cases(tree: Path, dev: torch.device):
+    """The int8 tail's trunk of the checkout at ``tree``: the serving
+    student calibrated on INT8_CALIB_IMAGES served images, then the trunk
+    of a batch-8 wire of each bucket up to the NCHW features (the
+    package's ``trunk_nchw`` where it has one, else its NHWC features
+    copied to NCHW as its ``tail_fn`` copies them).  The sites' codes and
+    the features are digested for the other checkout.  Yields the
+    records."""
+    from hnd_ghnd_tpu_torch.codec.quantizer import QuantizedTensor
+    from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
+    from hnd_ghnd_tpu_torch.split import int8 as qi
+    from hnd_ghnd_tpu_torch.split.deploy import SplitRCNN
+    os.environ["HND_TPU_PALLAS_STEM"] = "0"
+    model = serving_model(dev)
+    served = serving_batches(np.random.RandomState(SEED + 50))[:2]
+    scales = qi.calibrate_from_images(
+        model, [served[0]["images"][i:i + 1]
+                for i in range(INT8_CALIB_IMAGES)])
+    tail = qi.Int8SplitTail(model, scales)
+    split = SplitRCNN(model, 8)
+    if hasattr(tail, "trunk_nchw"):
+        features = tail.trunk_nchw
+    else:
+        def features(z):
+            return [f.permute(0, 3, 1, 2).contiguous() for f in tail.trunk(z)]
+    for batch in served:
+        bucket = tuple(batch["images"].shape[1:3])
+        q, scale, zp, _ = split.head_fn(
+            torch.from_numpy(batch["images"]).to(dev))
+        z = QK.dequantize(QuantizedTensor(q, scale, zp))
+        sites = {}
+        with torch.no_grad():
+            feats = [f.permute(0, 3, 1, 2).contiguous()
+                     for f in tail.trunk(z, sites)]
+            bits = digest(torch.cat(
+                [c.reshape(-1) for c in sites.values()]
+                + [f.reshape(-1).view(torch.int8) for f in feats]))
+            rec = dict(name=f"int8 trunk {bucket[0]}x{bucket[1]}",
+                       shape=list(z.shape), digest=bits, sites=len(sites),
+                       **timings(lambda: features(z)))
+        log(f"[ab {tree.name}] {rec['name']} {tuple(z.shape)}: "
+            f"{rec['ms']:.4f} ms ({rec['device_ms']:.4f} on the card); "
+            f"{len(sites)} sites")
+        yield rec
+        del q, z, sites, feats
+    del model, tail, split
+    torch.cuda.empty_cache()
 
 
 def bottleneck_cases_run(tree: Path, dev: torch.device, sweep: bool):
@@ -419,6 +478,7 @@ def turn(tree: Path, out: Path, sweep: bool, saved: Path, groups) -> int:
         del levels, cot, plain
         torch.cuda.empty_cache()
     cases += list(stem_cases(tree, dev, saved) if "stem" in groups else ())
+    cases += list(int8_trunk_cases(tree, dev) if "int8" in groups else ())
     out.write_text(json.dumps({"tree": str(tree), "cases": cases}, indent=1))
     return 0
 

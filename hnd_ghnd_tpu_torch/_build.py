@@ -47,8 +47,9 @@ _SIGNATURES = {
     "hnd_stem_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hnd_stem_dw_partials_size": [_I, _I, _I],
     "hnd_stem_dw": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "hnd_int8_conv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _P],
+    "hnd_int8_conv_fused": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                            ctypes.c_float, _P, _P, _P],
 }
 
 _lock = threading.Lock()

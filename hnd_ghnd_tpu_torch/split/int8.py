@@ -16,18 +16,20 @@ activations; the FPN, the RPN and the RoI heads stay float32.
     the in-image taps: a constant per channel without padding, a border
     map (integer, computed exactly once per input size) with it;
   * integer: the convolutions, int8 codes by int8 weights summed in int32
-    (ops/int8_conv.py, the CUDA kernel of csrc/int8_conv.cu on the card)
-    with the codes zero-padded;
-  * float32, plain torch elementwise ops in the JAX package's order: the
-    int32 sum to float, the zero point's share, the scale s_in sw, the
+    with the codes zero-padded, and float32 in the JAX package's order:
+    the int32 sum to float, the zero point's share, the scale s_in sw, the
     bias, the residual add, ReLU, and the requantization (an IEEE
     division by the site's scale, rounded half to even, clamped, cast).
+    ``ops/int8_conv.int8_conv_requant`` does both in one call: on the card
+    the CUDA kernel of csrc/int8_conv.cu, whose store applies the float
+    steps to the sums in its registers; on the CPU its plain version, the
+    same steps as eager torch ops.
 
-The walk keeps NHWC int8 codes between sites (the wire's layout);
-the stage outputs become NCHW float32 for the model's own FPN.  The
-calibration walk and the quantized walk share one traversal
-(``_trunk_walk``) parameterized by an ops kit, so their sites align by
-construction.
+The walk keeps NHWC int8 codes between sites (the wire's layout); the
+stage outputs come out of their convolutions as NCHW float32 for the
+model's own FPN.  The calibration walk and the quantized walk share one
+traversal (``_trunk_walk``) parameterized by an ops kit, so their sites
+align by construction.
 
 Bit-exactness: the fold and the weight quantization run on the CPU (the
 card's rsqrt is not the CPU's), the scales are float32 tensors on the
@@ -48,7 +50,8 @@ import torch.nn.functional as F
 from hnd_ghnd_tpu_torch.codec.quantizer import QuantizedTensor
 from hnd_ghnd_tpu_torch.models.rcnn import RCNN
 from hnd_ghnd_tpu_torch.ops import quant_kernels
-from hnd_ghnd_tpu_torch.ops.int8_conv import int8_conv, out_size
+from hnd_ghnd_tpu_torch.ops.int8_conv import (ZP as _ZP, int8_conv_requant,
+                                               out_size, requantize_plain)
 from hnd_ghnd_tpu_torch.split.deploy import SplitRCNN
 
 Folded = Dict[str, Any]
@@ -58,7 +61,6 @@ _BN_EPS = 1e-5  # the decoder's BatchNorm eps
 # the second and the fourth conv (models/bottleneck.py)
 _DEC_CONV_BN = ((2, 3), (4, 5), (7, 8), (9, 10))
 _DEC_RELU_AFTER = (1, 3)
-_ZP = 128  # zero point of a post-ReLU site: value = (q + 128) s
 
 
 # ---------------------------------------------------------------------------
@@ -204,7 +206,7 @@ class _CalibKit:
         self.amax[name] = x.abs().amax()
         return x
 
-    def conv(self, name, x, fw, stride=1, pad=0, relu=False):
+    def conv(self, name, x, fw, stride=1, pad=0, relu=False, feature=False):
         y = _conv_fp(x, fw, stride, pad)
         if relu:
             y = torch.relu(y)
@@ -213,7 +215,12 @@ class _CalibKit:
     def conv_fp_out(self, x, fw, stride=1, pad=0):
         return _conv_fp(x, fw, stride, pad)
 
-    def to_fp(self, x):
+    def conv_residual(self, name, x, fw, identity, feature=False):
+        """relu(conv3(x) + identity) at the block's output site."""
+        return self.site(name, torch.relu(_conv_fp(x, fw, 1, 0) + identity),
+                         unsigned=True)
+
+    def feature(self, name, x):
         return x
 
 
@@ -222,24 +229,27 @@ class _QuantKit:
     triples between sites, value = (q + zero point) scale with the zero
     point 0 or 128.  ``scales`` maps a site to its (s, s 127/255) as 0-d
     float32 tensors on the walk's device; ``sites``, when given, receives
-    each site's codes."""
+    each site's codes.  Every convolution is one ``int8_conv_requant``
+    call, its epilogue in its store; a stage output's convolution also
+    writes the output dequantized, NCHW (``feature``)."""
 
     def __init__(self, scales: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
                  sites: Optional[Dict[str, torch.Tensor]] = None):
         self.scales = scales
         self.sites = sites
+        self.features: Dict[str, torch.Tensor] = {}
+
+    def _record(self, name, codes, unsigned):
+        s, su = self.scales[name]
+        if self.sites is not None:
+            self.sites[name] = codes
+        return (codes, su, _ZP) if unsigned else (codes, s, 0)
 
     def site(self, name, x_fp, unsigned=False):
         s, su = self.scales[name]
-        if unsigned:
-            q = torch.clamp(torch.round(x_fp / su), 0, 255) - _ZP
-            out = (torch.nan_to_num(q, nan=0.0).to(torch.int8), su, _ZP)
-        else:
-            q = torch.clamp(torch.round(x_fp / s), -127, 127)
-            out = (torch.nan_to_num(q, nan=0.0).to(torch.int8), s, 0)
-        if self.sites is not None:
-            self.sites[name] = out[0]
-        return out
+        return self._record(name, requantize_plain(x_fp, su if unsigned
+                                                   else s, unsigned),
+                            unsigned)
 
     @staticmethod
     def _border_map(fw: Folded, hw: Tuple[int, int], stride: int,
@@ -260,64 +270,83 @@ class _QuantKit:
 
             m = torch.einsum("hi,wj,cij->hwc", inside(hw[0], kh),
                              inside(hw[1], kw), wsum)
-            m = (_ZP * m).to(torch.float32)[None]
+            m = (_ZP * m).to(torch.float32)[None].contiguous()
             fw["zp_maps"][hw] = m
         return m
 
-    def _acc(self, xq, fw, stride, pad):
+    def _requant(self, xq, fw, stride, pad, mode, **epilogue):
+        """The conv of ``xq`` by ``fw`` with the epilogue of ``mode``: y =
+        (float(acc) + zero point's share) (s_in sw) + b, then the mode's
+        steps.  True x = (q + 128) s: the share is 128 x the weights of the
+        in-image taps (zero-padded codes contribute 0, the true
+        padding)."""
         q, s_in, zp = xq
-        acc = int8_conv(q, fw["qw"], stride, pad, fw["groups"]).float()
+        share = None
         if zp:
-            # true x = (q + 128) s: add 128 x the weights of the in-image
-            # taps (zero-padded codes contribute 0, the true padding)
-            if pad == 0:
-                acc = acc + fw["zp_sum"]
-            else:
-                acc = acc + self._border_map(fw, tuple(q.shape[1:3]), stride,
-                                             pad)
-        return acc * (s_in * fw["sw"]) + fw["b"]
+            share = fw["zp_sum"] if pad == 0 else self._border_map(
+                fw, tuple(q.shape[1:3]), stride, pad)
+        return int8_conv_requant(q, fw["qw"], stride, pad, fw["groups"],
+                                 mode=mode, scale=s_in * fw["sw"],
+                                 bias=fw["b"], zp=share, **epilogue)
 
-    def conv(self, name, xq, fw, stride=1, pad=0, relu=False):
-        y = self._acc(xq, fw, stride, pad)
-        if relu:
-            y = torch.relu(y)
-        return self.site(name, y, unsigned=relu)
+    def _acc(self, xq, fw, stride, pad):
+        return self._requant(xq, fw, stride, pad, "float")
+
+    def _site_out(self, name, out, unsigned, feature):
+        codes = out
+        if feature:
+            codes, self.features[name] = out
+        return self._record(name, codes, unsigned)
+
+    def conv(self, name, xq, fw, stride=1, pad=0, relu=False, feature=False):
+        s, su = self.scales[name]
+        out = self._requant(xq, fw, stride, pad, "site",
+                            site_scale=su if relu else s, relu=relu,
+                            unsigned=relu, features=feature)
+        return self._site_out(name, out, relu, feature)
 
     def conv_fp_out(self, xq, fw, stride=1, pad=0):
         return self._acc(xq, fw, stride, pad)
 
-    def to_fp(self, xq):
-        q, s, zp = xq
-        return (q.float() + zp) * s
+    def conv_residual(self, name, xq, fw, identity, feature=False):
+        """relu(conv3(xq) + identity) at the block's output site, the
+        identity the downsample's float32 or the block input's codes."""
+        out = self._requant(xq, fw, 1, 0, "residual",
+                            site_scale=self.scales[name][1],
+                            identity=identity, features=feature)
+        return self._site_out(name, out, True, feature)
+
+    def feature(self, name, xq):
+        """The stage output ``name`` dequantized, NHWC (a view of the NCHW
+        tensor its convolution wrote)."""
+        return self.features.pop(name).permute(0, 2, 3, 1)
 
 
 def _trunk_walk(kit, z_fp: torch.Tensor, folded: Folded
                 ) -> List[torch.Tensor]:
     """decoder -> layers 2-4 on the NHWC wire tensor; returns the NHWC
-    float features of layer1..layer4."""
+    float features of layer1..layer4.  The sites, in order: dec_in,
+    dec0-dec3, then per block c1, c2 and out (relu(conv3 + identity))."""
     inv, shift = folded["dec_in"]
     x = kit.site("dec_in", torch.relu(z_fp.float() * inv + shift),
                  unsigned=True)
+    last = len(folded["dec"]) - 1
     for i, fw in enumerate(folded["dec"]):
         # decoder convs: kernel 2, stride 1, no padding
-        x = kit.conv(f"dec{i}", x, fw, relu=fw["relu"])
-    feats = [kit.to_fp(x)]
+        x = kit.conv(f"dec{i}", x, fw, relu=fw["relu"], feature=i == last)
+    feats = [kit.feature(f"dec{last}", x)]
     for s_i, blocks in enumerate(folded["stages"]):
         for b_i, blk in enumerate(blocks):
             stride = 2 if b_i == 0 else 1
             name = f"s{s_i}b{b_i}"
-            identity = x
             y = kit.conv(name + "c1", x, blk["conv1"], relu=True)
             y = kit.conv(name + "c2", y, blk["conv2"], stride=stride, pad=1,
                          relu=True)
-            y3 = kit.conv_fp_out(y, blk["conv3"])
-            if "downsample" in blk:
-                id_fp = kit.conv_fp_out(identity, blk["downsample"],
-                                        stride=stride)
-            else:
-                id_fp = kit.to_fp(identity)
-            x = kit.site(name + "out", torch.relu(y3 + id_fp), unsigned=True)
-        feats.append(kit.to_fp(x))
+            identity = x if "downsample" not in blk else kit.conv_fp_out(
+                x, blk["downsample"], stride=stride)
+            x = kit.conv_residual(name + "out", y, blk["conv3"], identity,
+                                  feature=b_i == len(blocks) - 1)
+        feats.append(kit.feature(name + "out", x))
     return feats
 
 
@@ -402,8 +431,14 @@ class Int8SplitTail:
     def trunk(self, z: torch.Tensor,
               sites: Optional[Dict[str, torch.Tensor]] = None
               ) -> List[torch.Tensor]:
-        """The int8 walk on NHWC float ``z``: NHWC float features."""
+        """The int8 walk on NHWC float ``z``: NHWC float features (views of
+        the NCHW ones)."""
         return _trunk_walk(_QuantKit(self.scales, sites), z, self.qfolded)
+
+    def trunk_nchw(self, z: torch.Tensor) -> List[torch.Tensor]:
+        """The int8 walk's features as the FPN reads them: contiguous NCHW
+        float32, as the stage outputs' convolutions wrote them."""
+        return [f.permute(0, 3, 1, 2) for f in self.trunk(z)]
 
     @torch.no_grad()
     def tail_fn(self, q_tensor: torch.Tensor, scale: torch.Tensor,
@@ -415,9 +450,8 @@ class Int8SplitTail:
             raise ValueError(f"the int8 tail takes the 8-bit wire, not "
                              f"{q_tensor.dtype}")
         model = self.model
-        feats = self.trunk(_dequantized(q_tensor, scale, zero_point))
-        fpn = model.backbone.fpn([f.permute(0, 3, 1, 2).contiguous()
-                                  for f in feats])
+        fpn = model.backbone.fpn(self.trunk_nchw(
+            _dequantized(q_tensor, scale, zero_point)))
         proposals, prop_valid, _ = model.rpn.propose(fpn, image_sizes,
                                                      tuple(bucket_hw))
         return model.roi_heads.infer(fpn, proposals, prop_valid, image_sizes,

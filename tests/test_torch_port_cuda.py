@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import BUCKETS, EVAL_BATCH, INT8_CONV_ODD, int8_trunk_convs
+from chip_smoke import (BUCKETS, EVAL_BATCH, INT8_CONV_ODD,
+                        INT8_EPILOGUE_CASES, int8_epilogue,
+                        int8_outputs_equal, int8_trunk_convs)
 from chip_smoke import box_mix as _boxes
 from chip_smoke import quant_input as _x
 from hnd_ghnd_tpu_torch.codec import quantizer as tq
@@ -739,3 +741,100 @@ def test_int8_conv_kernel_rejects_what_it_does_not_take(cuda):
         IC.int8_conv(x[:, :2, :2].contiguous(), w)  # no output pixel
     with pytest.raises(ValueError):
         IC.int8_conv(x, w.cpu())
+
+
+@pytest.mark.parametrize("epilogue", INT8_EPILOGUE_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("name,shape,cout,k,stride,pad,groups",
+                         _int8_conv_cases(), ids=lambda v: str(v))
+def test_int8_conv_requant_kernel_bit_exact_vs_plain(cuda, name, shape, cout,
+                                                     k, stride, pad, groups,
+                                                     epilogue):
+    """Each mode of the fused kernel equals its plain version bit for bit
+    (NaN where NaN), features included, on every distinct trunk shape at
+    batch 8 and the odd cases; the launch goes through the main loop that
+    ``template_for`` names."""
+    from hnd_ghnd_tpu_torch.ops import int8_conv as IC
+    _, mode, relu, zp_in, identity, features = epilogue
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + cout + 1)
+    x = torch.randint(-128, 128, shape, generator=gen, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (cout, k, k, shape[3] // groups),
+                      generator=gen, device=cuda, dtype=torch.int8)
+    kw = int8_epilogue(gen, x, w, stride, pad, groups, mode, relu, zp_in,
+                       identity, features)
+    path = IC.template_for(x, w, stride, groups)
+    n, before = IC.int8_conv_requant.launches, dict(IC.template_launches)
+    got = IC.int8_conv_requant(x, w, stride, pad, groups, **kw)
+    assert IC.int8_conv_requant.launches == n + 1
+    assert IC.template_launches[path] == before[path] + 1
+    assert int8_outputs_equal(
+        got, IC.int8_conv_requant_plain(x, w, stride, pad, groups, **kw))
+
+
+def test_int8_conv_requant_kernel_at_storage_offset_1(cuda):
+    """Codes 1 byte past an aligned address take the mma.sync main loop,
+    byte by byte, with the fused epilogue."""
+    from hnd_ghnd_tpu_torch.ops import int8_conv as IC
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    base = torch.randint(-128, 128, (2 * 19 * 23 * 64 + 1,), generator=gen,
+                         device=cuda, dtype=torch.int8)
+    x = base[1:].view(2, 19, 23, 64)
+    w = torch.randint(-127, 128, (128, 3, 3, 64), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    assert IC.template_for(x, w, 1) == "mma_sync"
+    assert IC.template_for(x.clone(), w, 1) == "wgmma"
+    kw = int8_epilogue(gen, x, w, 1, 1, 1, "site", True, True, None, True)
+    assert int8_outputs_equal(IC.int8_conv_requant(x, w, 1, 1, **kw),
+                              IC.int8_conv_requant_plain(x, w, 1, 1, **kw))
+
+
+def test_int8_conv_requant_rejects_what_it_does_not_take(cuda):
+    from hnd_ghnd_tpu_torch.ops import int8_conv as IC
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.zeros(1, 8, 8, 64, device=cuda, dtype=torch.int8)
+    w = torch.zeros(128, 3, 3, 64, device=cuda, dtype=torch.int8)
+    kw = int8_epilogue(gen, x, w, 1, 1, 1, "site", True, True, None, False)
+    with pytest.raises(ValueError):
+        IC.int8_conv_requant(x, w, 1, 1, **dict(kw, mode="requant"))
+    with pytest.raises(ValueError):  # float biases on the CPU
+        IC.int8_conv_requant(x, w, 1, 1, **dict(kw, bias=kw["bias"].cpu()))
+    with pytest.raises(ValueError):  # a share of the wrong width
+        IC.int8_conv_requant(x, w, 1, 1, **dict(kw, zp=kw["zp"][0, 0, 0]
+                                                .contiguous()[:64]))
+    with pytest.raises(ValueError):  # features of the float mode
+        IC.int8_conv_requant(x, w, 1, 1, **dict(kw, mode="float",
+                                                features=True))
+    with pytest.raises(ValueError):  # a float64 scale
+        IC.int8_conv_requant(x, w, 1, 1, **dict(kw, scale=kw["scale"]
+                                                .double()))
+    with pytest.raises(TypeError):
+        IC.int8_conv_requant(x.float(), w, 1, 1, **kw)
+
+
+@pytest.mark.parametrize("site_scale", [2.0 ** -70, 2.0 ** 70, 1e-30,
+                                        float("nan"), 2.0 ** -60],
+                         ids=["2^-70", "2^70", "1e-30", "nan", "2^-60"])
+def test_int8_conv_requant_kernel_site_scales_off_the_fast_quotient(
+        cuda, site_scale):
+    """Site scales outside [2^-60, 2^60] (and NaN) take IEEE __fdiv_rn,
+    2^-60 the branch-free quotient: both equal the plain version."""
+    from hnd_ghnd_tpu_torch.ops import int8_conv as IC
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randint(-128, 128, (2, 9, 10, 128), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (128, 3, 3, 128), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    for mode, relu, identity in (("site", False, None),
+                                 ("residual", True, "float")):
+        kw = int8_epilogue(gen, x, w, 1, 1, 1, mode, relu, True, identity,
+                           True)
+        kw["site_scale"] = torch.full((), site_scale, device=cuda)
+        # y near the scale's own size, so the codes spread
+        kw["scale"] = kw["scale"] * (site_scale / 2.0 ** -7
+                                     if site_scale == site_scale else 1.0)
+        kw["bias"] = kw["bias"] * (site_scale / 2.0 ** -7
+                                   if site_scale == site_scale else 1.0)
+        assert IC.template_for(x, w, 1) == "wgmma"
+        assert int8_outputs_equal(
+            IC.int8_conv_requant(x, w, 1, 1, **kw),
+            IC.int8_conv_requant_plain(x, w, 1, 1, **kw))

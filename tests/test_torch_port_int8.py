@@ -32,8 +32,21 @@ read the same numpy tensor.
   * the int8 walk tracks the float walk: cosine > 0.95 at every stage
     output (tests/test_int8.py's criterion);
   * the int8 tail of the Faster, Mask and Keypoint R-CNN students gives the
-    float tail's keys and shapes, finite.
+    float tail's keys and shapes, finite;
+  * ``int8_conv_requant_plain`` (the fused convolution's plain version) in
+    each mode equals ``int8_conv_plain`` followed by the walk's float32 ops
+    as eager torch ops (the int8 tail's sequence before the epilogue moved
+    into the kernel), bit for bit, with NaN, +-inf and half-way quotients,
+    and the border map of a padded conv; ``template_for`` sends 45 of the
+    trunk's 46 convolutions to the wgmma main loop;
+  * the kernel's branch-free site quotient (csrc/int8_conv.cu
+    ``quotient<true>``: RN(y RN(1/s)) and two fused corrections), emulated
+    with exact rational rounding, equals the IEEE quotient RN(y / s) on
+    quotients at and beside half-way points, where a one-ulp error would
+    move a code.
 """
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,8 +54,10 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from chip_smoke import (KEYPOINT_STUDENT_MODEL, MASK_STUDENT_MODEL,
-                        STUDENT_MODEL, live_norms_)
+from chip_smoke import (BUCKETS, EVAL_BATCH, INT8_CONV_ODD,
+                        INT8_EPILOGUE_CASES, KEYPOINT_STUDENT_MODEL,
+                        MASK_STUDENT_MODEL, STUDENT_MODEL, int8_epilogue,
+                        int8_outputs_equal, int8_trunk_convs, live_norms_)
 from hnd_ghnd_tpu.models.convert import convert_state_dict
 from hnd_ghnd_tpu.models.factory import build_model as jax_build_model
 from hnd_ghnd_tpu.split import int8 as jq
@@ -393,3 +408,145 @@ def test_int8_tail_gives_the_float_tails_outputs(weights, kind):
     head_key = {"mask_rcnn": "mask_probs",
                 "keypoint_rcnn": "keypoint_logits"}.get(kind)
     assert head_key is None or head_key in d_q8
+
+
+def _torch_sequence(q, qw, stride, pad, groups, mode, scale, bias, zp=None,
+                    site_scale=None, relu=False, unsigned=False,
+                    identity=None, features=False):
+    """The int32 sums, then the float32 epilogue as the int8 walk ran it op
+    by op in torch: zero point share, scale, bias, the residual's identity,
+    ReLU, divide, round, clamp, nan_to_num, cast; the features as the
+    dequantized codes copied to NCHW."""
+    acc = IC.int8_conv_plain(q, qw, stride, pad, groups).float()
+    if zp is not None:
+        acc = acc + zp
+    y = acc * scale + bias
+    if mode == "float":
+        return y
+    if mode == "residual":
+        if torch.is_tensor(identity):
+            id_fp = identity
+        else:
+            codes, s_id, zp_id = identity
+            id_fp = (codes.float() + zp_id) * s_id
+        y = torch.relu(y + id_fp)
+        unsigned = True
+    elif relu:
+        y = torch.relu(y)
+    if unsigned:
+        c = torch.clamp(torch.round(y / site_scale), 0, 255) - 128
+    else:
+        c = torch.clamp(torch.round(y / site_scale), -127, 127)
+    c = torch.nan_to_num(c, nan=0.0).to(torch.int8)
+    if not features:
+        return c
+    f = (c.float() + (128 if unsigned else 0)) * site_scale
+    return c, f.permute(0, 3, 1, 2).contiguous()
+
+
+@pytest.mark.parametrize("epilogue", INT8_EPILOGUE_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("shape,cout,k,stride,pad,groups", [
+    ((2, 7, 9, 16), 16, 1, 1, 0, 1),    # a 1x1 conv: constant zero point
+    ((2, 9, 8, 16), 16, 3, 2, 1, 1),    # strided, padded: the border map
+    ((1, 6, 7, 32), 16, 3, 1, 1, 2),    # grouped, padded
+], ids=["k1", "k3s2p1", "k3p1g2"])
+def test_int8_conv_requant_plain_equals_torch_sequence(shape, cout, k, stride,
+                                                       pad, groups, epilogue):
+    _, mode, relu, zp_in, identity, features = epilogue
+    gen = torch.Generator().manual_seed(sum(shape) + cout)
+    q = torch.randint(-128, 128, shape, generator=gen, dtype=torch.int8)
+    qw = torch.randint(-127, 128, (cout, k, k, shape[3] // groups),
+                       generator=gen, dtype=torch.int8)
+    kw = int8_epilogue(gen, q, qw, stride, pad, groups, mode, relu, zp_in,
+                       identity, features)
+    if zp_in:
+        assert kw["zp"].dim() == (1 if pad == 0 else 4)
+    got = IC.int8_conv_requant_plain(q, qw, stride, pad, groups, **kw)
+    assert int8_outputs_equal(got, _torch_sequence(q, qw, stride, pad, groups,
+                                                   **kw))
+    n = IC.int8_conv_requant.launches
+    assert int8_outputs_equal(
+        IC.int8_conv_requant(q, qw, stride, pad, groups, **kw), got)
+    assert IC.int8_conv_requant.launches == n  # the CPU takes the plain one
+    out = got[0] if features else got
+    if mode == "float":  # biases NaN, +inf, -inf
+        assert torch.isnan(out[..., 0]).all()
+        assert (out[..., 1] == float("inf")).all()
+        assert (out[..., 2] == -float("inf")).all()
+        return
+    # NaN -> code 0; +-inf -> the range's ends; half-way quotients round to
+    # even (2.5 -> 2, 3.5 -> 4, 254.5 -> 254, 0.5 -> 0, -2.5 -> -2)
+    if relu or mode == "residual":
+        want = [0, 127, -128, 2 - 128, 4 - 128, 254 - 128, -128]
+    else:
+        want = [0, 127, -127, 2, 4, -2, 0]
+    for c, v in enumerate(want):
+        assert (out[..., c] == v).all(), (c, out[..., c].unique())
+
+
+def test_int8_conv_templates_by_shape():
+    """The kernel's main loop is chosen from the shape (and alignment)
+    before the launch: wgmma for 45 of the trunk's 46 convolutions, mma.sync
+    for dec0 (C = 3), the odd cases and codes at an odd address."""
+    convs = int8_trunk_convs(BUCKETS[0], EVAL_BATCH)
+    paths = {}
+    for name, shape, cout, k, stride, _ in convs:
+        q = torch.empty(shape, dtype=torch.int8)
+        qw = torch.empty((cout, k, k, shape[3]), dtype=torch.int8)
+        paths[name] = IC.template_for(q, qw, stride)
+    assert len(paths) == 46 and paths.pop("dec0") == "mma_sync"
+    assert set(paths.values()) == {"wgmma"}
+    for _, shape, cout, k, stride, _, groups in INT8_CONV_ODD:
+        q = torch.empty(shape, dtype=torch.int8)
+        qw = torch.empty((cout, k, k, shape[3] // groups), dtype=torch.int8)
+        assert IC.template_for(q, qw, stride, groups) == "mma_sync"
+    q = torch.empty(2 * 5 * 5 * 64 + 1, dtype=torch.int8)[1:].view(2, 5, 5,
+                                                                   64)
+    qw = torch.empty((128, 3, 3, 64), dtype=torch.int8)
+    assert IC.template_for(q, qw) == "mma_sync"
+    assert IC.template_for(q.clone(), qw) == "wgmma"
+
+
+def _rn32(x: Fraction) -> Fraction:
+    """x rounded to the nearest float32, half to even (normal range)."""
+    if x == 0:
+        return Fraction(0)
+    a = abs(x)
+    e = a.numerator.bit_length() - a.denominator.bit_length()
+    if Fraction(2) ** e > a:
+        e -= 1
+    assert -126 <= e <= 127
+    unit = Fraction(2) ** (e - 23)
+    m = a / unit
+    q, rem = divmod(m.numerator, m.denominator)
+    if 2 * rem > m.denominator or (2 * rem == m.denominator and q % 2):
+        q += 1
+    return (1 if x > 0 else -1) * q * unit
+
+
+def test_branch_free_site_quotient_is_ieee_division():
+    """quotient<true> of csrc/int8_conv.cu: rs = RN(1/s), q0 = RN(y rs),
+    q1 = RN(q0 + RN(y - q0 s) rs), q2 = RN(q1 + RN(y - q1 s) rs), every
+    step one IEEE rounding (__fmul_rn, __fmaf_rn); held to RN(y / s) for
+    site scales across the kernel's range and y at and beside (n + 1/2) s,
+    where rint(y / s) turns on the last bit.  q0 alone misses a quarter of
+    these cases."""
+    rng = np.random.RandomState(11)
+    missed_by_q0 = 0
+    for i in range(1500):
+        s = np.float32(2.0 ** rng.uniform(-60, 60))
+        if i % 3 == 0:  # an unsigned site's scale, s 127/255
+            s = np.float32(s * np.float32(127.0 / 255.0))
+        y = np.float32((rng.randint(-300, 301) + 0.5) * float(s))
+        for _ in range(rng.randint(0, 3)):
+            y = np.nextafter(y, np.float32(np.inf if rng.rand() < 0.5
+                                           else -np.inf))
+        Y, S = Fraction(float(y)), Fraction(float(s))
+        rs = _rn32(1 / S)
+        q0 = _rn32(Y * rs)
+        q1 = _rn32(_rn32(Y - q0 * S) * rs + q0)
+        q2 = _rn32(_rn32(Y - q1 * S) * rs + q1)
+        want = _rn32(Y / S)
+        assert q2 == want, (float(y), float(s))
+        missed_by_q0 += q0 != want
+    assert missed_by_q0 > 100  # the cases reach the quotient's last bit
