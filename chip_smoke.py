@@ -78,7 +78,19 @@ paths, at full width with random weights and BN statistics from a seed:
     odd cases, and times the trunk's 46 launches beside ``torch._int_mm``
     on im2col'd codes; then the fused entry with the walk's epilogues on
     the same shapes and the odd cases in every mode, bit for bit, and the
-    46 fused launches in the walk's order beside their bound.
+    46 fused launches in the walk's order beside their bound;
+  * multi-process (``multiprocess_phase``, ROADMAP A12), with the stem
+    switch on: two ranks on the one card over gloo (NCCL refuses two ranks
+    on one device), each ``mimic_runner.run -distill -transform_bottleneck``
+    of the GHND b3ch config at batch 4 on its shard of 24 JPEGs of one
+    shape, one epoch, its shard of the runner phase's val and test splits
+    and the merged COCOeval; both ranks' global losses and merged stats
+    equal, their student parameters equal, and within MP_MOVE_TOL of one
+    process on the concatenated batch-8 stream from the same weights; the
+    stem, quantize/dequantize and f32 RoIAlign kernels launched in each
+    rank; then one rank through ``mimic_runner.main`` over NCCL
+    (``--dist_url env://``, WORLD_SIZE=1).  Two ranks on one card measure
+    the path, not scaling across cards.
 
 Each path checks that every kernel it runs was launched.  Any failed check
 raises.
@@ -94,6 +106,7 @@ from __future__ import annotations
 
 import copy
 import importlib.util
+import itertools
 import json
 import os
 import statistics
@@ -365,6 +378,36 @@ VIZ_IMAGES = 2
 INT8_CALIB_IMAGES = 4
 INT8_COS_MIN = 0.95
 INT8_CPU_SHAPE = (256, 384)
+# the multi-process phase: MP_WORLD ranks on the one card over gloo, each
+# ``mimic_runner.run -distill`` at batch TRAIN_BATCH on its shard of
+# MP_TRAIN_IMAGES JPEGs, one epoch; then one process on the concatenated
+# batch-8 stream.  MP_PORTRAITS[r] of shard r's images are portrait, the
+# last of its epoch order, the rest landscape: the shards fill other
+# numbers of batches (4 and 5 with the padded remainders), and every rank
+# stops at the loader's length, 3 landscape batches that concatenate.
+# The ranks' final student parameters against the one process's: each
+# leaf's move |p - p0| within MP_MOVE_TOL of the one process's move (L2
+# norms), but the two BN biases whose gradient is zero (the next BN
+# subtracts what they add), which Adam moves by float noise, each element
+# less than 2 x lr a step.  Adam moves an element whose gradient is near 0
+# by about lr whatever its sign, so the ratio follows the card's
+# run-to-run float noise: on the card it was at most 1.308e-4 in three runs
+# on one shape, and 3.541e-4 and above 8.4e-4 in two runs of this fixture;
+# MP_MOVE_TOL is about 6 times the largest.  Adam's moves hardly depend on
+# the gradient's scale, so the gradient is held too: each leaf's norm
+# after the ranks' reduction, before the first update, within MP_GRAD_TOL
+# of the one process's (the card: at most 2.053e-5; a DDP-style average
+# would be half of it); the losses as the distill phase holds the card to
+# the CPU
+GHND_YAML = "config/ghnd/faster_rcnn-backbone_resnet50-b3ch.yaml"
+MP_WORLD = 2
+MP_TRAIN_IMAGES = 28
+MP_PORTRAITS = (2, 1)
+MP_MOVE_TOL = 5e-3
+MP_GRAD_TOL = 1e-4
+MP_ZERO_GRAD = ("backbone.body.layer1.decoder.3.bias",
+                "backbone.body.layer1.decoder.8.bias")
+MP_TIMEOUT_S = 600.0
 
 
 def log(msg: str) -> None:
@@ -2056,19 +2099,21 @@ def write_keypoint_annotations(ann_file: str, out_file: str,
     return len(coco["annotations"])
 
 
-def write_runner_fixture(root: str, rng: np.random.RandomState) -> dict:
-    """COCO splits under ``root``: RUNNER_IMAGES JPEGs each, alternating
-    RUNNER_SHAPES, dark noise with 1-4 bright rectangles, each an
-    annotation (box and polygon) of a random COCO category.  Returns
-    {split: (image dir, annotation file)}."""
+def write_runner_fixture(root: str, rng: np.random.RandomState,
+                         counts: dict = RUNNER_IMAGES,
+                         shapes: tuple = RUNNER_SHAPES) -> dict:
+    """COCO splits under ``root``: ``counts[split]`` JPEGs each, alternating
+    ``shapes``, dark noise with 1-4 bright rectangles, each an annotation
+    (box and polygon) of a random COCO category.  Returns {split: (image
+    dir, annotation file)}."""
     from PIL import Image
     out = {}
-    for split, n in RUNNER_IMAGES.items():
+    for split, n in counts.items():
         img_dir = os.path.join(root, split)
         os.makedirs(img_dir, exist_ok=True)
         images, anns = [], []
         for i in range(n):
-            h, w = RUNNER_SHAPES[i % 2]
+            h, w = shapes[i % len(shapes)]
             arr = rng.randint(0, 60, (h, w, 3), dtype=np.uint8)
             for _ in range(rng.randint(1, 5)):
                 bw, bh = rng.randint(w // 12, w // 2), rng.randint(h // 12, h // 2)
@@ -3269,6 +3314,450 @@ def int8_tail_phase(dev: torch.device, root: str, card: str) -> dict:
     return {"int8_tail": launches, "cost_analyzer_int8": analyzer}
 
 
+def _card_timed(fn, store: list):
+    """``fn`` with the card synchronised before and after it; each call's
+    milliseconds appended to ``store``."""
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        store.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return timed
+
+
+def _capture_distill(mimic_runner, into: dict):
+    """Wrap ``mimic_runner.distill_coco`` so that ``into`` receives the
+    student's trainable parameters when it returns (``run`` then reloads
+    the best checkpoint) and the group's backend and size.  Returns the
+    original, to put back."""
+    import torch.distributed as dist
+    original = mimic_runner.distill_coco
+
+    def capture(teacher, student, *args, **kwargs):
+        hist = original(teacher, student, *args, **kwargs)
+        into["state"] = {n: p.detach().cpu() for n, p in
+                         student.named_parameters() if p.requires_grad}
+        up = dist.is_initialized()
+        into["backend"] = dist.get_backend() if up else None
+        into["world"] = dist.get_world_size() if up else 1
+        return hist
+
+    mimic_runner.distill_coco = capture
+    return original
+
+
+def _record_grad_norms(step, store: list) -> None:
+    """Wrap ``step.apply_update`` (an instance's, or a class's for every
+    step made later) so that ``store`` receives each update's gradient
+    norms, one per trainable leaf in the optimizer's order, as a device
+    tensor (no wait for the card)."""
+    original = (step if isinstance(step, type) else type(step)).apply_update
+
+    def apply_update(self):
+        store.append(torch.stack([
+            torch.linalg.vector_norm(p.grad.float()) for g in
+            self.optimizer.param_groups for p in g["params"]]))
+        return original(self)
+
+    if isinstance(step, type):
+        step.apply_update = apply_update
+    else:
+        step.apply_update = apply_update.__get__(step)
+
+
+def two_bucket_shapes(n: int, portraits, landscape: tuple,
+                      portrait: tuple) -> list:
+    """One (h, w) per image of an ``n``-image train split sharded over
+    ``len(portraits)`` ranks: ``portraits[r]`` of shard r's images, the
+    last of its epoch-0 order, ``portrait``, the rest ``landscape``."""
+    from hnd_ghnd_tpu_torch.data.loader import DetectionLoader
+    shapes = [landscape] * n
+    for r, k in enumerate(portraits):
+        order = DetectionLoader(range(n), 1, training=True, shard_index=r,
+                                num_shards=len(portraits))._order()
+        for i in order[len(order) - k:]:
+            shapes[i] = portrait
+    return shapes
+
+
+def _mp_rank(rank: int, port: int, config: dict, root: str, results) -> None:
+    """One rank of ``multiprocess_phase``, in a process of its own: puts
+    (rank, its record) on ``results``, or (rank, the traceback) if it
+    fails."""
+    try:
+        results.put((rank, _mp_rank_run(rank, port, config, root)))
+    except Exception:
+        import traceback
+        results.put((rank, traceback.format_exc()))
+
+
+def _mp_rank_run(rank: int, port: int, config: dict, root: str) -> dict:
+    """The rank's gloo group on card 0 (made here, as a caller that sets
+    up its own group does), then ``mimic_runner.run -distill
+    -transform_bottleneck -skip_teacher_eval --device cuda:0``.  Its
+    student's final trainable parameters go to ``root/mp_rank<r>.pt``."""
+    os.environ["HND_TPU_PALLAS_STEM"] = "1"
+    from hnd_ghnd_tpu_torch import _build
+    from hnd_ghnd_tpu_torch.parallel import multihost
+    from hnd_ghnd_tpu_torch.parallel.train_step import DistillStep
+    from hnd_ghnd_tpu_torch.runners import mimic_runner
+    from hnd_ghnd_tpu_torch.runners.common import configure_precision
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    check(_build.load() is not None, "kernel library did not load")
+    configure_precision(torch.float32)
+    multihost.init_distributed_mode(f"tcp://127.0.0.1:{port}", MP_WORLD,
+                                    rank, dev, backend="gloo",
+                                    timeout_s=MP_TIMEOUT_S)
+    # every cross-rank reduction (the BNs' and the step's), and the step's
+    # gradient bucket alone, on the card's clock
+    reduce_ms, grads_ms = [], []
+    multihost.all_reduce_ = _card_timed(multihost.all_reduce_, reduce_ms)
+    multihost.all_reduce_grads = _card_timed(multihost.all_reduce_grads,
+                                             grads_ms)
+    captured: dict = {}
+    _capture_distill(mimic_runner, captured)
+    grad_norms: list = []
+    _record_grad_norms(DistillStep, grad_norms)
+    args = mimic_runner.get_argparser().parse_args(
+        ["--config", GHND_YAML, "--device", "cuda:0", "-distill",
+         "-transform_bottleneck", "-skip_teacher_eval"])
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    result = mimic_runner.run(config, args)
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    torch.save(captured["state"], os.path.join(root, f"mp_rank{rank}.pt"))
+    multihost.destroy()
+    hist = result["distill"]
+    return {"steps": [tuple(s[:3]) for s in hist["steps"]],
+            "step_ms": [s[3] for s in hist["steps"]],
+            "epochs": [{"val_map": e["val_map"], "stats": e["stats"],
+                        "val_batches": e["eval"]["batches"],
+                        "merge_s": e["eval"]["merge_s"]}
+                       for e in hist["epochs"]],
+            "test_stats": result["student"]["stats"],
+            "test_batches": result["student"]["eval"]["batches"],
+            "test_merge_s": result["student"]["eval"]["merge_s"],
+            "counts": counts, "reduce_ms": reduce_ms, "grads_ms": grads_ms,
+            "grad_norms": [g.tolist() for g in grad_norms],
+            "backend": captured["backend"], "world": captured["world"],
+            "wall": wall}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(target, world: int, args: tuple, timeout_s: float) -> list:
+    """``target(rank, *args, results)`` in ``world`` spawned processes;
+    their records in rank order.  A rank that reports a failure, exits
+    without a record or is not done within ``timeout_s`` fails the phase;
+    every process is ended before this returns."""
+    import queue
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, *args, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out: dict = {}
+    try:
+        deadline = time.monotonic() + timeout_s
+        while len(out) < world:
+            try:
+                rank, rec = results.get(timeout=5.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in out and p.exitcode is not None]
+                check(not dead, f"rank(s) {dead} exited without a result")
+                check(time.monotonic() < deadline,
+                      f"ranks not done within {timeout_s} s")
+                continue
+            check(isinstance(rec, dict), f"rank {rank} failed:\n{rec}")
+            out[rank] = rec
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+    return [out[r] for r in range(world)]
+
+
+def subset_annotations(ann_file: str, out_file: str, n: int) -> None:
+    """``ann_file`` with its first ``n`` images, written to ``out_file``."""
+    with open(ann_file) as f:
+        coco = json.load(f)
+    coco["images"] = coco["images"][:n]
+    keep = {im["id"] for im in coco["images"]}
+    coco["annotations"] = [a for a in coco["annotations"]
+                           if a["image_id"] in keep]
+    with open(out_file, "w") as f:
+        json.dump(coco, f)
+
+
+def multiprocess_phase(dev: torch.device, root: str, card: str) -> dict:
+    """ROADMAP A12 on the card, with the stem switch on.  (a) MP_WORLD
+    ranks on card 0 over gloo (NCCL refuses two ranks on one device), each
+    ``mimic_runner.run -distill -transform_bottleneck`` with the GHND b3ch
+    config at batch TRAIN_BATCH on its shard of MP_TRAIN_IMAGES JPEGs in
+    two buckets (``two_bucket_shapes``: the shards' raw batch counts
+    differ, the ranks' steps do not), one epoch, its shard of the runner
+    phase's val split and the merged COCOeval; (b) one process, the same
+    weights, on the concatenated batch-8 stream of the shards' first
+    ``len(loader)`` batches; (c) one rank through
+    ``mimic_runner.main`` over NCCL (``--dist_url env://``, WORLD_SIZE=1),
+    one step and the evals.  Two ranks on one card measure the path, not
+    scaling across cards.  Returns each run's kernel launches."""
+    from hnd_ghnd_tpu_torch.models.convert import jax_params_from_state_dict
+    from hnd_ghnd_tpu_torch.models.factory import get_model
+    from hnd_ghnd_tpu_torch.parallel import multihost
+    from hnd_ghnd_tpu_torch.runners import common, mimic_runner
+    from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
+    os.environ["HND_TPU_PALLAS_STEM"] = "1"
+    t0 = time.perf_counter()
+    mp_root = os.path.join(root, "mp")
+    shapes = two_bucket_shapes(MP_TRAIN_IMAGES, MP_PORTRAITS,
+                               *RUNNER_SHAPES)
+    fx = write_runner_fixture(mp_root, np.random.RandomState(SEED + 20),
+                              {"train": MP_TRAIN_IMAGES}, tuple(shapes))
+    teacher, student = runner_models(dev)
+    ckpts = {}
+    for name, model in (("teacher", teacher), ("student", student),
+                        ("student_a", student), ("student_c", student)):
+        ckpts[name] = os.path.join(mp_root, f"{name}.pt")
+        params, state = jax_params_from_state_dict(model.state_dict())
+        ckpt_util.save_ckpt(ckpts[name], params=params, state=state)
+    del teacher, student
+    torch.cuda.empty_cache()
+    img_dir, ann = fx["train"]
+    val = {"images": os.path.join(root, "val"),
+           "annotations": os.path.join(root, "instances_val_teacher.json"),
+           "remove_non_annotated_imgs": False, "jpeg_quality": None}
+    train = {"images": img_dir, "annotations": ann,
+             "remove_non_annotated_imgs": True, "jpeg_quality": None}
+    config = {
+        "dataset": {"name": "fixture", "num_workers": 4, "splits": {
+            "train": train, "val": val, "test": val}},
+        "teacher_model": dict(TEACHER_MODEL, ckpt=ckpts["teacher"]),
+        "student_model": dict(STUDENT_MODEL, ckpt=ckpts["student_a"]),
+        "train": dict(TRAIN, num_epochs=1), "test": {"batch_size": 1},
+        "tpu": GHND_TPU}
+    log(f"[multi-process] fixture of {MP_TRAIN_IMAGES} JPEGs at "
+        f"{RUNNER_SHAPES[0]}, {sum(MP_PORTRAITS)} of them at "
+        f"{RUNNER_SHAPES[1]} ({MP_PORTRAITS} a shard), and the checkpoints "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------ (a) two ranks, gloo
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_mp_rank, MP_WORLD, (free_port(), config, mp_root),
+                        MP_TIMEOUT_S)
+    wall_a = time.perf_counter() - t0
+    r0 = ranks[0]
+    n_steps = len(r0["steps"])
+    want_steps = MP_TRAIN_IMAGES // MP_WORLD // TRAIN_BATCH
+    check(n_steps == want_steps, f"multi-process: {n_steps} steps a rank, "
+          f"want {want_steps}")
+    for r, rec in enumerate(ranks):
+        check(rec["backend"] == "gloo" and rec["world"] == MP_WORLD,
+              f"rank {r}: group {rec['backend']} of {rec['world']}")
+        check(rec["steps"] == r0["steps"], f"rank {r} logged other losses "
+              f"than rank 0: {rec['steps']} vs {r0['steps']}")
+        check(rec["epochs"][0]["stats"] == r0["epochs"][0]["stats"]
+              and rec["test_stats"] == r0["test_stats"],
+              f"rank {r}: merged COCOeval stats differ from rank 0's")
+        n_val, n_test = rec["epochs"][0]["val_batches"], rec["test_batches"]
+        want = {"stem_fwd": n_steps + n_val + n_test,
+                "stem_fwd_res": n_steps, "stem_dw": n_steps,
+                "quantize": n_val + n_test, "dequantize": n_val + n_test,
+                "roi_align": n_val + n_test}
+        for k, n in want.items():
+            check(rec["counts"][k] == n, f"rank {r}: {k} launched "
+                  f"{rec['counts'][k]} times, want {n}")
+        for idx, loss, _ in rec["steps"]:
+            check(np.isfinite(loss), f"rank {r} step {idx}: loss {loss}")
+        log(f"[multi-process] (a) rank {r}: run {rec['wall']:.3f} s, steps "
+            + " / ".join(f"{ms:.3f}" for ms in rec["step_ms"])
+            + f" ms, {n_val} val + {n_test} test batches of its shard; "
+            f"launches { {k: v for k, v in rec['counts'].items() if v} }")
+    for idx, loss, terms in r0["steps"]:
+        log(f"[multi-process] (a) step {idx}: global loss {loss:.6e} on "
+            f"both ranks, terms "
+            + " ".join(f"{k} {v:.6e}" for k, v in terms.items()))
+    log("[multi-process] (a) merged val bbox stats on both ranks: "
+        + " ".join(f"{v:.6f}" for v in r0["epochs"][0]["stats"]["bbox"])
+        + "; test: " + " ".join(f"{v:.6f}" for v in r0["test_stats"]["bbox"]))
+    states = [torch.load(os.path.join(mp_root, f"mp_rank{r}.pt"))
+              for r in range(MP_WORLD)]
+    for r in range(1, MP_WORLD):
+        check(states[r].keys() == states[0].keys() and all(
+            torch.equal(states[r][k], states[0][k]) for k in states[0]),
+            f"rank {r}'s student parameters are not rank 0's")
+
+    # ------------------------------- (b) one process, the global batch
+    teacher = get_model(config["teacher_model"], seed=SEED, device=dev)
+    student = get_model(dict(config["student_model"],
+                             ckpt=ckpts["student"]), seed=SEED + 1,
+                        device=dev)
+    loaders = [common.loaders_from_config(
+        config, student.kind, TRAIN_BATCH, min_sizes=(800,), shard_index=r,
+        num_shards=MP_WORLD)[0] for r in range(MP_WORLD)]
+    # the shards' own batch counts differ; a rank stops at len(loader)
+    raw = [sum(1 for _ in loader) for loader in loaders]
+    check(len(set(raw)) > 1 and min(raw) > len(loaders[0]) == n_steps,
+          f"multi-process: the shards yield {raw} batches, len(loader) "
+          f"{len(loaders[0])}, the ranks ran {n_steps} steps")
+    step = mimic_runner.make_step(teacher, student, config, len(loaders[0]))
+    grad_norms: list = []
+    _record_grad_norms(step, grad_norms)
+    student.train()
+    names = [n for n, p in student.named_parameters() if p.requires_grad]
+    start = {n: p.detach().cpu().clone() for n, p in
+             student.named_parameters() if p.requires_grad}
+    one, ms_b = [], []
+    for items in zip(*(itertools.islice(loader, len(loader))
+                       for loader in loaders)):
+        images = np.concatenate([b["images"] for b, _, _ in items])
+        x = common.to_device({"images": images}, dev)["images"]
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        loss, terms = step(x)
+        end.record()
+        end.synchronize()
+        ms_b.append(begin.elapsed_time(end))
+        one.append((float(loss), {k: float(v) for k, v in terms.items()}))
+    final = {n: p.detach().cpu() for n, p in student.named_parameters()
+             if p.requires_grad}
+    del teacher, student, step
+    torch.cuda.empty_cache()
+    check(len(one) == n_steps, f"one process: {len(one)} steps")
+    for i, ((loss, terms), (_, r_loss, r_terms)) in enumerate(
+            zip(one, r0["steps"])):
+        tol = LOSS_TOL_FIRST if i == 0 else LOSS_TOL_LATER
+        for name, a, b in [("loss", r_loss, loss)] + [
+                (k, r_terms[k], terms[k]) for k in terms]:
+            check(abs(a - b) <= tol * abs(b), f"step {i} {name}: ranks "
+                  f"{a} vs one process {b} (tol {tol})")
+    # the gradient of the first step, reduced over the ranks: the one
+    # process's on the global batch, not half of it
+    grads_a = [rec["grad_norms"][0] for rec in ranks]
+    for r in range(MP_WORLD):
+        check(grads_a[r] == grads_a[0],
+              f"rank {r}'s reduced gradient is not rank 0's")
+    grad_ratios = sorted(
+        ((abs(got - want) / want, name) for name, got, want in
+         zip(names, grads_a[0], grad_norms[0].tolist())
+         if name not in MP_ZERO_GRAD), reverse=True)
+    lr = float(TRAIN["optimizer"]["params"]["lr"])
+    move_ratios = []
+    for name, p in final.items():
+        moved = p - start[name]
+        got = states[0][name] - start[name]
+        if name in MP_ZERO_GRAD:
+            bound = 2 * lr * n_steps
+            check(float((got - moved).abs().max()) <= bound,
+                  f"{name}: ranks and one process apart by more than "
+                  f"{bound}")
+            continue
+        move_ratios.append((float((got - moved).norm() / moved.norm()), name))
+    move_ratios.sort(reverse=True)
+
+    def worst(ratios):
+        return ", ".join(f"{n} {r:.3e}" for r, n in ratios[:3])
+
+    log(f"[multi-process] (b) one process on the concatenated batch-"
+        f"{TRAIN_BATCH * MP_WORLD} stream: steps "
+        + " / ".join(f"{ms:.3f}" for ms in ms_b) + " ms; losses "
+        + " ".join(f"{l:.6e}" for l, _ in one) + f"; the shards' own batch "
+        f"counts {raw}, {n_steps} steps a rank; the ranks' first reduced "
+        f"gradient against its leaf norms, worst {worst(grad_ratios)} (tol "
+        f"{MP_GRAD_TOL}); their student parameters' moves against its, "
+        f"worst {worst(move_ratios)} (tol {MP_MOVE_TOL})")
+    check(grad_ratios[0][0] <= MP_GRAD_TOL, f"{grad_ratios[0][1]}: the "
+          f"ranks' first gradient norm is {grad_ratios[0][0]} of the one "
+          f"process's away from it (tol {MP_GRAD_TOL})")
+    check(move_ratios[0][0] <= MP_MOVE_TOL, f"{move_ratios[0][1]}: the "
+          f"ranks' move is {move_ratios[0][0]} of the one process's away "
+          f"from it (tol {MP_MOVE_TOL})")
+    global_batch = TRAIN_BATCH * MP_WORLD
+    ips_a = global_batch * (n_steps - 1) / sum(r0["step_ms"][1:]) * 1e3
+    ips_b = global_batch * (n_steps - 1) / sum(ms_b[1:]) * 1e3
+    grads = statistics.median(r0["grads_ms"])
+    others = (sum(r0["reduce_ms"]) - sum(r0["grads_ms"])) / n_steps
+    log(f"[multi-process] img/s at global batch {global_batch} (CUDA "
+        f"events of steps 1-{n_steps - 1}): (a) {MP_WORLD} ranks on one "
+        f"card over gloo {ips_a:.4f}, (b) one process {ips_b:.4f}; (a)'s "
+        f"spawn to exit {wall_a:.3f} s; on {card}")
+    log(f"[multi-process] all-reduce per step (rank 0, the card "
+        f"synchronised around each): the gradient bucket {grads:.3f} ms "
+        f"(median of {len(r0['grads_ms'])}), the BNs' statistics "
+        f"{others:.3f} ms; COCOeval merge {r0['epochs'][0]['merge_s'] * 1e3:.3f}"
+        f" ms (val), {r0['test_merge_s'] * 1e3:.3f} ms (test), waits "
+        "for the other rank included")
+
+    # --------------------------- (c) one rank through main, over NCCL
+    one_ann = os.path.join(mp_root, "instances_train_one_step.json")
+    subset_annotations(ann, one_ann, TRAIN_BATCH)
+    config_c = dict(config, dataset=dict(config["dataset"], splits=dict(
+        config["dataset"]["splits"], train=dict(train, annotations=one_ann))),
+        student_model=dict(STUDENT_MODEL, ckpt=ckpts["student_c"]))
+    path = os.path.join(mp_root, "nccl.yaml")
+    with open(path, "w") as f:
+        json.dump(config_c, f)         # JSON is YAML
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    captured: dict = {}
+    original = _capture_distill(mimic_runner, captured)
+    argv = ["--config", path, "--device", "cuda", "--dist_url", "env://",
+            "-distill", "-transform_bottleneck", "-student_only"]
+    args = mimic_runner.get_argparser().parse_args(argv)
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    try:
+        if importlib.util.find_spec("yaml") is None:
+            log("[multi-process] (c) no yaml here: run() with main's "
+                "arguments")
+            result = mimic_runner.run(config_c, args)
+        else:
+            result = mimic_runner.main(args)
+    finally:
+        mimic_runner.distill_coco = original
+        for k, v in saved_env.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    wall_c = time.perf_counter() - t0
+    nccl = kernel_counts()
+    steps_c = result["distill"]["steps"]
+    check(captured.get("backend") == "nccl" and captured["world"] == 1,
+          f"(c): group {captured.get('backend')} of {captured.get('world')}")
+    check(not multihost.group_up(), "(c): main left its group up")
+    check(len(steps_c) == 1 and np.isfinite(steps_c[0][1]),
+          f"(c): steps {steps_c}")
+    for k in ("stem_fwd", "stem_fwd_res", "stem_dw", "quantize",
+              "dequantize", "roi_align"):
+        check(nccl[k] > 0, f"(c): {k} never launched")
+    stats_c = result["student"]["stats"]["bbox"]
+    check(np.isfinite(stats_c).all(), f"(c): stats {stats_c}")
+    log(f"[multi-process] (c) mimic_runner.main, one rank over NCCL "
+        f"(--dist_url env://, WORLD_SIZE=1): 1 step {steps_c[0][3]:.3f} ms, "
+        f"loss {steps_c[0][1]:.6e}, val and test evals, {wall_c:.3f} s; "
+        f"launches { {k: v for k, v in nccl.items() if v} }")
+    return {"rank0": r0["counts"], "rank1": ranks[1]["counts"],
+            "nccl": nccl}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3573,6 +4062,9 @@ def main() -> int:
         split_launches = split_phase(dev, root, card)
         # --------------------------------------------- 13. the int8 tail
         int8_launches = int8_tail_phase(dev, root, card)
+        torch.cuda.empty_cache()
+        # ------------------------------------------ 14. multi-process
+        mp_launches = multiprocess_phase(dev, root, card)
     # the int8 convolution's launches: cost_analyzer --int8_tail's, the
     # entry point a user calls.  B6 runs there only through its fused entry;
     # the int8_conv row (its int32 mode, the yardstick) counts those
@@ -3609,7 +4101,9 @@ def main() -> int:
              "split": {k: split_launches[k] for k in
                        ("quantize", "dequantize", "roi_align", "stem_fwd")},
              **{path: {k: v for k, v in int8_launches[path].items() if v}
-                for path in ("int8_tail", "cost_analyzer_int8")}}
+                for path in ("int8_tail", "cost_analyzer_int8")},
+             **{f"multiprocess_{run}": {k: v for k, v in counts.items() if v}
+                for run, counts in mp_launches.items()}}
     out = []
     for name, k in kernels.items():
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}

@@ -17,7 +17,8 @@ patched pycocotools COCOeval) with the published COCOeval semantics:
 The matching and the mask IoUs run in numpy (the JAX package's native
 cocomask library is ROADMAP A15).  The host-side mask/keypoint
 postprocessing lives in evals/postprocess.py; this module consumes final
-predictions.
+predictions.  In a multi-process run each rank evaluates its shard and
+``CocoEvaluator.synchronize_between_processes`` merges them.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import numpy as np
 
 from hnd_ghnd_tpu_torch.data.coco import CocoDataset, ann_to_mask
 from hnd_ghnd_tpu_torch.evals import mask_rle
+from hnd_ghnd_tpu_torch.parallel import multihost
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.0, 101)
@@ -445,14 +447,41 @@ class CocoEvaluator:
                 ev.add_detections(dets, image_id)
 
     def synchronize_between_processes(self) -> None:
-        """One process holds every prediction: nothing to merge.  The
-        multi-process merge (the reference's pickle all_gather,
-        src/utils/coco_eval_util.py:158-177) is ROADMAP A12."""
-        import torch.distributed as dist
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "CocoEvaluator across processes is ROADMAP A12")
+        """Merge the ranks' evaluator state (JAX's merge,
+        hnd_ghnd_tpu/evals/coco_eval.py:481-510; the reference's pickle
+        all_gather and image-id dedup, src/utils/coco_eval_util.py:158-177).
+
+        Each rank contributes the images it evaluated; an image that two
+        ranks hold (a shard's wrap-around, a replicated eval) keeps the
+        lowest rank's copy.  Every rank then holds the full set, so
+        ``accumulate``/``summarize`` agree everywhere.  One process: nothing
+        to merge."""
+        if multihost.get_world_size() == 1:
+            return
+        payload = {t: (dict(ev.gts), dict(ev.dts), set(ev.img_ids),
+                       set(ev.cat_ids))
+                   for t, ev in self.evals.items()}
+        gathered = multihost.all_gather_objects(payload)
+        for t, ev in self.evals.items():
+            m_gts: Dict = {}
+            m_dts: Dict = {}
+            img_ids: set = set()
+            cat_ids: set = set()
+            for proc in gathered:
+                gts, dts, imgs, cats = proc[t]
+                fresh = imgs - img_ids
+                for key, v in gts.items():
+                    if key[0] in fresh:
+                        m_gts[key] = v
+                for key, v in dts.items():
+                    if key[0] in fresh:
+                        m_dts[key] = v
+                img_ids |= fresh
+                cat_ids |= cats
+            ev.gts = defaultdict(list, m_gts)
+            ev.dts = defaultdict(list, m_dts)
+            ev.img_ids = img_ids
+            ev.cat_ids = cat_ids
 
     def accumulate(self) -> None:
         for ev in self.evals.values():

@@ -17,7 +17,9 @@ the gradients land on the same leaves as in JAX.
 The trainable BatchNorm of the bottleneck is ``BatchNorm2d`` (eps=1e-5,
 momentum 0.1).  In train mode it normalises with the batch mean and the
 biased variance and updates the running variance with the unbiased one,
-as hnd_ghnd_tpu/models/layers.py:batch_norm does.
+as hnd_ghnd_tpu/models/layers.py:batch_norm does.  With more than one
+rank, those are the global batch's statistics (``_CrossProcessBatchNorm``),
+except under ``per_process_batch_norm``.
 
 The compute dtype follows the input, as in the JAX package
 (layers.py:70, 79, 87, 112-113, 127-128, 158-175): ``Conv2d``,
@@ -31,12 +33,16 @@ float32 and so compute another function than JAX's explicit casts.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from hnd_ghnd_tpu_torch.parallel import multihost
 
 
 class Conv2d(nn.Conv2d):
@@ -65,14 +71,110 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
+_CROSS_PROCESS = contextvars.ContextVar("cross_process_batch_norm",
+                                        default=True)
+
+
+@contextlib.contextmanager
+def per_process_batch_norm():
+    """Inside it, a training ``BatchNorm2d`` takes its statistics from its
+    own rank's batch, as a ``shard_map`` step's BNs do (the detection
+    step: hnd_ghnd_tpu/parallel/mesh.py:322-396)."""
+    token = _CROSS_PROCESS.set(False)
+    try:
+        yield
+    finally:
+        _CROSS_PROCESS.reset(token)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` computed in float32, returned in the input's
-    dtype (statistics and affine stay float32)."""
+    dtype (statistics and affine stay float32).
+
+    In training, with a process group of more than one rank up (and outside
+    ``per_process_batch_norm``), the statistics are those of the global
+    batch, every rank's, as JAX's GSPMD steps take them
+    (hnd_ghnd_tpu/models/layers.py:151-170): ``_CrossProcessBatchNorm``.
+    One process computes what ``nn.BatchNorm2d`` computes, bit for bit."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (self.training and _CROSS_PROCESS.get()
+                and multihost.get_world_size() > 1):
+            if self.weight is None or self.running_mean is None:
+                raise NotImplementedError("cross-process BatchNorm2d needs "
+                                          "an affine and running statistics")
+            self.num_batches_tracked.add_(1)
+            return _CrossProcessBatchNorm.apply(
+                x, self.weight, self.bias,
+                (self.running_mean, self.running_var), self.eps,
+                self.momentum)
         if x.dtype in (torch.float32, torch.float64):
             return super().forward(x)
         return super().forward(x.float()).to(x.dtype)
+
+
+def _channel_sum(t: torch.Tensor) -> torch.Tensor:
+    return t.sum(dim=(0, 2, 3))
+
+
+def _per_channel(v: torch.Tensor) -> torch.Tensor:
+    return v[None, :, None, None]
+
+
+class _CrossProcessBatchNorm(torch.autograd.Function):
+    """Training BatchNorm over the global batch of every rank.
+
+    Forward: the element count and the per-channel sum are all-reduced,
+    then the per-channel sum of squares about the global mean (two passes,
+    as ``xf.var`` is, not E[x^2] - E[x]^2); y = (x - mean) * (rsqrt(var +
+    eps) * weight) + bias in JAX's order.  The running statistics take
+    JAX's momentum update with the unbiased variance of the global count.
+    Backward: Sum(dy) and Sum(dy * xhat) are all-reduced; the affine's
+    gradients stay this rank's partial sums, for the step's gradient
+    all-reduce to combine.  Cross-rank sums travel in float64."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running, eps, momentum):
+        running_mean, running_var = running
+        xf = x.float()
+        f64 = torch.float64
+        count = torch.full((1,), xf.numel() // xf.shape[1], dtype=f64,
+                           device=x.device)
+        first = torch.cat([_channel_sum(xf).to(f64), count])
+        multihost.all_reduce_([first], "sum")
+        n = first[-1:]
+        mean = (first[:-1] / n).float()
+        centred = xf - _per_channel(mean)
+        second = _channel_sum(centred * centred).to(f64)
+        multihost.all_reduce_([second], "sum")
+        var = (second / n).float()
+        invstd = torch.rsqrt(var + eps)
+        y = centred * _per_channel(invstd * weight) + _per_channel(bias)
+        with torch.no_grad():
+            nf = n.float()
+            unbiased = var * nf / torch.clamp(nf - 1, min=1)
+            running_mean.copy_((1 - momentum) * running_mean
+                               + momentum * mean)
+            running_var.copy_((1 - momentum) * running_var
+                              + momentum * unbiased)
+        ctx.save_for_backward(centred * _per_channel(invstd), invstd,
+                              weight, n)
+        ctx.x_dtype = x.dtype
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        xhat, invstd, weight, n = ctx.saved_tensors
+        g = gy.float()
+        d_bias = _channel_sum(g)
+        d_weight = _channel_sum(g * xhat)
+        sums = torch.cat([d_bias, d_weight]).to(torch.float64)
+        multihost.all_reduce_([sums], "sum")
+        means = (sums / n).float()
+        c = d_bias.shape[0]
+        gx = (g - _per_channel(means[:c])
+              - xhat * _per_channel(means[c:])) * _per_channel(invstd * weight)
+        return gx.to(ctx.x_dtype), d_weight, d_bias, None, None, None
 
 
 class FrozenBatchNorm2d(nn.Module):

@@ -5,9 +5,23 @@ Counterpart of hnd_ghnd_tpu/parallel/mesh.py: ``build_schedule`` and
 Adam, SGD with momentum and weight decay, MultiStepLR, and the linear
 warmup of src/utils/main_util.py), ``images_to_compute`` (the pixel cast to
 the compute dtype), ``make_distill_train_step`` and
-``make_detection_train_step`` (the single-device branch of mesh.py:322-396).
-One card runs the step: there is no mesh, no ``steps_per_dispatch`` and no
-buffer donation.
+``make_detection_train_step`` (mesh.py:322-396).  A rank runs the step on
+one device: there is no mesh, no ``steps_per_dispatch`` and no buffer
+donation.  With a process group of N > 1 ranks up (parallel/multihost.py),
+each rank runs its shard of the global batch and the steps keep the JAX
+package's semantics (ROADMAP C2):
+
+  * ``DistillStep`` (GSPMD, the loss an MSE sum over the global batch):
+    the gradients and the logged loss and terms are summed over the ranks,
+    and the trainable BNs take the global batch's statistics, so N ranks
+    compute one process's step on the concatenated batch;
+  * ``DetectionStep`` (``shard_map``, DDP): each rank's own loss, BN
+    statistics of its own shard (``per_process_batch_norm``), the
+    gradients, loss, terms and float buffers averaged (``lax.pmean``), and
+    rank r's sampler draws from ``fold_in(seed, r)``.
+
+The reduced gradients, scalars and buffers go in one all-reduce per dtype,
+queued behind the backward: the step adds no host wait of its own.
 
 The optimizer holds only the parameters that ``requires_grad``: frozen
 ones have no gradient and stay bit-identical, as in the reference.  The
@@ -16,14 +30,16 @@ them by lr * weight_decay * p per step (ROADMAP C7).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from hnd_ghnd_tpu_torch.distill.box import DistillationBox
+from hnd_ghnd_tpu_torch.models.layers import per_process_batch_norm
 from hnd_ghnd_tpu_torch.models.rcnn import RCNN
 from hnd_ghnd_tpu_torch.models.rpn import Draw
+from hnd_ghnd_tpu_torch.parallel import multihost
 
 WARMUP_FACTOR = 1.0 / 1000.0
 # the reference's warmup: min(MAX_WARMUP, steps_per_epoch - 1) steps
@@ -104,6 +120,23 @@ class _Step:
         self.schedule = schedule
         self.step = 0
 
+    def all_reduce(self, loss: torch.Tensor, terms: Dict[str, torch.Tensor],
+                   op: str, buffers: Sequence[torch.Tensor] = ()
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The gradients of the optimizer's parameters, ``loss``, ``terms``
+        and ``buffers`` (in place) reduced over the ranks by ``op`` ("sum"
+        or "avg", parallel/multihost.py).  Returns the loss and terms
+        detached: at one rank, as they are; else the reduced float32
+        values."""
+        if multihost.get_world_size() == 1:
+            return loss.detach(), {k: v.detach() for k, v in terms.items()}
+        names = list(terms)
+        scalars = torch.stack([loss.detach().float()]
+                              + [terms[k].detach().float() for k in names])
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        multihost.all_reduce_grads(params, op, [scalars, *buffers])
+        return scalars[0], dict(zip(names, scalars[1:]))
+
     def apply_update(self) -> None:
         """The optimizer update from the gradients in ``.grad``."""
         lr = self.schedule(self.step)
@@ -129,8 +162,9 @@ class DistillStep(_Step):
         self.optimizer.zero_grad(set_to_none=True)
         loss, terms = self.box.loss(images_to_compute(images, torch.float32))
         loss.backward()
+        loss, terms = self.all_reduce(loss, terms, "sum")
         self.apply_update()
-        return loss.detach(), {k: v.detach() for k, v in terms.items()}
+        return loss, terms
 
 
 class DetectionStep(_Step):
@@ -153,11 +187,15 @@ class DetectionStep(_Step):
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         self.optimizer.zero_grad(set_to_none=True)
         images = images_to_compute(batch["images"], self.compute_dtype)
-        losses = self.model(dict(batch, images=images), targets, self.draw)
+        with per_process_batch_norm():
+            losses = self.model(dict(batch, images=images), targets,
+                                self.draw)
         loss = sum(losses.values())
         loss.backward()
+        buffers = [b for b in self.model.buffers() if b.is_floating_point()]
+        loss, losses = self.all_reduce(loss, losses, "avg", buffers)
         self.apply_update()
-        return loss.detach(), {k: v.detach() for k, v in losses.items()}
+        return loss, losses
 
 
 def make_distill_train_step(box: DistillationBox, optimizer_cfg: dict,
@@ -187,13 +225,16 @@ def make_detection_train_step(model: RCNN, optimizer_cfg: dict,
                               draw: Optional[Draw] = None,
                               seed: int = 0) -> DetectionStep:
     """The step over the model's parameters that ``requires_grad``; the
-    samplers draw from a ``torch.Generator`` seeded with ``seed`` on the
-    model's device unless ``draw`` is given."""
+    samplers draw from a ``torch.Generator`` on the model's device unless
+    ``draw`` is given, seeded with ``seed`` (one rank) or with
+    ``multihost.fold_in(seed, rank)``."""
     trainable = [p for p in model.parameters() if p.requires_grad]
     optimizer, schedule = build_optimizer(trainable, optimizer_cfg,
                                           scheduler_cfg, steps_per_epoch,
                                           warmup_iters)
     if draw is None:
         device = next(model.parameters()).device
+        if multihost.get_world_size() > 1:
+            seed = multihost.fold_in(seed, multihost.get_rank())
         draw = uniform_draw(torch.Generator(device=device).manual_seed(seed))
     return DetectionStep(model, optimizer, schedule, compute_dtype, draw)

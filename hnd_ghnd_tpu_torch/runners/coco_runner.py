@@ -19,7 +19,9 @@ unless the config says float32).
 
 ``train`` is the batch-level loop over given (batch, targets) pairs, whose
 evals return raw detections; ``train_coco`` is the runner's loop over the
-loaders.
+loaders.  N ranks (``torchrun``, or ``--dist_url env://``) run JAX's
+``shard_map`` step (parallel/train_step.py: each rank's loss and BN
+statistics, averaged gradients); rank 0 logs and writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import torch
 from hnd_ghnd_tpu_torch.core.config import load_config, overwrite_config
 from hnd_ghnd_tpu_torch.models.factory import get_model, load_weights
 from hnd_ghnd_tpu_torch.models.rcnn import RCNN
+from hnd_ghnd_tpu_torch.parallel import multihost
 from hnd_ghnd_tpu_torch.parallel.train_step import (MAX_WARMUP, DetectionStep,
                                                     make_detection_train_step)
 from hnd_ghnd_tpu_torch.runners import common
@@ -151,15 +154,17 @@ def train_coco(model: RCNN, config: Dict[str, Any], args: argparse.Namespace,
     history: Dict[str, List] = {"steps": [], "epochs": []}
     for epoch in range(int(config["train"]["num_epochs"])):
         train_loader.set_epoch(epoch)
-        done = train_epoch(step, train_loader)
+        done = train_epoch(step, common.epoch_batches(train_loader))
         history["steps"] += done.pop("steps")
+        common.mean_over_ranks(done)
         evaluator, times = common.coco_evaluate(model.eval(), val_loader)
         model.train()
         val_map = float(evaluator.stats["bbox"][0])
         saved = bool(val_map > best and ckpt_path)
         if saved:
             best = val_map
-            common.save_checkpoint(ckpt_path, model, step, best, config, args)
+            multihost.save_on_master(common.save_checkpoint, ckpt_path,
+                                     model, step, best, config, args)
             print(f"saved best ckpt (val mAP {val_map:.4f})", flush=True)
         history["epochs"].append({
             "val_map": val_map, "saved": saved, "train": done, "eval": times,
@@ -168,16 +173,25 @@ def train_coco(model: RCNN, config: Dict[str, Any], args: argparse.Namespace,
 
 
 def run(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
-    """``main`` after the config is loaded.  Returns {"train": the history
-    of ``train_coco`` (with -train), "test": {"stats", "eval"}}."""
+    """``main`` after the config is loaded, as one process or N ranks
+    (``common.distributed``; each trains and evaluates its shard).
+    Returns {"train": the history of ``train_coco`` (with -train), "test":
+    {"stats", "eval"}}."""
     common.check_unported_args(args)
-    model = get_model(config["model"], seed=args.seed, device=args.device)
+    with common.distributed(args) as device:
+        return _run(config, args, device)
+
+
+def _run(config: Dict[str, Any], args: argparse.Namespace,
+         device: torch.device) -> Dict[str, Any]:
+    model = get_model(config["model"], seed=args.seed, device=device)
     out: Dict[str, Any] = {}
     if args.train:
         min_sizes = common.keypoint_min_sizes(model.kind, True)
+        batch_size = int(config["train"]["batch_size"])
         train_loader, val_loader, _ = common.loaders_from_config(
-            config, model.kind, int(config["train"]["batch_size"]),
-            min_sizes=min_sizes)
+            config, model.kind, batch_size, min_sizes=min_sizes)
+        common.log_global_batch(batch_size, train_loader)
         out["train"] = train_coco(model, config, args, train_loader,
                                   val_loader)
     elif ckpt_util.check_if_exists(config["model"].get("ckpt")):

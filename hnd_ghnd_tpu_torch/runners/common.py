@@ -19,18 +19,24 @@ does (runners/common.py:180-184).  ``StepMetrics`` is its counterpart for
 the training loops: each step's loss and terms go to pinned host memory
 behind a CUDA event and are read one step later.
 
-One process on one device runs every loop: JAX's meshes, MicrobatchBuffer
-(``steps_per_dispatch``), JitCache and persistent compilation cache have no
-counterpart (XLA-only, or measured slower, BASELINE.md round 5).
+Each rank runs every loop on one device (``distributed``: the process
+group and the rank's card; the loaders shard by rank): JAX's meshes,
+MicrobatchBuffer (``steps_per_dispatch``), JitCache and persistent
+compilation cache have no counterpart (XLA-only, or measured slower,
+BASELINE.md round 5), nor has its one-process eval over many chips
+(common.py:320-341).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Any, Dict, Iterable, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -40,6 +46,7 @@ from hnd_ghnd_tpu_torch.evals.postprocess import finalize_predictions
 from hnd_ghnd_tpu_torch.models.convert import jax_params_from_state_dict
 from hnd_ghnd_tpu_torch.models.factory import get_iou_types, load_weights
 from hnd_ghnd_tpu_torch.models.rcnn import RCNN
+from hnd_ghnd_tpu_torch.parallel import multihost
 from hnd_ghnd_tpu_torch.parallel.train_step import images_to_compute
 from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
 
@@ -48,28 +55,75 @@ COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def add_common_args(parser: argparse.ArgumentParser) -> None:
-    """--config/--json/--device/--seed of every runner (reference
-    src/mimic_runner.py:17-29).  The runners run on the card unless
-    ``--device cpu``; ``--world_size`` above 1 raises (ROADMAP A12)."""
+    """--config/--json/--device/--seed and the process-group flags of every
+    runner (reference src/mimic_runner.py:17-29; JAX's
+    runners/common.py:30-48).  The runners run on the card unless
+    ``--device cpu``.  A multi-process run is N ranks, one device each,
+    launched by ``torchrun`` (RANK, WORLD_SIZE, LOCAL_RANK) or given
+    ``--process_id`` and ``--num_processes`` (``multihost.rendezvous_from``)."""
     parser.add_argument("--config", required=True, help="yaml config path")
     parser.add_argument("--json", default=None,
                         help="JSON string merged over the config")
     parser.add_argument("--device", default="cuda",
-                        help="torch device of the models (cuda or cpu)")
+                        help="torch device of the models: cuda (each rank "
+                             "the card of its LOCAL_RANK), cuda:K (every "
+                             "rank card K) or cpu")
     parser.add_argument("--world_size", type=int, default=None,
-                        help="number of processes; only 1 is ported")
+                        help="number of processes (each rank's RANK comes "
+                             "from torchrun or --process_id)")
+    parser.add_argument("--dist_url", default=None,
+                        help="rendezvous of the process group: env:// "
+                             "(MASTER_ADDR, MASTER_PORT) or tcp://host:port")
     parser.add_argument("--seed", type=int, default=0)
+    # JAX's multi-process flags; env fallbacks JAX_COORDINATOR_ADDRESS,
+    # JAX_NUM_PROCESSES, JAX_PROCESS_ID
+    parser.add_argument("--coordinator_address", default=None,
+                        help="host:port of rank 0 (tcp:// rendezvous)")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
 
 
 def check_unported_args(args: argparse.Namespace) -> None:
     """Raise on a flag whose feature the port does not have yet."""
-    if (getattr(args, "world_size", None) or 1) > 1:
-        raise NotImplementedError("--world_size > 1: multi-process runs are "
-                                  "ROADMAP A12")
     for flag in ("tb_dir", "profile_dir"):
         if getattr(args, flag, None):
             raise NotImplementedError(f"--{flag}: TensorBoard curves and the "
                                       "profiler trace are ROADMAP A18")
+
+
+def rank_device(device: str | torch.device) -> torch.device:
+    """This rank's device for ``--device``: ``cuda`` is the card of its
+    LOCAL_RANK, ``cuda:K`` card K whatever the rank (two ranks can share a
+    card), ``cpu`` the CPU.  A card that does not exist raises; a card
+    becomes the current CUDA device (NCCL's collectives run there)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu to run on the "
+                           "CPU")
+    index = multihost.local_rank() if dev.index is None else dev.index
+    if index >= torch.cuda.device_count():
+        raise RuntimeError(f"--device {device}: no CUDA device {index} (this "
+                           f"host has {torch.cuda.device_count()})")
+    torch.cuda.set_device(index)
+    return torch.device("cuda", index)
+
+
+@contextlib.contextmanager
+def distributed(args: argparse.Namespace):
+    """A runner's process group: this rank's device (``rank_device``), and
+    the group ``multihost.maybe_init_distributed`` finds (or the caller's,
+    when one is up).  Yields the device; a barrier at the end, then the
+    group is destroyed if it was made here."""
+    device = rank_device(getattr(args, "device", "cuda"))
+    created = multihost.maybe_init_distributed(args, device)
+    try:
+        yield device
+        multihost.barrier()
+    finally:
+        if created:
+            multihost.destroy()
 
 
 def keypoint_min_sizes(model_kind: str, training: bool) -> Tuple[int, ...]:
@@ -81,12 +135,21 @@ def keypoint_min_sizes(model_kind: str, training: bool) -> Tuple[int, ...]:
 
 
 def loaders_from_config(config: Dict[str, Any], model_kind: str,
-                        batch_size: int, min_sizes: Sequence[int] = (800,)):
-    """(train, val, test) loaders of one process from the config's
-    ``dataset`` and ``tpu`` blocks: the buckets, min sizes, max size,
-    ``pixel_dtype``, the per-epoch val batch (``tpu.eval_batch_size``) and
-    the test batch (``test.batch_size``, 1 by default, the reference's
-    protocol)."""
+                        batch_size: int, min_sizes: Sequence[int] = (800,),
+                        shard_index: Optional[int] = None,
+                        num_shards: Optional[int] = None):
+    """(train, val, test) loaders of one rank from the config's ``dataset``
+    and ``tpu`` blocks: the buckets, min sizes, max size, ``pixel_dtype``,
+    the per-epoch val batch (``tpu.eval_batch_size``) and the test batch
+    (``test.batch_size``, 1 by default, the reference's protocol).  Each
+    rank loads its shard of every split (the shard defaults to the rank
+    and the rank count, JAX's runners/common.py:343-378); the evals are
+    merged by ``CocoEvaluator.synchronize_between_processes``.
+    ``batch_size`` is per rank."""
+    if shard_index is None:
+        shard_index = multihost.get_rank()
+    if num_shards is None:
+        num_shards = multihost.get_world_size()
     from hnd_ghnd_tpu_torch.data.loader import get_coco_data_loaders
     from hnd_ghnd_tpu_torch.data.transforms import DEFAULT_BUCKETS
     tpu_cfg = config.get("tpu", {}) or {}
@@ -100,9 +163,49 @@ def loaders_from_config(config: Dict[str, Any], model_kind: str,
         with_masks=model_kind == "mask_rcnn",
         with_keypoints=model_kind == "keypoint_rcnn",
         min_sizes=min_sizes, buckets=buckets, max_size=max_size,
+        shard_index=shard_index, num_shards=num_shards,
         eval_batch_size=eval_bs,
         val_batch_size=int(val_bs) if val_bs is not None else None,
+        shard_eval=num_shards > 1,
         pixel_dtype=str(tpu_cfg.get("pixel_dtype", "float32")))
+
+
+def log_global_batch(batch_size: int, train_loader) -> None:
+    """train.batch_size is per rank: the global batch is N times it, and an
+    epoch is the rank's shard (JAX's mimic_runner.py:209-225)."""
+    world = multihost.get_world_size()
+    print(f"{world} process(es): batch {batch_size} per rank, global batch "
+          f"{batch_size * world}, {len(train_loader)} steps per epoch",
+          flush=True)
+
+
+def epoch_batches(loader) -> Iterable:
+    """A training ``loader``'s epoch as this rank runs it: every batch at
+    one rank; at N ranks, the first ``len(loader)``.  A rank's shard fills
+    a number of batches of its own (each bucket's remainder is padded into
+    a batch, so two shards of one size but other landscape and portrait
+    mixes give other counts), and a rank with one step more would wait
+    alone in the step's collectives.  ``len(loader)``, the shard's floor
+    size over the batch, is the same on every rank and never more than a
+    shard yields."""
+    if multihost.get_world_size() == 1:
+        return loader
+    return _first(loader, len(loader))
+
+
+def _first(iterable: Iterable, n: int) -> Iterator:
+    # closing the loader's generator shuts down its thread pool
+    with contextlib.closing(iter(iterable)) as it:
+        yield from itertools.islice(it, n)
+
+
+def mean_over_ranks(record: Dict[str, Any]) -> Dict[str, Any]:
+    """``record``'s epoch times (``seconds``, ``loader_s``) replaced by
+    the ranks' mean, so that rank 0's log speaks for every rank (the
+    reference's MetricLogger.synchronize_between_processes)."""
+    record.update(multihost.reduce_scalars(
+        {k: record[k] for k in ("seconds", "loader_s")}))
+    return record
 
 
 def _numpy_tree(obj):
@@ -136,7 +239,8 @@ def save_checkpoint(path: str, model: RCNN, step, best_value: float,
                     config: Dict[str, Any], args: argparse.Namespace) -> None:
     """``model``'s checkpoint in the JAX package's payload (utils/ckpt.py),
     with ``step``'s optimizer state and schedule step (a train_step
-    ``_Step``)."""
+    ``_Step``).  The runners call it through ``multihost.save_on_master``:
+    every rank holds the same weights."""
     params, state = jax_params_from_state_dict(model.state_dict())
     ckpt_util.save_ckpt(
         path, params=params, state=state,
@@ -327,16 +431,18 @@ def coco_evaluate(model: RCNN, loader, use_bottleneck_transformer: bool =
                   False) -> Tuple[CocoEvaluator, Dict[str, float]]:
     """One COCO evaluation pass over ``loader`` (JAX's ``evaluate``):
     returns the summarized CocoEvaluator (``stats[iou_type]``, the 12 or 10
-    COCOeval numbers) and the pass's times: ``seconds`` (wall),
-    ``loader_s`` (waiting on the loader), ``forward_ms`` (the batches'
-    dispatch-to-host times), ``cocoeval_s`` (finalize, update, accumulate
-    and summarize on the host) and ``batches``."""
+    COCOeval numbers, of every rank's images after the merge) and the
+    pass's times: ``seconds`` (wall), ``loader_s`` (waiting on the loader),
+    ``forward_ms`` (the batches' dispatch-to-host times), ``cocoeval_s``
+    (finalize, update, merge, accumulate and summarize on the host),
+    ``merge_s`` (the ranks' merge, waits included) and ``batches``."""
     evaluator = CocoEvaluator(loader.dataset, get_iou_types(model))
     batches = Timed(loader)
     t0 = time.perf_counter()
     records = evaluate(model, batches, use_bottleneck_transformer, evaluator)
     t1 = time.perf_counter()
     evaluator.synchronize_between_processes()
+    merged = time.perf_counter()
     evaluator.accumulate()
     evaluator.summarize()
     t2 = time.perf_counter()
@@ -344,7 +450,8 @@ def coco_evaluate(model: RCNN, loader, use_bottleneck_transformer: bool =
         "seconds": t2 - t0, "loader_s": batches.seconds,
         "batches": len(records),
         "forward_ms": sum(r["ms"] for r in records),
-        "cocoeval_s": sum(r["host_ms"] for r in records) / 1e3 + (t2 - t1)}
+        "cocoeval_s": sum(r["host_ms"] for r in records) / 1e3 + (t2 - t1),
+        "merge_s": merged - t1}
 
 
 class StepMetrics:

@@ -21,6 +21,10 @@ printed without pandas.
 
     python -m hnd_ghnd_tpu_torch.runners.ext_runner --config <yaml> \\
         -train [--device cpu]
+
+N ranks (``torchrun``, or ``--dist_url env://``) run JAX's GSPMD step on
+the global batch (``ExtStep``) and gather the scores, so the best
+checkpoint, written by rank 0, is the same choice on every rank.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from hnd_ghnd_tpu_torch.data.coco import check_if_valid_target
 from hnd_ghnd_tpu_torch.evals.roc import roc_auc_score, roc_curve
 from hnd_ghnd_tpu_torch.models.factory import get_model, load_weights
 from hnd_ghnd_tpu_torch.models.rcnn import RCNN
+from hnd_ghnd_tpu_torch.parallel import multihost
 from hnd_ghnd_tpu_torch.parallel.train_step import (_Step, build_optimizer,
                                                     images_to_compute)
 from hnd_ghnd_tpu_torch.runners import common
@@ -79,7 +84,12 @@ def host_target_to_ext_label(target: Dict, keypoint_task: bool) -> int:
 class ExtStep(_Step):
     """One step of the filter: zero grads, the mean cross-entropy of its
     float32 logits, backward, lr = schedule(step), SGD.  Returns the loss
-    as a device tensor, without waiting for the device."""
+    as a device tensor, without waiting for the device.
+
+    With N > 1 ranks the step is JAX's GSPMD one (ext_runner.py:73-96) on
+    the global batch: the filter's BNs take the global statistics and the
+    gradients and the loss are averaged over the ranks (each rank's loss
+    is the mean over its equal share of the batch)."""
 
     def __init__(self, model: RCNN, optimizer: torch.optim.Optimizer,
                  schedule):
@@ -94,8 +104,9 @@ class ExtStep(_Step):
                             ext_training=True)
         loss = F.cross_entropy(logits, labels)
         loss.backward()
+        loss, _ = self.all_reduce(loss, {}, "avg")
         self.apply_update()
-        return loss.detach()
+        return loss
 
 
 def make_ext_train_step(model: RCNN, optimizer_cfg: dict,
@@ -119,7 +130,10 @@ def make_ext_train_step(model: RCNN, optimizer_cfg: dict,
 def collect_probs(model: RCNN, loader, keypoint_task: bool
                   ) -> Tuple[np.ndarray, np.ndarray]:
     """The filter's P(valid) and the label of every image of ``loader``
-    that is not padding, in eval mode."""
+    that is not padding, in eval mode.  With N > 1 ranks, each scores its
+    shard and the arrays are every rank's, concatenated in rank order
+    (ext_runner.py:132-137), so the ROC-AUC and the best checkpoint agree
+    on every rank."""
     device = next(model.parameters()).device
     model.eval()
     probs: List[float] = []
@@ -133,7 +147,10 @@ def collect_probs(model: RCNN, loader, keypoint_task: bool
                 continue
             probs.append(float(pr[i]))
             labels.append(host_target_to_ext_label(tgt, keypoint_task))
-    return np.asarray(probs), np.asarray(labels)
+    gathered = multihost.all_gather_objects((np.asarray(probs),
+                                             np.asarray(labels)))
+    return (np.concatenate([g[0] for g in gathered]),
+            np.concatenate([g[1] for g in gathered]))
 
 
 def summarize_cls(probs: np.ndarray, labels: np.ndarray,
@@ -187,7 +204,9 @@ def train_ext(model: RCNN, config: Dict[str, Any], args: argparse.Namespace,
     val scores, the checkpoint at ``ckpt_path`` when the val ROC-AUC rises;
     resumed from that file when it exists.  Returns {"steps": [(step,
     loss, {}, ms)], "epochs": [{"val": (acc, recall, specificity, auc),
-    "saved", "train" and "eval": {"seconds", "loader_s", "batches"}}]}."""
+    "saved", "train" and "eval": {"seconds", "loader_s", "batches"}}]}
+    (the train times the ranks' mean).  At N ranks an epoch is
+    ``len(train_loader)`` steps on every rank (``common.epoch_batches``)."""
     train_cfg = config["train"]
     device = next(model.parameters()).device
     cuda = device.type == "cuda"
@@ -203,7 +222,7 @@ def train_ext(model: RCNN, config: Dict[str, Any], args: argparse.Namespace,
         model.train()
         metrics = StepMetrics()
         t0 = time.perf_counter()
-        batches = common.Timed(train_loader)
+        batches = common.Timed(common.epoch_batches(train_loader))
         for batch, _, host in batches:
             labels = torch.tensor([host_target_to_ext_label(t, keypoint_task)
                                    for t in host], device=device)
@@ -215,8 +234,9 @@ def train_ext(model: RCNN, config: Dict[str, Any], args: argparse.Namespace,
             loss = step(images, labels)
             history["steps"] += metrics.push(step.step - 1, loss, {}, start)
         history["steps"] += metrics.drain()
-        train = {"seconds": time.perf_counter() - t0,
-                 "loader_s": batches.seconds, "batches": batches.items}
+        train = common.mean_over_ranks({
+            "seconds": time.perf_counter() - t0, "loader_s": batches.seconds,
+            "batches": batches.items})
         t0 = time.perf_counter()
         val = common.Timed(val_loader)
         probs, labels = collect_probs(model, val, keypoint_task)
@@ -226,7 +246,8 @@ def train_ext(model: RCNN, config: Dict[str, Any], args: argparse.Namespace,
         saved = bool(scores[3] > best and ckpt_path)
         if saved:
             best = scores[3]
-            common.save_checkpoint(ckpt_path, model, step, best, config, args)
+            multihost.save_on_master(common.save_checkpoint, ckpt_path,
+                                     model, step, best, config, args)
             print(f"saved best ckpt (val ROC-AUC {best:.4f})", flush=True)
         history["epochs"].append({"val": scores, "saved": saved,
                                   "train": train, "eval": ev})
@@ -237,20 +258,31 @@ def run(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
     """``main`` after the config is loaded.  Returns {"train": the history
     of ``train_ext`` (with -train), "test": {"scores": (acc, recall,
     specificity, auc), "table": the threshold rows, "n": images,
-    "batches"}}."""
+    "batches"}}.  As N ranks (``common.distributed``), each on its shard;
+    the scores are the gathered arrays'."""
     common.check_unported_args(args)
     common.check_ckpt_backend(config)
+    with common.distributed(args) as device:
+        return _run(config, args, device)
+
+
+def _run(config: Dict[str, Any], args: argparse.Namespace,
+         device: torch.device) -> Dict[str, Any]:
     configure_precision(torch.float32)
-    model = get_model(config["model"], seed=args.seed, device=args.device)
+    model = get_model(config["model"], seed=args.seed, device=device)
     keypoint_task = model.kind == "keypoint_rcnn"
     ckpt_path = (config["model"]["backbone"].get("ext_config") or {}).get(
         "ckpt")
+    batch_size = int(config["train"]["batch_size"])
     train_loader, val_loader, test_loader = common.loaders_from_config(
-        config, model.kind, int(config["train"]["batch_size"]))
+        config, model.kind, batch_size)
     out: Dict[str, Any] = {}
     if args.train:
+        common.log_global_batch(batch_size, train_loader)
         out["train"] = train_ext(model, config, args, train_loader,
                                  val_loader, keypoint_task, ckpt_path)
+        # rank 0's last checkpoint write is done before any rank reads it
+        multihost.barrier()
     # the test report always runs the best filter (ext_runner.py:282-286)
     if ckpt_util.check_if_exists(ckpt_path):
         payload = ckpt_util.load_ckpt(ckpt_path)

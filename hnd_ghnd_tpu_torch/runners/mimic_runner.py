@@ -17,8 +17,14 @@ queued.
 
 ``distill`` is the batch-level loop over given batches (dicts of arrays),
 whose evals return raw detections; ``distill_coco`` is the runner's loop
-over the loaders.  Multi-process runs (A12), TensorBoard and the profiler
-(A18) raise.
+over the loaders.  TensorBoard and the profiler (A18) raise.
+
+N ranks (``torchrun --nproc_per_node N -m
+hnd_ghnd_tpu_torch.runners.mimic_runner ...``, or ``--dist_url env://``
+with RANK, WORLD_SIZE and LOCAL_RANK set) run JAX's global-batch step
+(parallel/train_step.py): ``train.batch_size`` is per rank, rank 0 logs and
+writes the checkpoints, and the best one is chosen on the merged val mAP,
+the same on every rank.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from hnd_ghnd_tpu_torch.core.config import load_config, overwrite_config
 from hnd_ghnd_tpu_torch.distill.box import DistillationBox
 from hnd_ghnd_tpu_torch.models.factory import get_model, load_weights
 from hnd_ghnd_tpu_torch.models.rcnn import RCNN
+from hnd_ghnd_tpu_torch.parallel import multihost
 from hnd_ghnd_tpu_torch.parallel.train_step import (MAX_WARMUP, DistillStep,
                                                     make_distill_train_step)
 from hnd_ghnd_tpu_torch.runners import common
@@ -160,8 +167,10 @@ def distill_coco(teacher: RCNN, student: RCNN, config: Dict[str, Any],
     from that file when it exists.
 
     Returns {"steps": [(step, loss, {term: value}, ms)], "epochs": [{
-    "val_map", "saved", "train" (seconds, loader_s), "eval" (the times of
-    ``coco_evaluate``), "stats"}]}."""
+    "val_map", "saved", "train" (seconds, loader_s: the ranks' mean),
+    "eval" (the times of ``coco_evaluate``), "stats"}]}.  At N ranks an
+    epoch is ``len(train_loader)`` steps on every rank
+    (``common.epoch_batches``)."""
     train_cfg = config["train"]
     ckpt_path = config["student_model"].get("ckpt")
     common.check_ckpt_backend(config)
@@ -173,8 +182,10 @@ def distill_coco(teacher: RCNN, student: RCNN, config: Dict[str, Any],
     history: Dict[str, List] = {"steps": [], "epochs": []}
     for epoch in range(int(train_cfg["num_epochs"])):
         train_loader.set_epoch(epoch)
-        done = train_epoch(step, train_loader, log_freq, f"Epoch: [{epoch}]")
+        done = train_epoch(step, common.epoch_batches(train_loader),
+                           log_freq, f"Epoch: [{epoch}]")
         history["steps"] += done.pop("steps")
+        common.mean_over_ranks(done)
         evaluator, times = common.coco_evaluate(
             student.eval(), val_loader,
             use_bottleneck_transformer=args.transform_bottleneck)
@@ -183,8 +194,8 @@ def distill_coco(teacher: RCNN, student: RCNN, config: Dict[str, Any],
         saved = bool(val_map > best and ckpt_path)
         if saved:
             best = val_map
-            common.save_checkpoint(ckpt_path, student, step, best, config,
-                                   args)
+            multihost.save_on_master(common.save_checkpoint, ckpt_path,
+                                     student, step, best, config, args)
             print(f"saved best ckpt (val mAP {val_map:.4f})", flush=True)
         history["epochs"].append({
             "val_map": val_map, "saved": saved, "train": done, "eval": times,
@@ -195,22 +206,34 @@ def distill_coco(teacher: RCNN, student: RCNN, config: Dict[str, Any],
 def run(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
     """``main`` after the config is loaded: distil when ``-distill``, reload
     the best checkpoint, then the test evals (mimic_runner.py:225-255).
+    As N ranks when a launch or the caller's group says so
+    (``common.distributed``): each distils its shard of the global batch,
+    evaluates its shard of val and test, and reads the merged stats.
 
     Returns {"distill": the history of ``distill_coco`` (with -distill),
     "teacher" and "student": {"stats", "eval"} of the test evals}."""
     common.check_unported_args(args)
+    with common.distributed(args) as device:
+        return _run(config, args, device)
+
+
+def _run(config: Dict[str, Any], args: argparse.Namespace,
+         device: torch.device) -> Dict[str, Any]:
     teacher = get_model(config["teacher_model"], seed=args.seed,
-                        device=args.device)
+                        device=device)
     student = get_model(config["student_model"], seed=args.seed + 1,
-                        device=args.device)
+                        device=device)
     out: Dict[str, Any] = {}
     if args.distill:
         min_sizes = common.keypoint_min_sizes(student.kind, True)
+        batch_size = int(config["train"]["batch_size"])
         train_loader, val_loader, _ = common.loaders_from_config(
-            config, student.kind, int(config["train"]["batch_size"]),
-            min_sizes=min_sizes)
+            config, student.kind, batch_size, min_sizes=min_sizes)
+        common.log_global_batch(batch_size, train_loader)
         out["distill"] = distill_coco(teacher, student, config, args,
                                       train_loader, val_loader)
+        # rank 0's last checkpoint write is done before any rank reads it
+        multihost.barrier()
     # the final test eval runs the BEST checkpoint, also right after
     # distillation (reference mimic_runner.py:148-149)
     ckpt_path = config["student_model"].get("ckpt")

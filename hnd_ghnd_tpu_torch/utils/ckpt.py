@@ -3,8 +3,10 @@
 Counterpart of hnd_ghnd_tpu/utils/ckpt.py (reference
 src/models/__init__.py:11-35): one file holding {params, state, opt_state,
 lr_step, best_value, config, args, format_version 1}, written atomically
-(tmp + os.replace).  ``params`` and ``state`` are numpy trees in the JAX
-layout (models/convert.jax_params_from_state_dict), so the JAX package's
+(a temporary file of the writing process's own, then os.replace; in a
+multi-process run rank 0 writes, through ``multihost.save_on_master``).
+``params`` and ``state`` are numpy trees in the JAX layout
+(models/convert.jax_params_from_state_dict), so the JAX package's
 ``get_model`` loads a port checkpoint and the port loads a JAX one.
 
 The port writes ``opt_state: None`` and keeps its own optimizer state, as
@@ -44,10 +46,16 @@ def save_ckpt(path: str, *, params, state=None, torch_opt_state=None,
         "format_version": FORMAT_VERSION,
     }
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
-    os.replace(tmp, path)
+    # a temporary file of this process's own: a reader never sees a partial
+    # file, and two writing processes never share one
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 class _Inert:

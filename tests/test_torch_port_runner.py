@@ -377,7 +377,7 @@ def test_distill_resumes_from_the_best_checkpoint(case, port_distill):
 def test_unported_flags_raise(case):
     root, config = case
     path = write_config(root, config, "flags")
-    for extra in (["--world_size", "2"], ["--tb_dir", str(root / "tb")],
+    for extra in (["--tb_dir", str(root / "tb")],
                   ["--profile_dir", str(root / "prof")]):
         with pytest.raises(NotImplementedError):
             port_main(mimic_runner, ["--config", path, "--device", "cpu"]
