@@ -14,7 +14,9 @@ in the 832x1344 bucket and measures:
   3. the forward's latency unprofiled, then a torch.profiler trace of as
      many forwards: device time by kernel group (cuDNN convolutions, GEMMs,
      layout transposes, the port's kernels, copies, the rest), the top
-     kernels, and the idle share 1 - (device busy time / latency);
+     kernels, and the idle share 1 - (device busy time / latency); the
+     same, and the host syncs, for the split deployment's server tail
+     (split/deploy.py ``tail_fn``) at batch 8, where the checkout has it;
   4. a layout A/B: the trunk in contiguous NCHW (as served) against a
      channels_last trunk, interleaved (nchw, cl, cl, nchw), at batch 8
      and batch 1.
@@ -50,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import importlib.util
 import json
 import os
 import statistics
@@ -144,15 +147,21 @@ def stage_times(model, batch):
 
 def count_syncs(model, batch):
     """Synchronizing CUDA calls in one forward, and the NMS fixpoint's."""
-    from hnd_ghnd_tpu_torch.ops import nms as nms_ops
     from hnd_ghnd_tpu_torch.runners.common import eval_forward
+    return syncs_of(lambda: eval_forward(model, batch, True))
+
+
+def syncs_of(fn):
+    """Synchronizing CUDA calls in one call of ``fn``, and the NMS
+    fixpoint's (its host checks)."""
+    from hnd_ghnd_tpu_torch.ops import nms as nms_ops
     before = nms_ops.fixpoint.iterations
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            eval_forward(model, batch, True)
+            fn()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     syncs = [str(w.message) for w in caught
@@ -160,11 +169,30 @@ def count_syncs(model, batch):
     return len(syncs), nms_ops.fixpoint.iterations - before
 
 
+def split_tail_profile(model, batch):
+    """The split deployment's server tail (split/deploy.py ``tail_fn``) at
+    the batch's size, on the wire of the eager head: host syncs per tail,
+    and the latency / profiler breakdown per tail."""
+    from hnd_ghnd_tpu_torch.split.deploy import SplitRCNN
+    split = SplitRCNN(model, 8)
+    bucket = tuple(batch["images"].shape[1:3])
+    q, scale, zp, _ = split.head_fn(batch["images"])
+
+    def tail():
+        return split.tail_fn(q, scale, zp, batch["image_sizes"], bucket)
+
+    syncs, nms_syncs = syncs_of(tail)
+    return {"host_syncs_per_tail": syncs,
+            "nms_fixpoint_syncs_per_tail": nms_syncs,
+            "profile": device_profile(tail, "tail")}
+
+
 def _group(name: str) -> str:
     low = name.lower()
     if "nchwtonhwc" in low or "nhwctonchw" in low or "transpose" in low:
         return "layout transposes"
-    if "roi_align" in low or "quantize" in low or "stem_" in low:
+    if "roi_align" in low or "quantize" in low or "stem_" in low \
+            or "nms_" in low:
         return "port kernels"
     if "memcpy" in low or "memset" in low:
         return "copies and memsets"
@@ -542,6 +570,12 @@ def main() -> int:
         f"{nms_syncs} of them NMS fixpoint checks")
     result["profile"] = device_profile(lambda: eval_forward(model, b8, True))
     log_profile(result["profile"], "forward")
+    if importlib.util.find_spec("hnd_ghnd_tpu_torch.split.deploy"):
+        st = result["split_tail"] = split_tail_profile(model, b8)
+        log(f"[split tail] {st['host_syncs_per_tail']} synchronizing calls "
+            f"per batch-8 tail, {st['nms_fixpoint_syncs_per_tail']} of them "
+            "NMS fixpoint checks")
+        log_profile(st["profile"], "tail")
     result["layout_ab"] = layout_ab(model, {"batch8": b8, "batch1": b1})
     for label, r in result["layout_ab"].items():
         log(f"[layout] {label}: " + ", ".join(

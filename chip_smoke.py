@@ -61,6 +61,15 @@ paths, at full width with random weights and BN statistics from a seed:
     stopping a batch of one, ``cost_analyzer`` on the runner fixture (its
     split mAP equal to the round trip eval's) and ``visualizer`` on two of
     its JPEGs, and the head's and tail's times at batch 1 and 8;
+  * the ahead-of-time export (``export_phase``, ROADMAP A13), with the
+    stem switch on: split/export.py's artifacts of the serving student
+    (the bucket set at batch 8, 832x1344 at batch 1) and of the gated
+    Keypoint R-CNN with int8_roi_pool on (batch 1), loaded and run by a
+    child process that builds no model (``serve_artifacts``): head and
+    tail equal to the eager split bit for bit, each kernel launched inside
+    the artifact, the exported and eager tails' times; the sharded tail as
+    two shards on the one card, each equal to the eager tail on its
+    packet; the export CLI once;
   * the int8 server tail (``int8_tail_phase``, ROADMAP A11): the serving
     student calibrated on four served images, head -> bytes -> int8 tail
     at batch 8 on both buckets and batch 1, its detections with the float
@@ -92,8 +101,11 @@ paths, at full width with random weights and BN statistics from a seed:
     (``--dist_url env://``, WORLD_SIZE=1).  Two ranks on one card measure
     the path, not scaling across cards.
 
-Each path checks that every kernel it runs was launched.  Any failed check
-raises.
+The kernel phase holds ``nms_keep`` (csrc/nms.cu) against the NMS fixpoint
+on the served batches' problems and on adversarial ones
+(``nms_kernels_phase``).  Each path checks that every kernel it runs was
+launched, and that no NMS ran the fixpoint's host loop on the card.  Any
+failed check raises.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it lists each kernel's route, launches (on the runners where they run it,
@@ -370,6 +382,7 @@ GHND_TPU = {"buckets": [[832, 1344], [1344, 832]], "compute_dtype": "float32",
 # batch 1 on each image of a serving batch of each bucket and at batch
 # EVAL_BATCH on one; the wire's body is B x (H/4 + 4) x (W/4 + 4) x 3 bytes
 SPLIT_TIMED_BATCHES = (1, EVAL_BATCH)
+SPLIT_TIMED_REPS = 10          # the exported and eager tails' wall times
 VIZ_IMAGES = 2
 # the int8 tail (int8_tail_phase): served images it calibrates on; each
 # stage output's cosine with the float folded walk must pass
@@ -675,6 +688,138 @@ def stem_kernels_phase(dev: torch.device, kernels: dict) -> None:
                     plain_ms=times[name][1],
                     library_ms=dw_ms if name == "stem_dw" else conv_ms,
                     **bounds[name])
+
+
+def nms_problem(rng: np.random.RandomState, b: int, n: int, n_cats: int,
+                nonfinite: bool, dtype=torch.float32):
+    """An adversarial NMS problem: tied scores (a few values, -0.0 and 0.0
+    among them), duplicate boxes, zero-area boxes, invalid rows, and with
+    ``nonfinite`` NaN and +-inf in coordinates and scores; categories in
+    [0, n_cats) or None.  -> (boxes, scores, valid, categories) on the
+    CPU."""
+    xy = rng.uniform(-10, 200, (b, n, 2))
+    wh = rng.uniform(0, 80, (b, n, 2))
+    wh[rng.rand(b, n) < 0.1, rng.randint(0, 2)] = 0.0        # zero area
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    dup = rng.rand(b, n) < 0.2
+    boxes[dup] = boxes[:, :1].repeat(n, 1)[dup]               # duplicates
+    tied = rng.choice(np.float32([0.9, 0.5, 0.5, 0.25, 0.0, -0.0]), (b, n))
+    scores = np.where(rng.rand(b, n) < 0.5, tied,
+                      rng.rand(b, n)).astype(np.float32)
+    if nonfinite:
+        for arr, p in ((boxes, 0.03), (scores, 0.05)):
+            for v in (np.nan, np.inf, -np.inf):
+                arr[rng.rand(*arr.shape) < p] = v
+    valid = rng.rand(b, n) < 0.8
+    cats = None if n_cats == 0 else torch.from_numpy(
+        rng.randint(0, n_cats, (b, n)))
+    return (torch.from_numpy(boxes).to(dtype),
+            torch.from_numpy(scores.astype(np.float32)).to(dtype),
+            torch.from_numpy(valid), cats)
+
+
+def nms_bound(boxes, scores, valid, categories, keep) -> dict:
+    """The NMS kernel's bound: each input read once and the keep mask
+    written once; the IoU and its test (13 float operations) of each pair
+    of valid boxes of one category, and one compare of each other pair of
+    valid boxes (its categories differ), the pairs this run's data needs.
+    Integer compares are counted at the float32 rate (the guide's table
+    has no integer rate outside the tensor cores)."""
+    def pairs(n: torch.Tensor) -> float:
+        n = n.double()
+        return float((n * (n - 1) / 2).sum())
+
+    every = pairs(valid.sum(dim=1))
+    if categories is None:
+        return bound(nbytes(boxes, scores, valid, keep), 13.0 * every)
+    same = sum(pairs(torch.unique(categories[b][valid[b]],
+                                  return_counts=True)[1])
+               for b in range(valid.shape[0]))
+    return bound(nbytes(boxes, scores, valid, keep, categories),
+                 13.0 * same + (every - same))
+
+
+def nms_kernels_phase(dev: torch.device, kernels: dict, model,
+                      batches: list) -> None:
+    """``nms_keep`` (csrc/nms.cu) against its plain version, the fixpoint,
+    on the card and on the CPU, keep masks equal: on the problems of the
+    served batches' forwards (the RPN's five levels, the box head's
+    category-aware problem; batch 8 at both buckets and 1) and on
+    adversarial problems; its time at the batch-8 box head's shape beside
+    the plain version's, the RPN's levels too."""
+    from hnd_ghnd_tpu_torch.ops import nms as NMS
+    from hnd_ghnd_tpu_torch.runners.common import eval_forward
+    seen = []
+    op = NMS.nms_keep_op
+
+    def record(boxes, scores, valid, categories, iou_threshold):
+        seen.append((boxes.clone(), scores.clone(), valid.clone(),
+                     None if categories is None else categories.clone(),
+                     iou_threshold))
+        return op(boxes, scores, valid, categories, iou_threshold)
+
+    NMS.nms_keep_op = record
+    try:
+        for batch in batches:
+            eval_forward(model, {k: torch.from_numpy(v).to(dev)
+                                 for k, v in batch.items()}, True)
+    finally:
+        NMS.nms_keep_op = op
+    rng = np.random.RandomState(SEED + 16)
+    cases = [(f"served {tuple(p[0].shape[:2])} iou {p[4]}"
+              + ("" if p[3] is None else " categories"), p) for p in seen]
+    for n in (1, 63, 64, 65, 1000, 4096):
+        for n_cats, nonfinite, dtype, thr in (
+                (0, False, torch.float32, 0.7), (3, False, torch.float32, 0.5),
+                (90, True, torch.float32, 0.5), (0, True, torch.float32, 0.7),
+                (3, True, torch.bfloat16, 0.3007)):
+            bx, sc, va, ca = nms_problem(rng, 2, n, n_cats, nonfinite, dtype)
+            cases.append((f"adversarial N={n} cats={n_cats} "
+                          f"nonfinite={nonfinite} {dtype} iou {thr}",
+                          (bx.to(dev), sc.to(dev), va.to(dev),
+                           None if ca is None else ca.to(dev), thr)))
+    for name, (bx, sc, va, ca, thr) in cases:
+        before = NMS.nms_keep.launches
+        got = NMS.nms_keep(bx, sc, thr, va, ca)
+        check(NMS.nms_keep.launches == before + 1, f"nms_keep launch ({name})")
+        want = NMS.nms_plain(bx, sc, va, ca, thr)
+        cpu = NMS.nms_plain(bx.cpu(), sc.cpu(), va.cpu(),
+                            None if ca is None else ca.cpu(), thr)
+        check(torch.equal(got, want), f"nms_keep vs plain on the card ({name})")
+        check(torch.equal(got.cpu(), cpu), f"nms_keep vs plain on the CPU "
+              f"({name})")
+    log(f"[kernels] nms_keep: keep masks equal to the plain fixpoint's (card "
+        f"and CPU) on {len(seen)} served problems and {len(cases) - len(seen)}"
+        f" adversarial ones")
+    # the first forward's: batch 8 at 832x1344
+    bx, sc, va, ca, thr = seen[5]
+    keep = NMS.nms_keep(bx, sc, thr, va, ca)
+    rpn = seen[:5]
+    check(ca is not None and all(p[3] is None for p in rpn),
+          "the first forward's NMS problems: five RPN levels, the box head")
+    kernels["nms_keep"] = dict(
+        source="hnd_ghnd_tpu_torch/csrc/nms.cu",
+        replaces="hnd_ghnd_tpu/ops/nms.py:94", max_abs_err=0.0,
+        shape=f"box head {list(bx.shape[:2])} with categories, "
+              f"{int(va.sum())} valid",
+        **timings(lambda: NMS.nms_keep(bx, sc, thr, va, ca)),
+        plain_ms=time_ms(lambda: NMS.nms_plain(bx, sc, va, ca, thr)),
+        library_ms=None, **nms_bound(bx, sc, va, ca, keep),
+        rpn_shapes=[list(p[0].shape[:2]) for p in rpn],
+        rpn_ms=time_ms(lambda: [NMS.nms_keep(p[0], p[1], p[4], p[2])
+                                for p in rpn]),
+        rpn_device_ms=time_ms(lambda: [NMS.nms_keep(p[0], p[1], p[4], p[2])
+                                       for p in rpn], spin=True),
+        rpn_plain_ms=time_ms(lambda: [NMS.nms_plain(p[0], p[1], p[2], None,
+                                                    p[4]) for p in rpn]))
+    k = kernels["nms_keep"]
+    log(f"[kernels] nms_keep {k['shape']}: {k['ms']:.4f} ms "
+        f"({k['device_ms']:.4f} on the card), plain {k['plain_ms']:.4f} ms, "
+        f"bound {k['bound_ms']:.5f} ms by {k['bound_by']}; the RPN's "
+        f"{len(rpn)} levels {k['rpn_shapes']}: {k['rpn_ms']:.4f} ms "
+        f"({k['rpn_device_ms']:.4f} on the card), plain "
+        f"{k['rpn_plain_ms']:.4f} ms")
+    NMS.fixpoint.iterations = 0
 
 
 def distill_models(device: torch.device):
@@ -1752,7 +1897,8 @@ def train_phase(dev: torch.device, eval_batch: dict) -> dict:
     hist = train(model, config, batches, [eval_batch], n, seed=SEED)
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in kernel_counts().items()
-                if k in ("roi_align", "roi_align_bf16", "roi_align_bwd")}
+                if k in ("roi_align", "roi_align_bf16", "roi_align_bwd",
+                         "nms_keep")}
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"[train] {n} bf16 steps + 1 float32 eval batch in {wall:.3f} s; "
         f"launches {launches}; peak memory {peak:.2f} GiB")
@@ -1890,8 +2036,9 @@ def heads_train_phase(dev: torch.device) -> dict:
                 f"{loss:.6e}, " + " ".join(f"{k} {v:.6e}"
                                           for k, v in terms.items()))
         check(len(hist["steps"]) == n, "a step's scalars are missing")
+        # the RPN's five levels: five NMS problems a step
         want = {"roi_align_bf16": n, "roi_align_bf16_p14": n,
-                "roi_align_bwd": n, "roi_align_bwd_p14": n}
+                "roi_align_bwd": n, "roi_align_bwd_p14": n, "nms_keep": 5 * n}
         check(counts == want, f"{kind}: launches {counts}, want {want}")
         for bi, bucket in enumerate(BUCKETS):
             first = bi * STEPS_PER_BUCKET
@@ -2034,9 +2181,13 @@ def kernel_counts() -> dict:
     dtype (f32 and int8 at any pool size), its bf16 forward and the bf16
     backward by pool size (7x7 box loss, 14x14 mask or keypoint loss)."""
     from hnd_ghnd_tpu_torch.ops import int8_conv as IC
+    from hnd_ghnd_tpu_torch.ops import nms as NMS
     from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
     from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
+    # every caller reads the counts right after a path on the card
+    check(NMS.fixpoint.iterations == 0, f"a path on the card ran the NMS "
+          f"fixpoint's host loop ({NMS.fixpoint.iterations} syncs)")
     fwd, bwd = RK.roi_align.launches, RK.roi_align_backward.launches
     return {"quantize": QK.quantize.launches,
             "dequantize": QK.dequantize.launches,
@@ -2054,18 +2205,21 @@ def kernel_counts() -> dict:
             "int8_conv_requant": IC.int8_conv_requant.launches,
             # B6's main loops, over both of its entries
             "int8_conv_wgmma": IC.template_launches["wgmma"],
-            "int8_conv_mma_sync": IC.template_launches["mma_sync"]}
+            "int8_conv_mma_sync": IC.template_launches["mma_sync"],
+            "nms_keep": NMS.nms_keep.launches}
 
 
 def zero_kernel_counts() -> None:
     from hnd_ghnd_tpu_torch.ops import int8_conv as IC
+    from hnd_ghnd_tpu_torch.ops import nms as NMS
     from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
     from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
     for fn in (QK.quantize, QK.dequantize, RK.quantize_levels, SK.stem_fwd,
                SK.stem_fwd_res, SK.stem_dw, IC.int8_conv,
-               IC.int8_conv_requant):
+               IC.int8_conv_requant, NMS.nms_keep):
         fn.launches = 0
+    NMS.fixpoint.iterations = 0
     for path in IC.template_launches:
         IC.template_launches[path] = 0
     RK.roi_align.launches.clear()
@@ -3075,6 +3229,263 @@ def split_phase(dev: torch.device, root: str, card: str) -> dict:
     return launches
 
 
+def serve_artifacts(spec_path: str) -> int:
+    """The child of ``export_phase``: on the JSON spec's "device", loads
+    each split artifact of its "items" ({"artifact", "inputs", "outputs",
+    "reps"}) with ``load_exported`` and builds no model; runs head and tail on each input
+    batch (a saved list of {"images" float32 [B, H, W, 3] in [0, 1],
+    "image_sizes"}), saving their outputs; counts the kernels' launches of
+    each head -> tail, and with ``reps`` times the tail (CUDA events; wall
+    to host detections).  Writes its report to ``spec_path``.out.json."""
+    from hnd_ghnd_tpu_torch.runners.common import configure_precision
+    from hnd_ghnd_tpu_torch.split.export import (ExportedSplitSet,
+                                                 load_exported)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device(spec["device"])
+    configure_precision(torch.float32)
+    torch.backends.cudnn.deterministic = True
+    report = []
+    for item in spec["items"]:
+        t0 = time.perf_counter()
+        with open(item["artifact"], "rb") as f:
+            art = load_exported(f.read())
+        load_s = time.perf_counter() - t0
+        outs, runs = [], []
+        for batch in torch.load(item["inputs"]):
+            images = batch["images"].to(dev)
+            sizes = batch["image_sizes"].to(dev)
+            bucket = tuple(images.shape[1:3])
+            one = (art.for_bucket(bucket) if isinstance(art, ExportedSplitSet)
+                   else art)
+            zero_kernel_counts()
+            head = one.head(images)
+            dets = one.tail(*head[:3], sizes)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            run = {"bucket": bucket, "batch": int(images.shape[0]),
+                   "launches": {k: v for k, v in kernel_counts().items()
+                                if v}}
+            outs.append({"head": [t.cpu() for t in head],
+                         "tail": {k: v.cpu() for k, v in dets.items()}})
+            if item["reps"]:
+                run["tail_ms"] = time_ms(lambda: one.tail(*head[:3], sizes))
+                walls = []
+                for _ in range(item["reps"]):
+                    t1 = time.perf_counter()
+                    {k: v.cpu() for k, v in one.tail(*head[:3],
+                                                     sizes).items()}
+                    walls.append((time.perf_counter() - t1) * 1e3)
+                run["tail_wall_ms"] = statistics.median(walls)
+            runs.append(run)
+        torch.save(outs, item["outputs"])
+        report.append({"artifact": item["artifact"], "load_s": load_s,
+                       "type": type(art).__name__, "runs": runs})
+    with open(spec_path + ".out.json", "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def export_phase(dev: torch.device, root: str, card: str) -> dict:
+    """Ahead-of-time export of the split (ROADMAP A13), with the stem
+    switch on: the serving phase's b3ch Faster student as the bucket set
+    of both buckets at batch EVAL_BATCH and as 832x1344 at batch 1; the
+    gated Keypoint R-CNN of ``ext_phase`` with int8_roi_pool on at batch 1.
+    A child process that builds no model (``serve_artifacts``) loads each
+    artifact and runs its head and tail on the serving batches: their
+    outputs equal the eager ``SplitRCNN``'s bit for bit (deterministic
+    cuDNN), and the kernels launch inside the artifacts.  Then the sharded
+    tail as two shards on the one card (each its own edge's scale), equal
+    to the eager tail per shard, and one device refused; and the CLI
+    (``python -m hnd_ghnd_tpu_torch.split.export``) once, on the runner
+    phase's distilled student.  Returns the launches inside the Faster
+    artifacts."""
+    from hnd_ghnd_tpu_torch.models.factory import get_model
+    from hnd_ghnd_tpu_torch.parallel.train_step import images_to_compute
+    from hnd_ghnd_tpu_torch.split import export
+    from hnd_ghnd_tpu_torch.split.deploy import SplitRCNN
+    os.environ["HND_TPU_PALLAS_STEM"] = "1"
+    out_dir = os.path.join(root, "export")
+    os.makedirs(out_dir, exist_ok=True)
+    model = serving_model(dev)
+    gated_cfg = ext_model_config(root)
+    gated_cfg = dict(gated_cfg, params=dict(gated_cfg["params"],
+                                            int8_roi_pool=True))
+    gated = get_model(gated_cfg, device=dev).requires_grad_(False)
+    served = serving_batches(np.random.RandomState(SEED + 40))
+
+    def inputs(batch):
+        return {"images": images_to_compute(torch.from_numpy(
+                    batch["images"]), torch.float32),
+                "image_sizes": torch.from_numpy(batch["image_sizes"])}
+
+    torch.backends.cudnn.deterministic = True
+    cases = (("faster_set", model, "set", served[:2], SPLIT_TIMED_REPS),
+             ("faster_b1", model, BUCKETS[0], served[2:], SPLIT_TIMED_REPS),
+             ("keypoint_b1", gated, BUCKETS[0], served[2:], 0))
+    spec, facts = [], {}
+    for name, m, bucket, batches, reps in cases:
+        t0 = time.perf_counter()
+        blob = (export.export_split_set(m, BUCKETS, EVAL_BATCH)
+                if bucket == "set" else
+                export.export_split(m, bucket, batches[0]["images"].shape[0]))
+        facts[name] = {"export_s": time.perf_counter() - t0,
+                       "bytes": len(blob)}
+        path = os.path.join(out_dir, f"{name}.hgsplit")
+        with open(path, "wb") as f:
+            f.write(blob)
+        torch.save([inputs(b) for b in batches],
+                   os.path.join(out_dir, f"{name}.in.pt"))
+        spec.append({"artifact": path, "reps": reps,
+                     "inputs": os.path.join(out_dir, f"{name}.in.pt"),
+                     "outputs": os.path.join(out_dir, f"{name}.out.pt")})
+        log(f"[export] {name}: exported in {facts[name]['export_s']:.1f} s, "
+            f"{len(blob):,} bytes")
+    spec_path = os.path.join(out_dir, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump({"device": str(dev), "items": spec}, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.serve_artifacts(sys.argv[1]))", spec_path],
+        cwd=here, timeout=600)
+    check(child.returncode == 0, f"the artifacts' child process exited "
+          f"{child.returncode}")
+    with open(spec_path + ".out.json") as f:
+        report = json.load(f)
+    log(f"[export] the child loaded and ran the artifacts in "
+        f"{time.perf_counter() - t0:.1f} s (loads "
+        f"{[round(r['load_s'], 1) for r in report]} s)")
+    launches = {}
+    for (name, m, _, batches, _), item, rep in zip(cases, spec, report):
+        split = SplitRCNN(m, 8)
+        for batch, got, run in zip(batches, torch.load(item["outputs"]),
+                                   rep["runs"]):
+            x = inputs(batch)
+            images = x["images"].to(dev)
+            sizes = x["image_sizes"].to(dev)
+            bucket = tuple(images.shape[1:3])
+            head = split.head_fn(images)
+            dets = split.tail_fn(*head[:3], sizes, bucket)
+            for i, (g, w) in enumerate(zip(got["head"], head)):
+                check(g.dtype == w.dtype and torch.equal(g, w.cpu()),
+                      f"export {name} {bucket}: head output {i} differs "
+                      "from the eager head")
+            check(set(got["tail"]) == set(dets), f"export {name}: tail keys")
+            for k, v in dets.items():
+                check(torch.equal(got["tail"][k], v.cpu()),
+                      f"export {name} {bucket}: tail {k} differs from the "
+                      "eager tail")
+            want = ({"quantize": 1, "dequantize": 1, "stem_fwd": 1,
+                     "nms_keep": 6}
+                    | ({"quantize_levels": 1, "roi_align_int8": 2}
+                       if name.startswith("keypoint") else {"roi_align": 1}))
+            for k, n in want.items():
+                check(run["launches"].get(k) == n, f"export {name}: {k} "
+                      f"launched {run['launches'].get(k)} times inside the "
+                      f"artifact, not {n}")
+            for k, n in run["launches"].items():
+                launches[k] = launches.get(k, 0) + n * name.startswith(
+                    "faster")
+            line = (f"[export] {name} {bucket} batch {run['batch']}: head and "
+                    f"tail equal the eager split's; launches inside "
+                    f"{run['launches']}")
+            if "tail_ms" in run:
+                eager_ms = time_ms(lambda: split.tail_fn(*head[:3], sizes,
+                                                         bucket))
+                walls = []
+                for _ in range(SPLIT_TIMED_REPS):
+                    t1 = time.perf_counter()
+                    {k: v.cpu() for k, v in split.tail_fn(
+                        *head[:3], sizes, bucket).items()}
+                    walls.append((time.perf_counter() - t1) * 1e3)
+                line += (f"; {card}: tail exported {run['tail_ms']:.3f} ms "
+                         f"(CUDA events), {run['tail_wall_ms']:.3f} ms wall "
+                         f"to host detections; eager {eager_ms:.3f} ms, "
+                         f"{statistics.median(walls):.3f} ms wall (medians "
+                         f"of {REPS} and {SPLIT_TIMED_REPS})")
+            log(line)
+        if name.startswith("keypoint"):
+            check("keypoint_logits" in got["tail"] and float(
+                got["head"][3][0, 1]) == float(head[3][0, 1].cpu()),
+                "export keypoint_b1: ext output or keypoints missing")
+    del gated
+    torch.cuda.empty_cache()
+
+    # ---------------------------- two shards on the one card, and the CLI
+    one = served[2]
+    images = inputs(served[0])["images"][:2].to(dev)
+    sizes = torch.from_numpy(served[0]["image_sizes"][:2]).to(dev)
+    split = SplitRCNN(model, 8)
+    packets = [split.head_fn(images[i:i + 1]) for i in range(2)]
+    t0 = time.perf_counter()
+    sharded = export.load_exported(export.export_sharded_tail(
+        model, BUCKETS[0], [dev, dev], batch_per_shard=1))
+    zero_kernel_counts()
+    both = sharded.call([dev, dev], torch.cat([p[0] for p in packets]),
+                        torch.stack([p[1] for p in packets]),
+                        torch.stack([p[2] for p in packets]), sizes)
+    torch.cuda.synchronize()
+    shard_launches = {k: v for k, v in kernel_counts().items() if v}
+    for i, p in enumerate(packets):
+        ref = split.tail_fn(*p[:3], sizes[i:i + 1], BUCKETS[0])
+        for k, v in ref.items():
+            check(torch.equal(both[k][i:i + 1], v), f"sharded tail shard "
+                  f"{i}: {k} differs from the eager tail on its packet")
+    try:
+        sharded.call([dev], torch.cat([p[0] for p in packets]),
+                     torch.stack([p[1] for p in packets]),
+                     torch.stack([p[2] for p in packets]), sizes)
+        refused = False
+    except ValueError as e:
+        refused = "exported for 2 devices" in str(e)
+    check(refused, "the sharded tail took one device for two shards")
+    check(shard_launches.get("nms_keep") == 12
+          and shard_launches.get("dequantize") == 2,
+          f"sharded tail launches {shard_launches}")
+    log(f"[export] sharded tail, 2 shards of 1 image on {dev} (scales "
+        f"{float(packets[0][1]):.6g} and {float(packets[1][1]):.6g}): each "
+        f"shard equals the eager tail on its packet; one device refused; "
+        f"launches {shard_launches}; {time.perf_counter() - t0:.1f} s")
+    del model, sharded, both
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+
+    if importlib.util.find_spec("yaml") is None:
+        log("[export] no yaml here: the CLI's config cannot be read; CLI "
+            "not run")
+    else:
+        cli_out = os.path.join(out_dir, "cli.hgsplit")
+        override = json.dumps({"student_model": {
+            "ckpt": os.path.join(root, "student.pt")}})
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "hnd_ghnd_tpu_torch.split.export",
+             "--config", GHND_YAML, "--json", override, "--out", cli_out,
+             "--bucket", ",".join(map(str, BUCKETS[0])), "--batch", "1",
+             "--device", str(dev)],
+            cwd=here, capture_output=True, text=True, timeout=600)
+        check(cli.returncode == 0, f"the export CLI exited {cli.returncode}:"
+              f"\n{cli.stdout}\n{cli.stderr}")
+        with open(cli_out, "rb") as f:
+            art = export.load_exported(f.read())
+        x = inputs(one)
+        head = art.head(x["images"])
+        dets = art.tail(*head[:3], x["image_sizes"])
+        check(art.device_type == dev.type and art.fused_stem
+              and tuple(dets["boxes"].shape) == (1, 100, 4)
+              and bool(torch.isfinite(dets["boxes"]).all()),
+              "the CLI's artifact")
+        log(f"[export] CLI in {time.perf_counter() - t0:.1f} s: "
+            f"{cli.stdout.strip().splitlines()[-1]}; its artifact runs "
+            f"({int(dets['valid'].sum())} detections)")
+        del art
+    torch.cuda.empty_cache()
+    os.environ["HND_TPU_PALLAS_STEM"] = "0"
+    return launches
+
+
 def wire_tensor(p, device: torch.device) -> torch.Tensor:
     """A packet's 8-bit wire dequantized on ``device`` (the kernel on the
     card, the plain version on the CPU), NHWC float32."""
@@ -3768,7 +4179,6 @@ def main() -> int:
                                                     quantize_tensor)
     from hnd_ghnd_tpu_torch.models.factory import build_model
     from hnd_ghnd_tpu_torch.models.rcnn import RCNN
-    from hnd_ghnd_tpu_torch.ops import nms as nms_ops
     from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
     from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
     from hnd_ghnd_tpu_torch.ops.roi_align import multiscale_roi_align_batch
@@ -3927,19 +4337,21 @@ def main() -> int:
     batches = serving_batches(np.random.RandomState(SEED + 1))
     served = batches * 2  # the first pass includes cuDNN's first calls
     zero_kernel_counts()
-    nms_ops.fixpoint.iterations = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     records = evaluate(model, served, use_bottleneck_transformer=True)
     wall = time.perf_counter() - t0
+    # kernel_counts checks that no NMS ran the fixpoint's host loop
     launches = {k: v for k, v in kernel_counts().items()
-                if k in ("quantize", "dequantize", "roi_align")}
+                if k in ("quantize", "dequantize", "roi_align", "nms_keep")}
     log(f"[slice] {len(served)} batches in {wall:.3f} s; launches {launches}; "
-        f"NMS fixpoint syncs {nms_ops.fixpoint.iterations}; peak memory "
+        f"NMS fixpoint syncs 0; peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     for name, n in launches.items():
-        check(n == len(served), f"{name} launched {n} times for "
-              f"{len(served)} forwards")
+        # the RPN's five levels and the box head: six NMS problems a forward
+        want = len(served) * (6 if name == "nms_keep" else 1)
+        check(n == want, f"{name} launched {n} times for {len(served)} "
+              f"forwards")
     for i, (batch, rec) in enumerate(zip(served, records)):
         b = batch["images"].shape[0]
         dets = rec["dets"]
@@ -3953,6 +4365,8 @@ def main() -> int:
     _, fpn = model.backbone_features(
         torch.from_numpy(batches[2]["images"]).to(dev).float() / 255.0, True)
     log(f"[slice] P2 contiguous NCHW: {fpn[0].is_contiguous()}")
+
+    nms_kernels_phase(dev, kernels, model, batches)
 
     # ---------------------------------------------------------- 5. card vs CPU
     cpu_model = build_model(STUDENT_MODEL).requires_grad_(False)
@@ -4060,6 +4474,8 @@ def main() -> int:
         runner.update(ext_phase(dev, root, card))
         # ------------------------------------------------------ 12. split
         split_launches = split_phase(dev, root, card)
+        # --------------------------------------------- 12b. the export
+        export_launches = export_phase(dev, root, card)
         # --------------------------------------------- 13. the int8 tail
         int8_launches = int8_tail_phase(dev, root, card)
         torch.cuda.empty_cache()
@@ -4082,13 +4498,13 @@ def main() -> int:
     # launches: the runners' (the main path) where they run the kernel, else
     # the heads phase's (the int8 tables); every path's beside
     paths = {"serving": {k: launches[k] for k in ("quantize", "dequantize",
-                                                 "roi_align")},
+                                                 "roi_align", "nms_keep")},
              "heads": {k: launches[k] for k in ("roi_align_int8",
                                                "quantize_levels")},
              "distill": {k: stem_launches[k] for k in
                          ("stem_fwd", "stem_fwd_res", "stem_dw")},
              "train": {k: train_launches[k] for k in
-                       ("roi_align_bf16", "roi_align_bwd")},
+                       ("roi_align_bf16", "roi_align_bwd", "nms_keep")},
              **{f"train_{kind}": counts
                 for kind, counts in heads_train.items()},
              **{f"{run}_runner": {k: v for k, v in runner[key].items() if v}
@@ -4097,9 +4513,13 @@ def main() -> int:
                                  ("coco_keypoint", "keypoint_rcnn"))},
              "ext_runner": {"stem_fwd": runner["ext_runner"]["stem_fwd"]},
              "coco_ext": {k: runner["coco_ext"][k] for k in
-                          ("roi_align", "quantize", "dequantize")},
+                          ("roi_align", "quantize", "dequantize", "nms_keep")},
              "split": {k: split_launches[k] for k in
-                       ("quantize", "dequantize", "roi_align", "stem_fwd")},
+                       ("quantize", "dequantize", "roi_align", "stem_fwd",
+                        "nms_keep")},
+             "export": {k: export_launches.get(k, 0) for k in
+                        ("quantize", "dequantize", "roi_align", "stem_fwd",
+                         "nms_keep")},
              **{path: {k: v for k, v in int8_launches[path].items() if v}
                 for path in ("int8_tail", "cost_analyzer_int8")},
              **{f"multiprocess_{run}": {k: v for k, v in counts.items() if v}
@@ -4113,6 +4533,12 @@ def main() -> int:
                         launches_by_path=by_path, **k))
     for k in out:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
+    # every path that runs a detector's eval or training forward runs NMS
+    # on the card (kernel_counts checked that none ran the fixpoint)
+    for path, counts in paths.items():
+        if path not in ("heads", "distill", "ext_runner"):
+            check(counts.get("nms_keep", 0) > 0,
+                  f"the {path} path never launched nms_keep")
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -50,6 +50,8 @@ _SIGNATURES = {
     "hnd_int8_conv_fused": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                             ctypes.c_float, _P, _P, _P],
+    "hnd_nms_keep": [_P, _I, _P, _P, _P, _I, _I, ctypes.c_float, _P, _P, _P,
+                     _P],
 }
 
 _lock = threading.Lock()

@@ -2,15 +2,17 @@
 
 Replace hnd_ghnd_tpu/ops/pallas_quant.py (pallas_quantize, pallas_dequantize).
 What bounds the kernels and how they stay bit-exact is noted in the CUDA
-source.  The plain versions are codec/quantizer.py's ``quantize_tensor`` and
-``dequantize_tensor``: a CPU tensor goes to them, a CUDA tensor to the
-kernel, and anything the kernel does not take raises.
+source.  ``quantize`` and ``dequantize`` call the ``hnd_ghnd::quantize`` /
+``dequantize`` ops defined here (ops/library.py): on a CPU tensor their
+plain versions, codec/quantizer.py's ``quantize_tensor`` and
+``dequantize_tensor``; on a CUDA tensor ``launch_quantize`` /
+``launch_dequantize``, which raise on anything the kernels do not take.
 
 Quantize is one cooperative launch; its work buffer (the scale and zero
 point, then one (min, max) pair per block of the kernel's largest grid) is
-one allocation, sized once per device.  ``scale`` and ``zero_point`` stay
-on the device as 0-d views of its first two floats, and dequantize reads
-them there; nothing here waits for the device.
+one allocation, sized once per device.  The op returns its first two
+floats, and ``scale`` and ``zero_point`` stay on the device as 0-d views of
+them, where dequantize reads them; nothing here waits for the device.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from hnd_ghnd_tpu_torch import _build
 from hnd_ghnd_tpu_torch.codec.quantizer import (QuantizedTensor,
                                                 dequantize_tensor,
                                                 quantize_tensor)
+from hnd_ghnd_tpu_torch.ops._oplib import check_device, define
 
 
 def _dense(x: torch.Tensor) -> bool:
@@ -50,10 +53,16 @@ def _work_size(lib, device: torch.device) -> int:
 
 def quantize(x: torch.Tensor, num_bits: int = 8) -> QuantizedTensor:
     """Affine uint8 quantization; bit-exact with ``quantize_tensor``."""
-    if x.device.type == "cpu":
-        return quantize_tensor(x, num_bits)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize: unsupported device {x.device}")
+    check_device(x, "quantize")
+    codes, params = quantize_op(x, num_bits)
+    return QuantizedTensor(codes, *params.unbind(0))
+
+
+quantize.launches = 0
+
+
+def launch_quantize(x: torch.Tensor, num_bits: int):
+    """The kernel: (codes, the work buffer's [scale, zero_point] view)."""
     if x.dtype != torch.float32:
         raise TypeError(f"quantize kernel takes float32, got {x.dtype}")
     if not 1 <= num_bits <= 8:
@@ -69,33 +78,61 @@ def quantize(x: torch.Tensor, num_bits: int = 8) -> QuantizedTensor:
                                      _stream(x.device)),
                  "hnd_quantize_u8")
     quantize.launches += 1
-    return QuantizedTensor(q, *work[:2].unbind(0))
-
-
-quantize.launches = 0
+    return q, work[:2]
 
 
 def dequantize(q: QuantizedTensor) -> torch.Tensor:
     """scale * (q - zero_point) as float32; exact."""
-    codes = q.tensor
-    if codes.device.type == "cpu":
-        return dequantize_tensor(q)
-    if codes.device.type != "cuda":
-        raise ValueError(f"dequantize: unsupported device {codes.device}")
+    check_device(q.tensor, "dequantize")
+    return dequantize_op(q.tensor, q.scale, q.zero_point)
+
+
+dequantize.launches = 0
+
+
+def launch_dequantize(codes: torch.Tensor, scale: torch.Tensor,
+                      zero_point: torch.Tensor) -> torch.Tensor:
     if codes.dtype != torch.uint8 or not _dense(codes) or codes.numel() == 0:
         raise ValueError("dequantize kernel takes dense, non-empty uint8 codes")
-    for t in (q.scale, q.zero_point):
+    for t in (scale, zero_point):
         if t.device != codes.device or t.dtype != torch.float32 or t.numel() != 1:
             raise ValueError("dequantize: scale and zero_point must be "
                              "one-element float32 tensors on the codes' device")
     lib = _build.load()
     out = torch.empty_like(codes, dtype=torch.float32)
-    _build.check(lib.hnd_dequantize_u8(codes.data_ptr(), q.scale.data_ptr(),
-                                       q.zero_point.data_ptr(), out.data_ptr(),
+    _build.check(lib.hnd_dequantize_u8(codes.data_ptr(), scale.data_ptr(),
+                                       zero_point.data_ptr(), out.data_ptr(),
                                        codes.numel(), _stream(codes.device)),
                  "hnd_dequantize_u8")
     dequantize.launches += 1
     return out
 
 
-dequantize.launches = 0
+def _quantize_cpu(x, num_bits):
+    q = quantize_tensor(x, num_bits)
+    return q.tensor, torch.stack([q.scale, q.zero_point])
+
+
+def _quantize_fake(x, num_bits):
+    return (torch.empty_like(x, dtype=torch.uint8),
+            x.new_empty(2, dtype=torch.float32))
+
+
+# affine quantization of x: (uint8 codes shaped like x, [scale, zero_point]
+# float32)
+quantize_op = define("quantize(Tensor x, int num_bits) -> (Tensor, Tensor)",
+                     _quantize_cpu, launch_quantize, _quantize_fake)
+
+
+def _dequantize_cpu(codes, scale, zero_point):
+    return dequantize_tensor(QuantizedTensor(codes, scale, zero_point))
+
+
+def _dequantize_fake(codes, scale, zero_point):
+    return torch.empty_like(codes, dtype=torch.float32)
+
+
+# scale * (codes - zero_point) as float32
+dequantize_op = define(
+    "dequantize(Tensor codes, Tensor scale, Tensor zero_point) -> Tensor",
+    _dequantize_cpu, launch_dequantize, _dequantize_fake)

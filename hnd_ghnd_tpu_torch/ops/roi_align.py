@@ -113,7 +113,9 @@ def multiscale_roi_align_batch(
     b, n = boxes.shape[:2]
     c = features[0].shape[-1]
     dev = boxes.device
-    out_dtype = features[0].dtype
+    # int8 tables pool into float32
+    out_dtype = (torch.float32 if features[0].dtype == torch.int8
+                 else features[0].dtype)
     table_scale = None
     if quant == "int8":
         features, table_scale = quantize_fpn_levels(features)

@@ -10,7 +10,11 @@ bounds the kernels and how they are laid out is noted in the CUDA sources.
 The plain versions are ops/roi_align.py's ``multiscale_roi_align_batch``
 (with its autograd for the backward) and ``quantize_fpn_levels``: a CPU
 tensor goes to them, a CUDA tensor to the kernels, and anything the kernels
-do not take raises.
+do not take raises.  ``roi_align`` and ``quantize_levels`` call the
+``hnd_ghnd::roi_align`` / ``quantize_levels`` ops defined here
+(ops/library.py), whose CUDA implementations are ``launch_roi_align`` /
+``launch_quantize_levels``; ``roi_align_train`` (autograd) launches the
+kernels itself.
 
 Launches are counted per kernel: ``roi_align.launches`` and
 ``roi_align_backward.launches`` (the scatter and, for bf16 levels, its
@@ -39,6 +43,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from hnd_ghnd_tpu_torch import _build
+from hnd_ghnd_tpu_torch.ops._oplib import check_device, define
 from hnd_ghnd_tpu_torch.ops.roi_align import (assign_levels, level_geometry,
                                               multiscale_roi_align_batch,
                                               quantize_fpn_levels)
@@ -175,21 +180,30 @@ def roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     """Levels [B, Hl, Wl, C], boxes [B, N, 4] -> [B, N, P, P, C] in the
     levels' dtype; same semantics as ``multiscale_roi_align_batch``, the
     ``quant`` modes included ("int8", or the (codes, scales) of
-    ``quantize_levels``: the int8 kernel, for float32 levels)."""
-    if boxes.device.type == "cpu":
-        return multiscale_roi_align_batch(features, boxes, image_size,
-                                          output_size, sampling_ratio,
-                                          boxes_valid, quant)
+    ``quantize_levels``: int8 tables of float32 levels, pooled into
+    float32).  The ``hnd_ghnd::roi_align`` op."""
+    check_device(boxes, "roi_align")
     table_scale = None
     if quant is not None:
         if features[0].dtype != torch.float32:
-            raise TypeError(f"roi_align kernel pools int8 tables into "
-                            f"float32, got {features[0].dtype} levels")
+            raise TypeError(f"roi_align pools int8 tables into float32, got "
+                            f"{features[0].dtype} levels")
         if quant == "int8":
             quant = quantize_levels(features)
         elif not isinstance(quant, tuple):
             raise ValueError(f"unknown roi-pool quant mode `{quant}`")
         features, table_scale = quant
+    return roi_align_op(list(features), boxes, boxes_valid, table_scale,
+                        [int(v) for v in image_size], int(output_size),
+                        int(sampling_ratio))
+
+
+def launch_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+                     boxes_valid: torch.Tensor | None,
+                     table_scale: torch.Tensor | None,
+                     image_size: Tuple[int, int], output_size: int,
+                     sampling_ratio: int) -> torch.Tensor:
+    """The forward kernel on checked inputs (``checked_inputs``)."""
     boxes, level, weight = checked_inputs(features, boxes, boxes_valid,
                                           table_scale)
     return _forward(features, boxes, level, weight, image_size, output_size,
@@ -210,12 +224,14 @@ def quantize_levels(levels: Sequence[torch.Tensor]
     """Float32 levels [B, Hl, Wl, C] -> (contiguous int8 codes of the same
     shape, scales [4] float32 on the device); bit-exact with
     ``quantize_fpn_levels``.  The levels are contiguous NHWC, or all NHWC
-    views of contiguous NCHW maps (``f.permute(0, 2, 3, 1)``)."""
-    if levels[0].device.type == "cpu":
-        return quantize_fpn_levels(levels)
-    dev = levels[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"quantize_levels: unsupported device {dev}")
+    views of contiguous NCHW maps (``f.permute(0, 2, 3, 1)``).  The
+    ``hnd_ghnd::quantize_levels`` op."""
+    check_device(levels[0], "quantize_levels")
+    return quantize_levels_op(list(levels))
+
+
+def launch_quantize_levels(levels: Sequence[torch.Tensor]
+                           ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     args, codes, scales = quantize_levels_args(levels)
     _build.check(_build.load().hnd_quantize_levels(*args),
                  "hnd_quantize_levels")
@@ -225,10 +241,10 @@ def quantize_levels(levels: Sequence[torch.Tensor]
 
 def quantize_levels_args(levels: Sequence[torch.Tensor]):
     """Check the levels and allocate the outputs of the level quantizer:
-    -> (the arguments of ``hnd_quantize_levels``, codes, scales).  The four
-    levels' codes are views of one int8 buffer, each at a 16-byte aligned
-    offset; the abs-max workspace (4 x uint32) and the scales (4 x float32)
-    share one 8-word buffer."""
+    -> (the arguments of ``hnd_quantize_levels``, codes, scales).  Each
+    level's codes are an allocation of their own (16-byte aligned, and
+    outputs of one op that alias nothing); the abs-max workspace (4 x
+    uint32) and the scales (4 x float32) share one 8-word buffer."""
     if len(levels) != LEVELS:
         raise ValueError(f"quantize_levels takes the {LEVELS} levels P2-P5, "
                          f"got {len(levels)}")
@@ -249,13 +265,8 @@ def quantize_levels_args(levels: Sequence[torch.Tensor]):
     else:
         raise ValueError("quantize_levels takes contiguous NHWC levels or "
                          "the NHWC views of contiguous NCHW maps")
-    offsets = [0]
-    for f in levels[:-1]:
-        offsets.append(offsets[-1] + -(-f.numel() // 16) * 16)
-    buf = torch.empty(offsets[-1] + levels[-1].numel(), dtype=torch.int8,
-                      device=dev)
-    codes = [buf[o:o + f.numel()].view(f.shape)
-             for o, f in zip(offsets, levels)]
+    codes = [torch.empty(f.shape, dtype=torch.int8, device=dev)
+             for f in levels]
     meta = torch.empty(2 * LEVELS, dtype=torch.int32, device=dev)
     scales = meta[LEVELS:].view(torch.float32)
     hw = (ctypes.c_int * (2 * LEVELS))(
@@ -268,6 +279,52 @@ def quantize_levels_args(levels: Sequence[torch.Tensor]):
 
 
 quantize_levels.launches = 0
+
+
+def _roi_align_cpu(levels, boxes, boxes_valid, table_scale, image_size,
+                   output_size, sampling_ratio):
+    quant = None if table_scale is None else (levels, table_scale)
+    return multiscale_roi_align_batch(levels, boxes, tuple(image_size),
+                                      output_size, sampling_ratio,
+                                      boxes_valid, quant)
+
+
+def _roi_align_cuda(levels, boxes, boxes_valid, table_scale, image_size,
+                    output_size, sampling_ratio):
+    return launch_roi_align(levels, boxes, boxes_valid, table_scale,
+                            tuple(image_size), output_size, sampling_ratio)
+
+
+def _roi_align_fake(levels, boxes, boxes_valid, table_scale, image_size,
+                    output_size, sampling_ratio):
+    dtype = levels[0].dtype
+    b, n = boxes.shape[:2]
+    return boxes.new_empty(
+        (b, n, output_size, output_size, levels[0].shape[-1]),
+        dtype=torch.float32 if dtype == torch.int8 else dtype)
+
+
+# multi-level RoIAlign: levels [B, Hl, Wl, C] (float32, bfloat16, or int8
+# tables with their [4] table_scale), boxes [B, N, 4] -> [B, N, P, P, C] in
+# the levels' dtype (float32 from int8 tables)
+roi_align_op = define(
+    "roi_align(Tensor[] levels, Tensor boxes, Tensor? boxes_valid, "
+    "Tensor? table_scale, int[] image_size, int output_size, "
+    "int sampling_ratio) -> Tensor",
+    _roi_align_cpu, _roi_align_cuda, _roi_align_fake)
+
+
+def _quantize_levels_fake(levels):
+    return ([torch.empty(f.shape, dtype=torch.int8, device=f.device)
+             for f in levels],
+            levels[0].new_empty(len(levels), dtype=torch.float32))
+
+
+# float32 levels [B, Hl, Wl, C] -> (contiguous int8 codes of each, the [4]
+# float32 scales)
+quantize_levels_op = define(
+    "quantize_levels(Tensor[] levels) -> (Tensor[], Tensor)",
+    quantize_fpn_levels, launch_quantize_levels, _quantize_levels_fake)
 
 
 def roi_align_backward(grad_out: torch.Tensor,

@@ -8,7 +8,8 @@ kernel, and anything the kernel does not take raises.
 
   * ``stem_fwd``: relu(conv * scale + bias), the primal (JAX's
     ``_stem_fwd_kernel``): the frozen teacher's stem, and any stem run
-    without gradient;
+    without gradient; the ``hnd_ghnd::stem_fwd`` op defined here
+    (ops/library.py), whose CUDA implementation is ``launch_stem_fwd``;
   * ``stem_fwd_res``: the same plus the pre-affine conv (JAX's
     ``_stem_fwd_res_kernel``), the forward of ``StemConvBnRelu``;
   * ``stem_dw``: the conv's weight gradient (JAX's ``_stem_dw_kernel``),
@@ -22,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from hnd_ghnd_tpu_torch import _build
+from hnd_ghnd_tpu_torch.ops._oplib import check_device, define
 from hnd_ghnd_tpu_torch.ops.stem import (KERNEL, OUT_CHANNELS, PADDING,
                                          STRIDE, stem_forward,
                                          stem_weight_grad)
@@ -73,14 +75,29 @@ def stem_fwd(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
              bias: torch.Tensor) -> torch.Tensor:
     """x [B, 3, H, W], weight [64, 3, 7, 7], scale/bias [64] ->
     relu(conv7x7s2(x) * scale + bias) [B, 64, H/2, W/2]."""
-    if x.device.type == "cpu":
-        return stem_forward(x, weight, scale, bias)
+    check_device(x, "stem_fwd")
+    return stem_fwd_op(x, weight, scale, bias)
+
+
+stem_fwd.launches = 0
+
+
+def launch_stem_fwd(x: torch.Tensor, weight: torch.Tensor,
+                    scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     out, _ = _launch_fwd(x, weight, scale, bias, with_conv=False)
     stem_fwd.launches += 1
     return out
 
 
-stem_fwd.launches = 0
+def _stem_fwd_fake(x, weight, scale, bias):
+    b, _, h, w = x.shape
+    return x.new_empty((b, OUT_CHANNELS, h // 2, w // 2))
+
+
+# relu(conv7x7s2(x) * scale + bias): x [B, 3, H, W] -> [B, 64, H/2, W/2]
+stem_fwd_op = define(
+    "stem_fwd(Tensor x, Tensor weight, Tensor scale, Tensor bias) -> Tensor",
+    stem_forward, launch_stem_fwd, _stem_fwd_fake)
 
 
 def stem_fwd_res(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,

@@ -38,6 +38,7 @@ import torch
 from tests.test_torch_port_detection import _get, _replay, _rng_draws
 from tests.test_torch_port_train_heads import (B, G, H, KINDS, LEAVES, W,
                                                _inputs, _torch, _weights)
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 N_ANCHORS = 3 * sum((H // s) * (W // s) for s in (4, 8, 16, 32)) \
     + 3 * (H // 64) * (W // 64)

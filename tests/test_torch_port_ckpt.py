@@ -40,6 +40,7 @@ from hnd_ghnd_tpu_torch.models.convert import (jax_params_from_state_dict,
 from hnd_ghnd_tpu_torch.models.factory import build_model, get_model
 from hnd_ghnd_tpu_torch.runners import common
 from tests.test_torch_port_slice import BOX_TOL, SCORE_TOL, _batch
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 KINDS = {

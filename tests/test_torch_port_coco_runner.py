@@ -16,6 +16,7 @@ from hnd_ghnd_tpu_torch.runners import coco_runner
 from tests.fixtures import make_coco_fixture
 from tests.test_torch_port_runner import (EVAL_BATCH, TINY_TPU, port_main,
                                           split)
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 
 def test_coco_runner_main_trains_one_epoch(tmp_path):

@@ -40,6 +40,7 @@ from hnd_ghnd_tpu_torch.runners import common, cost_analyzer, visualizer
 from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
 from tests.fixtures import make_coco_fixture
 from tests.test_runners import dataset_block, model_block, tiny_tpu_block
+from tests.test_torch_port_multiprocess import omp_threads
 
 LOGIT_SPREAD = 300.0
 MODULES = ["backbone.body.layer1", "rpn.head"]
@@ -47,16 +48,14 @@ MODULES = ["backbone.body.layer1", "rpn.head"]
 
 # The tier-1 run shares the machine's cores among its workers; torch's
 # default of one thread a core then oversubscribes them.  This file's CPU
-# forwards run on two.
-THREADS = 2
-
-
+# forwards run on two OpenMP threads (``omp_threads``: not through
+# torch.set_num_threads, which would change MKL's sums for every later test
+# of the worker, ROADMAP C14).
 @pytest.fixture(scope="module", autouse=True)
 def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, THREADS))
-    yield
-    torch.set_num_threads(n)
+    with omp_threads():
+        yield
+
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):

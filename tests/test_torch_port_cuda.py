@@ -12,10 +12,11 @@ import torch
 
 from chip_smoke import (BUCKETS, EVAL_BATCH, INT8_CONV_ODD,
                         INT8_EPILOGUE_CASES, int8_epilogue,
-                        int8_outputs_equal, int8_trunk_convs)
+                        int8_outputs_equal, int8_trunk_convs, nms_problem)
 from chip_smoke import box_mix as _boxes
 from chip_smoke import quant_input as _x
 from hnd_ghnd_tpu_torch.codec import quantizer as tq
+from hnd_ghnd_tpu_torch.ops import nms as NMS
 from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
 from hnd_ghnd_tpu_torch.ops import roi_align as tra
 from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
@@ -838,3 +839,46 @@ def test_int8_conv_requant_kernel_site_scales_off_the_fast_quotient(
         assert int8_outputs_equal(
             IC.int8_conv_requant(x, w, 1, 1, **kw),
             IC.int8_conv_requant_plain(x, w, 1, 1, **kw))
+
+
+@pytest.mark.parametrize("n,n_cats,nonfinite,dtype,thr", [
+    (1, 0, False, torch.float32, 0.7), (63, 3, True, torch.float32, 0.5),
+    (64, 0, True, torch.float32, 0.7), (65, 90, True, torch.float32, 0.5),
+    (1000, 0, False, torch.float32, 0.7),
+    (1000, 3, True, torch.bfloat16, 0.3007),
+    (4096, 90, False, torch.float32, 0.5),
+    (5000, 3, True, torch.float32, 0.5)])
+def test_nms_kernel_vs_plain(cuda, n, n_cats, nonfinite, dtype, thr):
+    """csrc/nms.cu's keep masks equal the plain fixpoint's on the card and
+    on the CPU (ties, duplicates, zero areas, invalid rows, NaN and +-inf,
+    bfloat16 boxes with a threshold that rounds up in bfloat16)."""
+    rng = np.random.RandomState(n + n_cats)
+    boxes, scores, valid, cats = nms_problem(rng, 3, n, n_cats, nonfinite,
+                                             dtype)
+    args = [t.to(cuda) if t is not None else None
+            for t in (boxes, scores, valid, cats)]
+    before = NMS.nms_keep.launches
+    got = NMS.nms_keep(args[0], args[1], thr, args[2], args[3])
+    assert NMS.nms_keep.launches == before + 1
+    assert torch.equal(got, NMS.nms_plain(*args, thr))
+    assert torch.equal(got.cpu(), NMS.nms_plain(boxes, scores, valid, cats,
+                                                thr))
+
+
+def test_nms_kernel_rejects_what_it_does_not_take(cuda):
+    boxes = torch.zeros(2, 5, 4, device=cuda)
+    scores = torch.zeros(2, 5, device=cuda)
+    valid = torch.ones(2, 5, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        NMS.nms_keep(boxes.double(), scores, 0.5, valid)
+    with pytest.raises(TypeError):
+        NMS.nms_keep(boxes, scores, 0.5, valid.float())
+    with pytest.raises(ValueError):
+        NMS.nms_keep(boxes, scores[:, :4], 0.5, valid)
+    with pytest.raises(TypeError):
+        NMS.nms_keep(boxes, scores, 0.5, valid, scores)
+    big = NMS.MAX_BOXES + 1
+    with pytest.raises(ValueError):
+        NMS.nms_keep(torch.zeros(1, big, 4, device=cuda),
+                     torch.zeros(1, big, device=cuda), 0.5,
+                     torch.ones(1, big, dtype=torch.bool, device=cuda))

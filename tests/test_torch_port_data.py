@@ -32,6 +32,7 @@ from hnd_ghnd_tpu_torch.data import coco as port_coco
 from hnd_ghnd_tpu_torch.data import loader as port_loader
 from hnd_ghnd_tpu_torch.runners.common import keypoint_min_sizes
 from tests.fixtures import make_coco_fixture
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 CONFIGS = sorted(glob.glob("config/**/*.yaml", recursive=True))
 BUCKETS = ((96, 128), (128, 96))

@@ -52,6 +52,7 @@ from hnd_ghnd_tpu_torch.runners.common import (compute_dtype_from_config,
                                                evaluate)
 from hnd_ghnd_tpu_torch.runners.mimic_runner import distill
 from tests.test_torch_port_distill import _get, jax_leaf, to_jax_layout
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 SHAPE = (96, 128)
 BATCH = 2

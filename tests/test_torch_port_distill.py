@@ -55,6 +55,7 @@ from hnd_ghnd_tpu_torch.parallel.train_step import (build_optimizer,
                                                     make_distill_train_step)
 from hnd_ghnd_tpu_torch.utils.params import count_params, updatable_param_names
 from tests.test_torch_port_weights import live_models
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 BUCKET = (192, 256)
 BATCH = 2

@@ -26,6 +26,7 @@ from hnd_ghnd_tpu_torch.evals import coco_eval, mask_rle
 from hnd_ghnd_tpu_torch.evals import postprocess
 from hnd_ghnd_tpu_torch.ops import kp_decode
 from tests.fixtures import make_coco_fixture
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("seed", range(4))

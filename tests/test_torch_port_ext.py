@@ -59,6 +59,7 @@ from hnd_ghnd_tpu_torch.models.factory import (build_model, get_model,
 from hnd_ghnd_tpu_torch.runners import common, ext_runner
 from tests.fixtures import make_coco_fixture
 from tests.test_torch_port_runner import port_main, split
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 CONFIG = "config/ext/keypoint_rcnn-backbone_ext_resnet50-b3ch.yaml"
 EXT = ("backbone", "body", "layer1", "ext_classifier")

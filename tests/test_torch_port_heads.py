@@ -47,6 +47,7 @@ from hnd_ghnd_tpu_torch.parallel.train_step import images_to_compute
 from hnd_ghnd_tpu_torch.runners.common import evaluate
 from tests.test_torch_port_slice import _batch
 from tests.test_torch_port_weights import _assert_trees_equal
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 CONFIGS = {"mask": ("config/ghnd/mask_rcnn-backbone_resnet50-b3ch.yaml",
                     MASK_STUDENT_MODEL),

@@ -7,7 +7,8 @@ run once on a tiny input (one distill epoch of one step, one coco_runner
 epoch of one bfloat16 step, each with its eval, the eval of the Mask and
 Keypoint R-CNN students with int8 pooling tables, the gated ext model's
 eval and one ext step, a split head -> bytes -> tail with the DataLogger,
-and the int8 server tail on the same wire), then jax, the JAX package, PIL, cv2, yaml, sklearn and pandas
+and the int8 server tail on the same wire; the kernels' custom ops and the
+export module imported), then jax, the JAX package, PIL, cv2, yaml, sklearn and pandas
 must be absent from ``sys.modules`` (they are not promised on the GPU
 host).  The host modules of the runners (config, data, evals with the ROC
 metrics, checkpoints, logging, the cost analyzer and the visualizer with
@@ -31,13 +32,13 @@ import hnd_ghnd_tpu_torch._build
 from hnd_ghnd_tpu_torch.codec import datalogger, jpeg, quantizer
 from hnd_ghnd_tpu_torch.models import (bottleneck, convert, ext, factory,
     fpn, layers, rcnn, resnet, roi_heads, rpn)
-from hnd_ghnd_tpu_torch.ops import (anchors, boxes, int8_conv, nms,
+from hnd_ghnd_tpu_torch.ops import (anchors, boxes, int8_conv, library, nms,
     quant_kernels, roi_align, roi_align_kernels, stem, stem_kernels)
 from hnd_ghnd_tpu_torch.distill import box, losses
 from hnd_ghnd_tpu_torch.parallel import train_step
 from hnd_ghnd_tpu_torch.runners import (coco_runner, common, cost_analyzer,
     ext_runner, mimic_runner, visualizer)
-from hnd_ghnd_tpu_torch.split import deploy, int8
+from hnd_ghnd_tpu_torch.split import deploy, export, int8
 from hnd_ghnd_tpu_torch.utils import ckpt, logging, params, visual_util
 from hnd_ghnd_tpu_torch.core import config
 from hnd_ghnd_tpu_torch.data import coco, loader, transforms

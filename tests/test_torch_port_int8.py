@@ -66,6 +66,7 @@ from hnd_ghnd_tpu_torch.ops import int8_conv as IC
 from hnd_ghnd_tpu_torch.ops import quant_kernels
 from hnd_ghnd_tpu_torch.split import deploy
 from hnd_ghnd_tpu_torch.split import int8 as pq
+from tests.test_torch_port_multiprocess import omp_threads
 
 SHAPE = (64, 64)
 FOLD_TOL = 1e-6
@@ -78,17 +79,15 @@ COS_MIN = 0.95
 ZP_RTOL, ZP_ATOL = 2e-4, 2e-3
 CPU = torch.device("cpu")
 
-# The tier-1 run shares the machine's cores among its workers; this file's
-# CPU forwards run on two torch threads.
-THREADS = 2
-
-
+# The tier-1 run shares the machine's cores among its workers; torch's
+# default of one thread a core then oversubscribes them.  This file's CPU
+# forwards run on two OpenMP threads (``omp_threads``: not through
+# torch.set_num_threads, which would change MKL's sums for every later test
+# of the worker, ROADMAP C14).
 @pytest.fixture(scope="module", autouse=True)
 def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, THREADS))
-    yield
-    torch.set_num_threads(n)
+    with omp_threads():
+        yield
 
 
 @pytest.fixture(scope="module")

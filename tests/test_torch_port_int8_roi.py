@@ -23,6 +23,7 @@ from hnd_ghnd_tpu.ops import roi_align as jra
 from hnd_ghnd_tpu.ops.pallas_roi import pallas_multiscale_roi_align_batch
 from hnd_ghnd_tpu_torch.ops import roi_align as tra
 from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 B, H, W, C = 2, 96, 128, 16
 XLA_TOL = 1e-6      # x max |JAX|: same float32 arithmetic, same order

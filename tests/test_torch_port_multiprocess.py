@@ -26,6 +26,8 @@ waits longer raises, so a rank that fails cannot hang the other.
 tests/test_torch_port_multiprocess_runner.py runs ``mimic_runner.main`` as
 two ranks.
 """
+import contextlib
+import ctypes
 import importlib
 import os
 import socket
@@ -76,6 +78,52 @@ AVG_TOL = 1e-5
 ZERO_GRAD_TOL = 1e-5
 ZERO_GRAD = ("backbone.body.layer1.decoder.3.bias",
              "backbone.body.layer1.decoder.8.bias")
+
+
+@contextlib.contextmanager
+def omp_threads(n: int = THREADS):
+    """torch's intra-op threads in this process limited to ``n`` through
+    the OpenMP runtime alone, and restored after (ROADMAP C14).
+    ``torch.set_num_threads`` would also turn MKL's dynamic choice of
+    threads off for the rest of the process (``mkl_set_dynamic(0)``, even
+    at the count it already has), and MKL's float32 products then sum in
+    another order for every later test of the worker:
+    tests/test_torch_port_detection.py's float32 gradients move from
+    3.8e-5 to 5.0e-4 of their largest element off float64 (the box head's
+    fc6, whose sum over the RoIs cancels), as under ``MKL_DYNAMIC=FALSE``.
+    Where torch's OpenMP runtime is not the one found here, nothing is
+    limited."""
+    before = torch.get_num_threads()
+    want = min(n, before)
+    try:
+        gomp = ctypes.CDLL("libgomp.so.1")
+    except OSError:
+        gomp = None
+    if gomp is not None:
+        gomp.omp_set_num_threads(want)
+        if torch.get_num_threads() != want:   # not torch's runtime
+            gomp.omp_set_num_threads(before)
+            gomp = None
+    try:
+        yield
+    finally:
+        if gomp is not None:
+            gomp.omp_set_num_threads(before)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def xdist_threads():
+    """Under pytest-xdist (``PYTEST_XDIST_WORKER`` set), torch's threads in
+    this worker limited to THREADS for the module (``omp_threads``): six
+    workers of one OpenMP thread per core each oversubscribe the host, and
+    the heavy CPU files then took 5-9x their serial time.  A serial run
+    keeps every thread.  A port test file that computes with torch in the
+    pytest process imports this fixture (it is autouse)."""
+    if "PYTEST_XDIST_WORKER" in os.environ:
+        with omp_threads():
+            yield
+    else:
+        yield
 
 
 def free_port() -> int:

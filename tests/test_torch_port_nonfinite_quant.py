@@ -30,6 +30,7 @@ from hnd_ghnd_tpu.codec import quantizer as jq
 from hnd_ghnd_tpu.ops import roi_align as jra
 from hnd_ghnd_tpu_torch.codec import quantizer as tq
 from hnd_ghnd_tpu_torch.ops import roi_align as tra
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 CASES = {"nan": [np.nan], "+inf": [np.inf], "-inf": [-np.inf],
          "nan+-inf": [np.nan, np.inf, -np.inf], "finite": []}

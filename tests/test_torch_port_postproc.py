@@ -22,6 +22,7 @@ from hnd_ghnd_tpu_torch.models.factory import get_model
 from hnd_ghnd_tpu_torch.runners import common
 from tests.fixtures import make_coco_fixture
 from tests.test_torch_port_runner import split
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 TINY_TPU = {"buckets": [[96, 96]], "min_sizes": [64], "max_size": 96,
             "eval_batch_size": 2}

@@ -14,6 +14,7 @@ from hnd_ghnd_tpu.codec import quantizer as jq
 from hnd_ghnd_tpu.ops.pallas_quant import pallas_dequantize, pallas_quantize
 from hnd_ghnd_tpu_torch.codec import quantizer as tq
 from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 # NHWC bottleneck-like shapes; the second and third are no multiple of 4
 SHAPES = [(2, 36, 52, 3), (1, 101, 77, 5), (3, 7, 11, 3)]

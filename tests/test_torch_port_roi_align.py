@@ -16,6 +16,7 @@ from hnd_ghnd_tpu.ops import roi_align as jra
 from hnd_ghnd_tpu.ops.pallas_roi import pallas_multiscale_roi_align_batch
 from hnd_ghnd_tpu_torch.ops import roi_align as tra
 from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 TOL = 1e-5  # x max |reference|: same arithmetic, summation order may differ
 # the Pallas kernel places its samples at (bin + samp) * bin_h, which rounds

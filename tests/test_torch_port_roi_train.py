@@ -30,6 +30,7 @@ from hnd_ghnd_tpu.ops.pallas_roi import (pallas_multiscale_roi_align_batch,
                                          pallas_multiscale_roi_align_batch_vjp)
 from hnd_ghnd_tpu_torch.ops import roi_align as tra
 from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 BF16_TOL = 3e-2   # x max |reference|: tests/test_pallas_roi.py's bf16 bound
 F32_GRAD_TOL = 1e-4

@@ -51,6 +51,7 @@ from hnd_ghnd_tpu_torch.models.factory import get_model
 from hnd_ghnd_tpu_torch.runners import coco_runner, common, mimic_runner
 from hnd_ghnd_tpu_torch.utils import ckpt as port_ckpt
 from tests.fixtures import make_coco_fixture
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 NUM_CLASSES = 5
 # loss and terms of a step: the tolerance of tests/test_torch_port_distill.py

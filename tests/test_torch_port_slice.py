@@ -22,6 +22,7 @@ from hnd_ghnd_tpu.runners.common import JitCache
 from hnd_ghnd_tpu_torch.ops import nms as nms_ops
 from hnd_ghnd_tpu_torch.runners.common import eval_forward, evaluate
 from tests.test_torch_port_weights import live_models
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 SHAPE = (128, 192)
 LOGIT_SPREAD = 300.0

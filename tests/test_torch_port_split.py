@@ -53,6 +53,7 @@ from hnd_ghnd_tpu_torch.models.convert import jax_params_from_state_dict
 from hnd_ghnd_tpu_torch.models.factory import build_model, get_model
 from hnd_ghnd_tpu_torch.runners.common import evaluate
 from hnd_ghnd_tpu_torch.split import deploy
+from tests.test_torch_port_multiprocess import omp_threads
 
 SHAPE = (96, 128)
 LOGIT_SPREAD = 300.0
@@ -105,16 +106,14 @@ def _both(cfg, seed):
 
 # The tier-1 run shares the machine's cores among its workers; torch's
 # default of one thread a core then oversubscribes them.  This file's CPU
-# forwards run on two.
-THREADS = 2
-
-
+# forwards run on two OpenMP threads (``omp_threads``: not through
+# torch.set_num_threads, which would change MKL's sums for every later test
+# of the worker, ROADMAP C14).
 @pytest.fixture(scope="module", autouse=True)
 def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, THREADS))
-    yield
-    torch.set_num_threads(n)
+    with omp_threads():
+        yield
+
 
 @pytest.fixture(scope="module")
 def models():

@@ -22,6 +22,7 @@ from hnd_ghnd_tpu.codec import quantizer as jq
 from hnd_ghnd_tpu.ops.roi_align import multiscale_roi_align_batch
 from hnd_ghnd_tpu_torch.codec import quantizer as tq
 from tests.test_torch_port_weights import live_models
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 TOL = 1e-4
 SHAPE = (128, 192)

@@ -20,6 +20,7 @@ from hnd_ghnd_tpu.ops.pallas_stem import (stem_conv_bn_relu as jax_stem,
 from hnd_ghnd_tpu_torch.models.resnet import ResNetBody
 from hnd_ghnd_tpu_torch.ops import stem as ts
 from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 FWD_TOL = dict(rtol=1e-5, atol=1e-4)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-3)

@@ -44,6 +44,7 @@ from hnd_ghnd_tpu_torch.models.convert import state_dict_from_jax
 from hnd_ghnd_tpu_torch.models.factory import build_model, init_model
 from hnd_ghnd_tpu_torch.runners import coco_runner
 from tests.test_torch_port_detection import _get, _replay, _rng_draws
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 B, H, W, G = 2, 192, 256, 4
 KINDS = {"mask_rcnn": (ORG_MASK_MODEL, 5), "keypoint_rcnn":

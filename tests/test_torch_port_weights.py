@@ -28,6 +28,7 @@ from hnd_ghnd_tpu.models.factory import init_model as jax_init_model
 from hnd_ghnd_tpu_torch.models.convert import state_dict_from_jax
 from hnd_ghnd_tpu_torch.models.factory import (FREEZE_LAYERS, build_model,
                                                get_model)
+from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 CONFIG = "config/ghnd/faster_rcnn-backbone_resnet50-b3ch.yaml"
 ORG_CONFIG = "config/org/faster_rcnn-backbone_resnet50.yaml"
