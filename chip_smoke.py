@@ -18,6 +18,15 @@ paths, at full width with random weights and BN statistics from a seed:
     (HND_TPU_PALLAS_STEM=1), then its per-epoch eval on a batch-8 serving
     batch; the same steps again with the switch off (cuDNN's stem); one
     step compared with a float64 step on the CPU;
+  * the rest of distillation (``distill_org_phase``, ROADMAP A4): the
+    same student and teacher, batch 4 on both buckets with seeded
+    targets, in float32 with ``org_loss_factor`` 1 (the stem switch on),
+    then in bfloat16 without and with the term (the fused stem takes
+    float32 only): the org term's RoIAlign forward (f32 and bf16 tables),
+    its backward and the RPN's NMS launched once per step, the BN
+    statistics advanced once a step, the bfloat16 terms against the
+    float32 ones, and one float32 org step compared with a float64 step
+    on the CPU on the CPU's RoI samples;
   * supervised training: ``coco_runner.train`` of the org Faster R-CNN of
     config/org/faster_rcnn-backbone_resnet50.yaml in bfloat16, batch 2 on
     both buckets with seeded synthetic targets, then its float32 eval on a
@@ -35,7 +44,9 @@ paths, at full width with random weights and BN statistics from a seed:
     config's blocks, -distill -transform_bottleneck, 2 epochs at batch 4
     with the stem switch on, COCOeval of each epoch's val, the best
     checkpoint, the test evals at batch 1; the same with -test_only from
-    that checkpoint; ``coco_runner.run -train`` of the org model for one
+    that checkpoint; ``mimic_runner.run -distill`` for one epoch with
+    ``--json`` turning on ``org_loss_factor`` and bfloat16, its targets
+    the fixture's boxes; ``coco_runner.run -train`` of the org model for one
     epoch of bfloat16 steps on the fixture's own boxes, and of the org
     Mask R-CNN (on the boxes' polygons) and Keypoint R-CNN (on a
     person-keypoint file of the same boxes), scored by COCOeval's segm and
@@ -121,6 +132,7 @@ import importlib.util
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -314,6 +326,28 @@ CPU_SHAPE = (416, 672)
 CPU_TERM_TOL = 1e-5
 CPU_GRAD_TOL = 5e-3
 CPU_STATS_TOL = 1e-5
+# the org-term phase: the GHND criterion with org_loss_factor 1 (its three
+# runs), and for the card-vs-CPU step the same with each feature term's
+# factor 1e-5, so that the detection losses' share of the gradients shows
+# (at factor 1 the MSE sums, ~1e6 here, hide it); the bfloat16 run's first
+# terms against the float32 run's, the same weights and batch: JAX's own
+# bfloat16-vs-float32 gap of one org step on the CPU
+# (tests/test_torch_port_distill_org.py's size, each dtype on its own RoI
+# samples) was at most 1.3% of a term (org_loss_box_reg)
+# The card's float32 gradients of that step were up to 5.95e-3 of a
+# leaf's largest element off the CPU's float64 ones (an encoder BN bias;
+# H100 80GB HBM3 at 700 W): the detection losses' share comes back through
+# the x300 class logits, the box head, the FPN and layer2-4 (cuDNN's
+# float32 data gradients) before the decoder's six train-mode BNs; without
+# the org term the distill phase sees up to 2.3e-3 (CPU_GRAD_TOL).  The
+# phase's control, the card's step at half the org term, was 0.526 of a
+# leaf's largest element off (the same card).
+# Timed steps: ORG_STEPS_PER_BUCKET a bucket, the first of each left out
+ORG_FACTOR = 1.0
+ORG_CPU_TERM_FACTOR = 1e-5
+ORG_CPU_GRAD_TOL = 2e-2
+BF16_TERM_TOL = 5e-2
+ORG_STEPS_PER_BUCKET = 5
 # one supervised float32 step on the card against the CPU in float64, at
 # batch 1 on the same quarter bucket, both sides on the CPU's RoI samples
 # and the same RPN draws: the four terms, and the gradients of the RoI
@@ -1005,30 +1039,253 @@ def distill_cpu_phase(dev: torch.device, teacher, student) -> None:
         worst = max(worst, rel)
         check(rel <= CPU_TERM_TOL, f"term {k}: card {t_g[k]} cpu {t_c[k]}")
     log(f"[distill-cpu] terms within {CPU_TERM_TOL}: max rel {worst:.2e}")
+    compare_student_step("distill-cpu", g_g, g_c, s_g, s_c, CPU_GRAD_TOL)
+
+
+def grad_errors(g_g: dict, g_c: dict) -> list:
+    """[(name, error)] of the card's trainable gradients ``g_g`` against
+    the CPU's float64 ``g_c``, each as a share of its leaf's largest
+    element, largest first."""
     rels = {}
     for name, c in g_c.items():
         # a BN bias followed by an unpadded conv and a train-mode BN has a
         # zero gradient (the next BN removes it): both give float noise
         # there, held against the BN weight's gradient
-        ref = g_c[name[:-len("bias")] + "weight"] if name in (
-            "backbone.body.layer1.decoder.3.bias",
-            "backbone.body.layer1.decoder.8.bias") else c
+        ref = g_c[name[:-len("bias")] + "weight"] if name in MP_ZERO_GRAD \
+            else c
         scale = float(ref.abs().max())
         if ref is not c:
             check(float(g_g[name].abs().max()) <= CPU_TERM_TOL * scale,
                   f"{name}: not ~0")
             continue
         rels[name] = float((g_g[name] - c).abs().max()) / scale
-    top = sorted(rels.items(), key=lambda kv: -kv[1])[:4]
-    log(f"[distill-cpu] {len(g_c)} gradients, largest errors (x their max): "
+    return sorted(rels.items(), key=lambda kv: -kv[1])
+
+
+def compare_student_step(tag: str, g_g: dict, g_c: dict, s_g: dict,
+                         s_c: dict, grad_tol: float) -> None:
+    """A distill step's trainable gradients and new bottleneck BN
+    statistics on the card (``g_g``, ``s_g``) against the CPU's float64
+    ones: each gradient within ``grad_tol`` of its leaf's largest element,
+    the statistics within CPU_STATS_TOL."""
+    top = grad_errors(g_g, g_c)[:4]
+    log(f"[{tag}] {len(g_c)} gradients, largest errors (x their max): "
         + ", ".join(f"{n} {r:.2e}" for n, r in top))
-    check(top[0][1] <= CPU_GRAD_TOL, f"gradient {top[0][0]}: {top[0][1]} of "
-          f"its max > {CPU_GRAD_TOL}")
+    check(top[0][1] <= grad_tol, f"gradient {top[0][0]}: {top[0][1]} of "
+          f"its max > {grad_tol}")
     worst = max(float((s_g[k] - v).abs().max() / v.abs().max())
                 for k, v in s_c.items())
     check(worst <= CPU_STATS_TOL, f"running statistics: {worst}")
-    log(f"[distill-cpu] {len(s_c)} running statistics within {CPU_STATS_TOL}:"
-        f" worst {worst:.2e}")
+    log(f"[{tag}] {len(s_c)} running statistics within {CPU_STATS_TOL}: "
+        f"worst {worst:.2e}")
+
+
+def org_criterion(term_factor: float = 1.0,
+                  org_factor: float = ORG_FACTOR) -> dict:
+    """The GHND b3ch criterion with org_loss_factor ``org_factor``, each
+    feature term's factor ``term_factor``."""
+    crit = copy.deepcopy(TRAIN["criterion"])
+    crit["params"]["org_loss_factor"] = org_factor
+    for term in crit["terms"].values():
+        term["factor"] = term_factor
+    return crit
+
+
+def distill_org_batches(rng: np.random.RandomState, device: torch.device):
+    """(batch, targets) pairs on the card: ORG_STEPS_PER_BUCKET of
+    TRAIN_BATCH images on each bucket, padded like the loader's, with 1-8
+    seeded GT boxes an image (``org_batch``)."""
+    out = []
+    for bucket in BUCKETS:
+        for _ in range(ORG_STEPS_PER_BUCKET):
+            batch, targets = org_batch(rng, bucket, TRAIN_BATCH)
+            out.append(tuple({k: torch.from_numpy(v).to(device)
+                              for k, v in d.items()}
+                             for d in (batch, targets)))
+    return out
+
+
+def bn_tracked(model: torch.nn.Module) -> list:
+    """``num_batches_tracked`` of the model's trainable BNs."""
+    return [int(m.num_batches_tracked) for m in model.modules()
+            if isinstance(m, torch.nn.BatchNorm2d)]
+
+
+def distill_org_phase(dev: torch.device):
+    """``mimic_runner.distill`` of the distill phase's student and teacher
+    on seeded (batch, targets), from the same start three times: float32
+    with org_loss_factor ORG_FACTOR (stem switch on), bfloat16 without the
+    term and bfloat16 with it (switch off: the fused stem takes float32
+    only).  Returns (teacher, student at its start, {run: launches})."""
+    from hnd_ghnd_tpu_torch.runners.mimic_runner import distill
+    teacher, student = distill_models(dev)
+    start = copy.deepcopy(student.state_dict())
+    batches = distill_org_batches(np.random.RandomState(SEED + 20), dev)
+    n = len(batches)
+    org_keys = {f"org_{k}" for k in ("loss_classifier", "loss_box_reg",
+                                     "loss_objectness", "loss_rpn_box_reg")}
+    runs, launches = {}, {}
+    for tag, dtype, factor, stem in (("f32_org", "float32", ORG_FACTOR, "1"),
+                                     ("bf16", "bfloat16", 0.0, "0"),
+                                     ("bf16_org", "bfloat16", ORG_FACTOR,
+                                      "0")):
+        os.environ["HND_TPU_PALLAS_STEM"] = stem
+        student.load_state_dict(start)
+        crit = org_criterion()
+        crit["params"]["org_loss_factor"] = factor
+        config = {"train": dict(TRAIN, num_epochs=1, criterion=crit),
+                  "student_model": STUDENT_MODEL,
+                  "tpu": {"compute_dtype": dtype}}
+        tracked = bn_tracked(student)
+        zero_kernel_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        hist = distill(teacher, student, config, batches, [], n, seed=SEED)
+        wall = time.perf_counter() - t0
+        # kernel_counts checks that no NMS ran the fixpoint's host loop
+        counts = {k: v for k, v in kernel_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        log(f"[distill-org] {tag}: {n} steps in {wall:.3f} s; launches "
+            f"{counts}; peak memory {peak:.2f} GiB")
+        for idx, loss, terms, ms in hist["steps"]:
+            shape = tuple(batches[idx][0]["images"].shape)
+            check(np.isfinite(loss) and all(np.isfinite(v)
+                                            for v in terms.values()),
+                  f"{tag} step {idx}: {loss} {terms}")
+            want = set(crit["terms"]) | (org_keys if factor else set())
+            check(set(terms) == want, f"{tag} step {idx}: terms {set(terms)}")
+            log(f"[distill-org] {tag} step {idx} {shape}: {ms:.3f} ms, loss "
+                f"{loss:.6e}, " + " ".join(f"{k} {v:.6e}"
+                                           for k, v in terms.items()))
+        check(len(hist["steps"]) == n, f"{tag}: a step's scalars are missing")
+        check(all(b == a + n for a, b in zip(tracked, bn_tracked(student)))
+              and len(tracked) == 8, f"{tag}: the bottleneck's BNs did not "
+              "advance once a step")
+        want = {"f32_org": {"stem_fwd": n, "stem_fwd_res": n, "stem_dw": n,
+                            "roi_align": n, "roi_align_bwd_f32": n,
+                            "nms_keep": 5 * n},
+                "bf16": {},
+                "bf16_org": {"roi_align_bf16": n, "roi_align_bwd": n,
+                             "nms_keep": 5 * n}}[tag]
+        check(counts == want, f"{tag}: launches {counts}, want {want}")
+        for bi, bucket in enumerate(BUCKETS):
+            first = bi * ORG_STEPS_PER_BUCKET
+            ms = [s[3] for s in hist["steps"]
+                  if tuple(batches[s[0]][0]["images"].shape[1:3]) == bucket
+                  and s[0] != first]
+            log(f"[distill-org] {tag} bucket {bucket}: median step "
+                f"{statistics.median(ms):.3f} ms over {len(ms)} steps "
+                f"({TRAIN_BATCH / statistics.median(ms) * 1e3:.2f} img/s)")
+        runs[tag] = hist["steps"]
+        launches[tag] = counts
+    log(f"[distill-org] the bottleneck's 8 BNs advanced once a step in each "
+        "run; every kernel of the org term launched once a step, the RPN's "
+        "NMS five times")
+    # the first step: the same weights and batch in either dtype
+    for tag, ref in (("bf16", "f32_org"), ("bf16_org", "f32_org")):
+        got, want = runs[tag][0][2], runs[ref][0][2]
+        rels = {k: abs(v - want[k]) / abs(want[k]) for k, v in got.items()}
+        log(f"[distill-org] {tag} step 0 terms vs float32: " + ", ".join(
+            f"{k} {r:.2e}" for k, r in rels.items()))
+        worst = max(rels, key=rels.get)
+        check(rels[worst] <= BF16_TERM_TOL, f"{tag} step 0: {worst} "
+              f"{got[worst]} vs float32 {want[worst]}")
+    os.environ["HND_TPU_PALLAS_STEM"] = "1"
+    student.load_state_dict(start)
+    return teacher, student, launches
+
+
+def distill_org_cpu_phase(dev: torch.device, teacher, student) -> None:
+    """One float32 distill step with the org term (feature terms at
+    ORG_CPU_TERM_FACTOR, stem switch on) on the card against the same step
+    on the CPU in float64, at batch 1 on CPU_SHAPE: the terms, every
+    trainable gradient, the bottleneck's new BN statistics (advanced
+    once).  The CPU's RPN draws and RoI samples go to both sides (top-k,
+    NMS and sampling are discrete).  A control: the card's step with half
+    the org term must land outside ORG_CPU_GRAD_TOL."""
+    from hnd_ghnd_tpu_torch.distill.box import DistillationBox
+    from hnd_ghnd_tpu_torch.models.factory import build_model
+    from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
+    from hnd_ghnd_tpu_torch.parallel.train_step import images_to_compute
+    os.environ["HND_TPU_PALLAS_STEM"] = "1"
+    rng = np.random.RandomState(SEED + 21)
+    batch, targets = org_batch(rng, CPU_SHAPE, 1)
+    cpu = []
+    for model, cfg in ((teacher, TEACHER_MODEL), (student, STUDENT_MODEL)):
+        m = build_model(cfg)
+        m.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        cpu.append(m.double())
+    recorded, samples = [], []
+
+    def record(shape):
+        r = torch.from_numpy(rng.rand(*shape).astype(np.float32))
+        recorded.append(r)
+        return r
+
+    n_bwd = RK.launch_count(RK.roi_align_backward, torch.float32)
+    out = {}
+    for where in ("cpu", "gpu", "gpu_half_org"):
+        org_factor = ORG_FACTOR / 2 if where == "gpu_half_org" else ORG_FACTOR
+        if where == "cpu":
+            (t, s), d, dtype = cpu, torch.device("cpu"), torch.float64
+            draw = record
+            sample = s.roi_heads.select_training_samples
+
+            def select(*args):
+                samples.extend(sample(*args))
+                return tuple(samples)
+        else:
+            t, s, d, dtype = teacher, student, dev, torch.float32
+            replay = iter(list(recorded))
+            draw = lambda shape: next(replay).to(dev)  # noqa: E731
+
+            def select(*args):
+                return tuple(x.to(d, dtype) if x.is_floating_point()
+                             else x.to(d) for x in samples)
+        t.eval()
+        s.train().zero_grad(set_to_none=True)
+        tracked = bn_tracked(s)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        tg = {k: torch.from_numpy(v).to(d) for k, v in targets.items()}
+        tg["boxes"] = tg["boxes"].to(dtype)
+        s.roi_heads.select_training_samples = select
+        t0 = time.perf_counter()
+        try:
+            box = DistillationBox(t, s, org_criterion(ORG_CPU_TERM_FACTOR,
+                                                      org_factor))
+            total, terms = box.loss(images_to_compute(b["images"], dtype), tg,
+                                    draw, b["image_sizes"])
+            total.backward()
+        finally:
+            del s.roi_heads.select_training_samples
+        grads = {n: p.grad.detach().double().cpu()
+                 for n, p in s.named_parameters() if p.requires_grad}
+        stats = {k: v.double().cpu() for k, v in s.state_dict().items()
+                 if k.startswith("backbone.body.layer1.")
+                 and k.endswith(("running_mean", "running_var"))}
+        check(all(b == a + 1 for a, b in zip(tracked, bn_tracked(s))),
+              f"{where}: the bottleneck's BNs did not advance once")
+        out[where] = ({k: float(v.detach()) for k, v in terms.items()},
+                      grads, stats)
+        log(f"[distill-org-cpu] {where}: one step at "
+            f"{tuple(b['images'].shape)} in {time.perf_counter() - t0:.2f} s")
+    check(RK.launch_count(RK.roi_align_backward, torch.float32) == n_bwd + 2,
+          "the card's org steps did not run the f32 backward kernel once each")
+    (t_g, g_g, s_g), (t_c, g_c, s_c) = out["gpu"], out["cpu"]
+    worst = max(abs(t_g[k] - t_c[k]) / abs(t_c[k]) for k in t_c)
+    log(f"[distill-org-cpu] terms card / cpu: " + ", ".join(
+        f"{k} {t_g[k]:.8e} / {t_c[k]:.8e}" for k in t_c)
+        + f"; max rel {worst:.2e}")
+    check(len(t_c) == 8 and worst <= TRAIN_TERM_TOL,
+          f"terms: {worst} > {TRAIN_TERM_TOL}")
+    compare_student_step("distill-org-cpu", g_g, g_c, s_g, s_c,
+                         ORG_CPU_GRAD_TOL)
+    name, err = grad_errors(out["gpu_half_org"][1], g_c)[0]
+    log(f"[distill-org-cpu] control, the card's step at org_loss_factor "
+        f"{ORG_FACTOR / 2}: largest gradient error {name} {err:.2e} of its "
+        f"max (bound {ORG_CPU_GRAD_TOL})")
+    check(err > ORG_CPU_GRAD_TOL, f"control: half the org term's gradient "
+          f"is within the bound ({err} <= {ORG_CPU_GRAD_TOL})")
 
 
 def bf16_ulp(x: float) -> float:
@@ -1037,13 +1294,14 @@ def bf16_ulp(x: float) -> float:
 
 
 def roi_train_kernels_phase(dev: torch.device, kernels: dict) -> None:
-    """The bf16 RoIAlign forward and the RoIAlign backward (f32 and bf16
-    levels) against their plain versions at the train step's shapes: P2-P5
-    of one batch-2 832x1344 bucket, C=256; the box loss's 512 RoIs an
-    image at 7x7 bins, and the mask or keypoint loss's 128 positive slots
-    an image at 14x14 (image 1 without a positive, as happens).  Where the
-    backward's time goes: zeroing its float32 workspace, the scatter, and
-    the rounding pass (bf16)."""
+    """The RoIAlign forward and backward (f32 and bf16 levels) against
+    their plain versions at the train steps' shapes, P2-P5 of one 832x1344
+    bucket, C=256: the supervised step's (batch ORG_BATCH: the box loss's
+    512 RoIs an image at 7x7 bins, and the mask or keypoint loss's 128
+    positive slots an image at 14x14, image 1 without a positive, as
+    happens) and the distill step's org term's (batch TRAIN_BATCH, 512
+    RoIs an image at 7x7).  Where the backward's time goes: zeroing its
+    float32 workspace, the scatter, and the rounding pass (bf16)."""
     from hnd_ghnd_tpu_torch import _build
     from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
     from hnd_ghnd_tpu_torch.ops.roi_align import multiscale_roi_align_batch
@@ -1051,22 +1309,28 @@ def roi_train_kernels_phase(dev: torch.device, kernels: dict) -> None:
     h, w = BUCKETS[0]
     size = (h, w)
     rng = np.random.RandomState(SEED + 5)
-    cases = {}
-    boxes = torch.from_numpy(box_mix(rng, ORG_BATCH, TRAIN_ROIS, h, w)).to(dev)
-    # sel_on: a few slots unsampled, as when an image has too few candidates
-    cases[7] = (boxes, torch.from_numpy(
-        rng.rand(ORG_BATCH, TRAIN_ROIS) > 0.05).to(dev))
+    cases = {ORG_BATCH: {}, TRAIN_BATCH: {}}   # {batch: {pool: rois}}
+
+    def sampled(batch):
+        """TRAIN_ROIS boxes an image, a few slots unsampled (sel_on), as
+        when an image has too few candidates."""
+        boxes = box_mix(rng, batch, TRAIN_ROIS, h, w)
+        return (torch.from_numpy(boxes).to(dev),
+                torch.from_numpy(rng.rand(batch, TRAIN_ROIS) > 0.05).to(dev))
+    cases[ORG_BATCH][7] = sampled(ORG_BATCH)
     pos = np.zeros((ORG_BATCH, MAX_POSITIVES), bool)
     pos[0, :40] = True
-    cases[14] = (torch.from_numpy(box_mix(rng, ORG_BATCH, MAX_POSITIVES, h,
-                                          w)).to(dev),
-                 torch.from_numpy(pos).to(dev))
-    for dtype in (torch.bfloat16, torch.float32):
-        tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        levels = [torch.randn((ORG_BATCH, h // s, w // s, 256), generator=gen,
+    cases[ORG_BATCH][14] = (torch.from_numpy(box_mix(
+        rng, ORG_BATCH, MAX_POSITIVES, h, w)).to(dev),
+        torch.from_numpy(pos).to(dev))
+    cases[TRAIN_BATCH][7] = sampled(TRAIN_BATCH)
+    for batch, dtype in itertools.product((ORG_BATCH, TRAIN_BATCH),
+                                          (torch.bfloat16, torch.float32)):
+        tag = ("bf16" if dtype == torch.bfloat16 else "f32") + f" b{batch}"
+        levels = [torch.randn((batch, h // s, w // s, 256), generator=gen,
                               device=dev).to(dtype) for s in (4, 8, 16, 32)]
         shapes = [tuple(f.shape[1:3]) for f in levels]
-        for pool, (boxes, valid) in cases.items():
+        for pool, (boxes, valid) in cases[batch].items():
             n_valid = int(valid.sum())
             cot = torch.randn(tuple(boxes.shape[:2]) + (pool, pool, 256),
                               generator=gen, device=dev).to(dtype)
@@ -1079,8 +1343,12 @@ def roi_train_kernels_phase(dev: torch.device, kernels: dict) -> None:
                 f"{fwd_err} (bit-identical: {torch.equal(got, want)})")
             if dtype == torch.bfloat16:
                 # the kernel rounds the plain version's float32 bin once
-                check(torch.equal(got, want), f"roi_align bf16 {pool}x{pool}"
+                check(torch.equal(got, want), f"roi_align {tag} {pool}x{pool}"
                       " is not bit-identical to its plain version")
+            else:
+                scale = float(want.abs().max())
+                check(fwd_err <= ROI_TOL * scale, f"roi_align {tag} "
+                      f"{pool}x{pool}: {fwd_err} > {ROI_TOL} x {scale}")
             ref = [f.clone().requires_grad_(True) for f in levels]
             plain_out = multiscale_roi_align_batch(ref, boxes, size, pool, 2,
                                                    valid)
@@ -1150,7 +1418,7 @@ def roi_train_kernels_phase(dev: torch.device, kernels: dict) -> None:
                 f"{bwd_bound['bound_ms']:.4f} ms by {fwd_bound['bound_by']}")
             # no single PyTorch call computes either function (no
             # torchvision)
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and batch == ORG_BATCH:
                 suffix = "" if pool == 7 else f"_p{pool}"
                 kernels["roi_align_bf16" + suffix] = dict(
                     source="hnd_ghnd_tpu_torch/csrc/roi_align.cu",
@@ -1158,6 +1426,13 @@ def roi_train_kernels_phase(dev: torch.device, kernels: dict) -> None:
                     max_abs_err=fwd_err, **fwd_t, plain_ms=plain_fwd_ms,
                     library_ms=None, **fwd_bound)
                 kernels["roi_align_bwd" + suffix] = dict(
+                    source="hnd_ghnd_tpu_torch/csrc/roi_align.cu",
+                    replaces="hnd_ghnd_tpu/ops/pallas_roi.py:446",
+                    max_abs_err=bwd_err, **bwd_t, plain_ms=plain_bwd_ms,
+                    library_ms=None, **bwd_bound)
+            elif dtype == torch.float32 and batch == TRAIN_BATCH:
+                # only the float32 distill step's org term runs it
+                kernels["roi_align_bwd_f32"] = dict(
                     source="hnd_ghnd_tpu_torch/csrc/roi_align.cu",
                     replaces="hnd_ghnd_tpu/ops/pallas_roi.py:446",
                     max_abs_err=bwd_err, **bwd_t, plain_ms=plain_bwd_ms,
@@ -2179,7 +2454,8 @@ def train_cpu_phase(dev: torch.device, model_cfg: dict = ORG_MODEL) -> None:
 def kernel_counts() -> dict:
     """Every kernel wrapper's launch count: the RoIAlign forward by levels'
     dtype (f32 and int8 at any pool size), its bf16 forward and the bf16
-    backward by pool size (7x7 box loss, 14x14 mask or keypoint loss)."""
+    backward by pool size (7x7 box loss, 14x14 mask or keypoint loss), and
+    the f32 backward at 7x7 (a float32 distill step's org term)."""
     from hnd_ghnd_tpu_torch.ops import int8_conv as IC
     from hnd_ghnd_tpu_torch.ops import nms as NMS
     from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
@@ -2197,6 +2473,7 @@ def kernel_counts() -> dict:
             "roi_align_int8": RK.launch_count(RK.roi_align, torch.int8),
             "roi_align_bwd": bwd[(torch.bfloat16, 7)],
             "roi_align_bwd_p14": bwd[(torch.bfloat16, 14)],
+            "roi_align_bwd_f32": bwd[(torch.float32, 7)],
             "quantize_levels": RK.quantize_levels.launches,
             "stem_fwd": SK.stem_fwd.launches,
             "stem_fwd_res": SK.stem_fwd_res.launches,
@@ -2500,8 +2777,11 @@ def runner_phase(dev: torch.device, root: str) -> dict:
     eval of a seeded Mask R-CNN and Keypoint R-CNN on annotations made from
     their own detections, the Keypoint R-CNN's with the host decode and
     with ``kp_decode: device`` (``kp_decode_checks`` on its forward).
-    Returns each run's kernel launches ({"mimic", "coco", "mask_rcnn",
-    "keypoint_rcnn"})."""
+    Between them, ``mimic_runner.run -distill`` with ``--json`` turning on
+    the org term and bfloat16, one epoch on the fixture's boxes.  Returns
+    each run's kernel launches ({"mimic", "mimic_org_bf16", "coco",
+    "mask_rcnn", "keypoint_rcnn"})."""
+    from hnd_ghnd_tpu_torch.core.config import overwrite_config
     from hnd_ghnd_tpu_torch.models.convert import jax_params_from_state_dict
     from hnd_ghnd_tpu_torch.models.factory import get_model
     from hnd_ghnd_tpu_torch.runners import coco_runner, mimic_runner
@@ -2521,6 +2801,9 @@ def runner_phase(dev: torch.device, root: str) -> dict:
         ckpts[name] = os.path.join(root, f"{name}.pt")
         params, state = jax_params_from_state_dict(model.state_dict())
         ckpt_util.save_ckpt(ckpts[name], params=params, state=state)
+    # the org-term run starts from the same student
+    ckpts["student_org"] = os.path.join(root, "student_org.pt")
+    shutil.copyfile(ckpts["student"], ckpts["student_org"])
     del teacher, student
     config = {
         "dataset": {"name": "fixture", "num_workers": 4, "splits": {
@@ -2616,6 +2899,46 @@ def runner_phase(dev: torch.device, root: str) -> dict:
     log("[runner] -test_only from the best checkpoint: the teacher's and "
         "the student's stats equal the distill run's (the final eval ran "
         "the reloaded best checkpoint)")
+    torch.cuda.empty_cache()
+
+    # ------------- -distill with --json: the org term, in bfloat16
+    os.environ["HND_TPU_PALLAS_STEM"] = "0"  # the stem kernels are f32 only
+    args = mimic_runner.get_argparser().parse_args(
+        ["--config", yaml_path, "--device", str(dev), "-distill",
+         "-transform_bottleneck", "-skip_teacher_eval", "--json", json.dumps(
+             {"train": {"num_epochs": 1, "criterion": {"params": {
+                 "org_loss_factor": ORG_FACTOR}}},
+              "tpu": {"compute_dtype": "bfloat16"}})])
+    # what main does after loading the YAML
+    org_cfg = overwrite_config(copy.deepcopy(config), args.json)
+    org_cfg["student_model"]["ckpt"] = ckpts["student_org"]
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    result = mimic_runner.run(org_cfg, args)
+    wall = time.perf_counter() - t0
+    mimic_org = kernel_counts()
+    hist = result["distill"]
+    n_steps = len(hist["steps"])
+    (epoch,) = hist["epochs"]
+    n_eval = epoch["eval"]["batches"] + result["student"]["eval"]["batches"]
+    log(f"[runner] mimic_runner -distill --json {args.json}: {n_steps} "
+        f"bfloat16 steps with the org term, {n_eval} eval batches in "
+        f"{wall:.3f} s; launches { {k: v for k, v in mimic_org.items() if v} }")
+    for idx, loss, terms, ms in hist["steps"]:
+        check(np.isfinite(loss) and len(terms) == 8 and all(
+            np.isfinite(v) for v in terms.values()),
+            f"org runner step {idx}: {loss} {terms}")
+        log(f"[runner] org step {idx}: {ms:.3f} ms, loss {loss:.6e}, "
+            + " ".join(f"{k} {v:.6e}" for k, v in terms.items()
+                       if k.startswith("org_")))
+    check(n_steps == RUNNER_IMAGES["train"] // TRAIN_BATCH,
+          f"org runner: {n_steps} steps")
+    want = {"roi_align_bf16": n_steps, "roi_align_bwd": n_steps,
+            "quantize": n_eval, "dequantize": n_eval, "roi_align": n_eval}
+    check(all(mimic_org[k] == v for k, v in want.items())
+          and mimic_org["nms_keep"] >= 5 * n_steps,
+          f"org runner launches {mimic_org}, want {want}")
+    epoch_report("runner org", epoch, hist["steps"])
     torch.cuda.empty_cache()
 
     # -------------------------------------------- coco_runner -train
@@ -2771,7 +3094,8 @@ def runner_phase(dev: torch.device, root: str) -> dict:
             check(np.isfinite(stats).all() and ok,
                   f"coco_runner {kind} ({decode}): {iou} AP {stats[0]}")
         torch.cuda.empty_cache()
-    return {"mimic": mimic, "coco": coco, **heads}
+    return {"mimic": mimic, "mimic_org_bf16": mimic_org, "coco": coco,
+            **heads}
 
 
 def ext_operations(ext: torch.nn.Module, shape) -> float:
@@ -4040,7 +4364,7 @@ def multiprocess_phase(dev: torch.device, root: str, card: str) -> dict:
         begin = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         begin.record()
-        loss, terms = step(x)
+        loss, terms = step({"images": x})
         end.record()
         end.synchronize()
         ms_b.append(begin.elapsed_time(end))
@@ -4449,6 +4773,14 @@ def main() -> int:
     del teacher, student
     torch.cuda.empty_cache()
 
+    # ------------------------------------ 7b. the org term and bfloat16
+    teacher, student, org_launches = distill_org_phase(dev)
+    distill_org_cpu_phase(dev, teacher, student)
+    launches["roi_align_bwd_f32"] = org_launches["f32_org"][
+        "roi_align_bwd_f32"]
+    del teacher, student
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- 8. training
     os.environ["HND_TPU_PALLAS_STEM"] = "0"  # the stem kernels are f32 only
     train_launches = train_phase(dev, batches[0])
@@ -4503,12 +4835,15 @@ def main() -> int:
                                                "quantize_levels")},
              "distill": {k: stem_launches[k] for k in
                          ("stem_fwd", "stem_fwd_res", "stem_dw")},
+             **{f"distill_{run}": counts
+                for run, counts in org_launches.items() if counts},
              "train": {k: train_launches[k] for k in
                        ("roi_align_bf16", "roi_align_bwd", "nms_keep")},
              **{f"train_{kind}": counts
                 for kind, counts in heads_train.items()},
              **{f"{run}_runner": {k: v for k, v in runner[key].items() if v}
                 for run, key in (("mimic", "mimic"), ("coco", "coco"),
+                                 ("mimic_org_bf16", "mimic_org_bf16"),
                                  ("coco_mask", "mask_rcnn"),
                                  ("coco_keypoint", "keypoint_rcnn"))},
              "ext_runner": {"stem_fwd": runner["ext_runner"]["stem_fwd"]},
@@ -4527,7 +4862,7 @@ def main() -> int:
     out = []
     for name, k in kernels.items():
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
-        on_runner = sum(c[name] for c in runner.values())
+        on_runner = sum(c.get(name, 0) for c in runner.values())
         out.append(dict(name=name, route="cuda",
                         launches=on_runner or launches[name],
                         launches_by_path=by_path, **k))

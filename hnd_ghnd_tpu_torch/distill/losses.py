@@ -2,14 +2,16 @@
 
 Counterpart of hnd_ghnd_tpu/distill/losses.py (reference
 src/distillation/loss.py): ``GeneralizedCustomLoss`` is the weighted sum of
-per-term criteria over (teacher output, student output) pairs.  HND has one
-term (layer1), GHND four (layer1..layer4), each ``MSELoss(reduction=sum)``
-in the shipped configs.  The ``org_loss_factor`` task-loss term is
-ROADMAP A4 and raises.
+per-term criteria over (teacher output, student output) pairs, plus
+``org_loss_factor`` x the sum of the student's detection losses when the
+factor is not 0 and those losses are given (skipped at 0, as in the JAX
+package).  HND has one term (layer1), GHND four (layer1..layer4), each
+``MSELoss(reduction=sum)`` in the shipped configs, all of which set the
+factor to 0.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -63,17 +65,13 @@ def get_elementwise_loss(loss_type: str, params: Dict[str, Any]) -> Callable:
 
 
 class GeneralizedCustomLoss:
-    """Callable over {term: (teacher tensor, student tensor)} ->
-    (total, {term: factor * criterion})."""
+    """Callable over {term: (teacher tensor, student tensor)} and the
+    student's detection losses -> (total, {term: factor * criterion})."""
 
     def __init__(self, criterion_config: Dict[str, Any]):
         self.org_loss_factor = float(
             (criterion_config.get("params", {}) or {}).get("org_loss_factor",
                                                           0.0))
-        if self.org_loss_factor != 0:
-            raise NotImplementedError(
-                "org_loss_factor != 0 adds the detection losses to the "
-                "distillation loss, which is ROADMAP A4")
         self.terms = {}
         for name, term_cfg in criterion_config["terms"].items():
             sub = term_cfg["criterion"]
@@ -81,12 +79,16 @@ class GeneralizedCustomLoss:
             self.terms[name] = (tuple(term_cfg["ts_modules"]), fn,
                                 float(term_cfg["factor"]))
 
-    def __call__(self, output_dict: Dict[str, Tuple[torch.Tensor, torch.Tensor]]):
+    def __call__(self, output_dict: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+                 org_loss_dict: Optional[Dict[str, torch.Tensor]] = None):
         loss_dict = {}
         for name, (t_out, s_out) in output_dict.items():
             _, fn, factor = self.terms[name]
             loss_dict[name] = fn(t_out, s_out) * factor
-        return sum(loss_dict.values()), loss_dict
+        total = sum(loss_dict.values())
+        if self.org_loss_factor != 0 and org_loss_dict:
+            total = total + self.org_loss_factor * sum(org_loss_dict.values())
+        return total, loss_dict
 
 
 LOSS_DICT = {"general": GeneralizedCustomLoss}

@@ -142,10 +142,21 @@ class RCNN(nn.Module):
                targets: Dict[str, torch.Tensor],
                draw: Draw) -> Dict[str, torch.Tensor]:
         images = batch["images"]
-        image_shape = (images.shape[1], images.shape[2])
         _, feats = self.backbone_features(images)
+        return self.feature_losses(feats, batch["image_sizes"],
+                                   (images.shape[1], images.shape[2]),
+                                   targets, draw)
+
+    def feature_losses(self, feats: Sequence[torch.Tensor],
+                       image_sizes: torch.Tensor,
+                       image_shape: Tuple[int, int],
+                       targets: Dict[str, torch.Tensor],
+                       draw: Draw) -> Dict[str, torch.Tensor]:
+        """The training losses of ``losses`` from the FPN maps ``feats`` of
+        a train-mode trunk: the distill step's org term computes them from
+        the trunk pass its feature terms take (distill/box.py)."""
         proposals, prop_valid, raw = self.rpn.propose(
-            feats, batch["image_sizes"], image_shape, training=True)
+            feats, image_sizes, image_shape, training=True)
         rpn_losses = self.rpn.loss(raw, targets, draw)
         sampled = self.roi_heads.select_training_samples(
             proposals, prop_valid, targets, draw)

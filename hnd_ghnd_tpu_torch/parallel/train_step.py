@@ -5,20 +5,24 @@ Counterpart of hnd_ghnd_tpu/parallel/mesh.py: ``build_schedule`` and
 Adam, SGD with momentum and weight decay, MultiStepLR, and the linear
 warmup of src/utils/main_util.py), ``images_to_compute`` (the pixel cast to
 the compute dtype), ``make_distill_train_step`` and
-``make_detection_train_step`` (mesh.py:322-396).  A rank runs the step on
+``make_detection_train_step`` (mesh.py:168-406).  A rank runs the step on
 one device: there is no mesh, no ``steps_per_dispatch`` and no buffer
 donation.  With a process group of N > 1 ranks up (parallel/multihost.py),
 each rank runs its shard of the global batch and the steps keep the JAX
 package's semantics (ROADMAP C2):
 
-  * ``DistillStep`` (GSPMD, the loss an MSE sum over the global batch):
-    the gradients and the logged loss and terms are summed over the ranks,
-    and the trainable BNs take the global batch's statistics, so N ranks
-    compute one process's step on the concatenated batch;
-  * ``DetectionStep`` (``shard_map``, DDP): each rank's own loss, BN
+  * ``DistillStep`` without the org term (GSPMD, the loss an MSE sum over
+    the global batch): the gradients and the logged loss and terms are
+    summed over the ranks, and the trainable BNs take the global batch's
+    statistics, so N ranks compute one process's step on the
+    concatenated batch;
+  * ``DetectionStep``, and ``DistillStep`` with ``org_loss_factor != 0``
+    (``shard_map``, DDP, mesh.py:298-307): each rank's own loss, BN
     statistics of its own shard (``per_process_batch_norm``), the
     gradients, loss, terms and float buffers averaged (``lax.pmean``), and
-    rank r's sampler draws from ``fold_in(seed, r)``.
+    rank r's sampler draws from ``fold_in(seed, r)``.  The distill terms
+    of such a step are each rank's MSE sum over its own shard, averaged:
+    1/N of what the GSPMD step logs, as in the JAX package (ROADMAP C2).
 
 The reduced gradients, scalars and buffers go in one all-reduce per dtype,
 queued behind the backward: the step adds no host wait of its own.
@@ -147,22 +151,44 @@ class _Step:
 
 
 class DistillStep(_Step):
-    """One HND/GHND step on the student's trainable parameters:
-    zero grads, loss, backward, lr = schedule(step), optimizer step.
+    """One HND/GHND step on the student's trainable parameters in
+    ``compute_dtype``: zero grads, loss, backward, lr = schedule(step),
+    optimizer step.  With the org term (``box.use_org_loss``) the step
+    takes the batch's targets and ``draw`` gives the samplers' uniform
+    draws.
 
     ``__call__`` returns the loss and its terms as device tensors and never
     waits for the device."""
 
     def __init__(self, box: DistillationBox, optimizer: torch.optim.Optimizer,
-                 schedule: Callable[[int], float]):
+                 schedule: Callable[[int], float],
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 draw: Optional[Draw] = None):
         super().__init__(optimizer, schedule)
         self.box = box
+        self.compute_dtype = compute_dtype
+        self.draw = draw
 
-    def __call__(self, images: torch.Tensor):
+    def __call__(self, batch: Dict[str, torch.Tensor],
+                 targets: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``batch``: {"images": [B, H, W, 3] (uint8, or float in [0, 1])};
+        with the org term also image_sizes [B, 2], and ``targets`` as the
+        loader pads them."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss, terms = self.box.loss(images_to_compute(images, torch.float32))
-        loss.backward()
-        loss, terms = self.all_reduce(loss, terms, "sum")
+        images = images_to_compute(batch["images"], self.compute_dtype)
+        if not self.box.use_org_loss:
+            loss, terms = self.box.loss(images)
+            loss.backward()
+            loss, terms = self.all_reduce(loss, terms, "sum")
+        else:
+            with per_process_batch_norm():
+                loss, terms = self.box.loss(images, targets, self.draw,
+                                            batch.get("image_sizes"))
+            loss.backward()
+            buffers = [b for b in self.box.student.buffers()
+                       if b.is_floating_point()]
+            loss, terms = self.all_reduce(loss, terms, "avg", buffers)
         self.apply_update()
         return loss, terms
 
@@ -201,20 +227,35 @@ class DetectionStep(_Step):
 def make_distill_train_step(box: DistillationBox, optimizer_cfg: dict,
                             scheduler_cfg: Optional[dict] = None,
                             steps_per_epoch: int = 1,
-                            warmup_iters: int = 0) -> DistillStep:
+                            warmup_iters: int = 0,
+                            compute_dtype: torch.dtype = torch.bfloat16,
+                            draw: Optional[Draw] = None,
+                            seed: int = 0) -> DistillStep:
     """The step over the student's parameters that ``requires_grad`` (its
-    ``frozen_modules`` are off)."""
+    ``frozen_modules`` are off).  With the org term the samplers draw as
+    ``make_detection_train_step``'s do (``seeded_draw``)."""
     trainable = [p for p in box.student.parameters() if p.requires_grad]
     optimizer, schedule = build_optimizer(trainable, optimizer_cfg,
                                           scheduler_cfg, steps_per_epoch,
                                           warmup_iters)
-    return DistillStep(box, optimizer, schedule)
+    if draw is None and box.use_org_loss:
+        draw = seeded_draw(box.student, seed)
+    return DistillStep(box, optimizer, schedule, compute_dtype, draw)
 
 
 def uniform_draw(generator: torch.Generator) -> Draw:
     """The samplers' uniform draws from ``generator``, on its device."""
     return lambda shape: torch.rand(shape, generator=generator,
                                     device=generator.device)
+
+
+def seeded_draw(model: torch.nn.Module, seed: int) -> Draw:
+    """Draws from a ``torch.Generator`` on the model's device, seeded with
+    ``seed`` (one rank) or with ``multihost.fold_in(seed, rank)``."""
+    device = next(model.parameters()).device
+    if multihost.get_world_size() > 1:
+        seed = multihost.fold_in(seed, multihost.get_rank())
+    return uniform_draw(torch.Generator(device=device).manual_seed(seed))
 
 
 def make_detection_train_step(model: RCNN, optimizer_cfg: dict,
@@ -233,8 +274,5 @@ def make_detection_train_step(model: RCNN, optimizer_cfg: dict,
                                           scheduler_cfg, steps_per_epoch,
                                           warmup_iters)
     if draw is None:
-        device = next(model.parameters()).device
-        if multihost.get_world_size() > 1:
-            seed = multihost.fold_in(seed, multihost.get_rank())
-        draw = uniform_draw(torch.Generator(device=device).manual_seed(seed))
+        draw = seeded_draw(model, seed)
     return DetectionStep(model, optimizer, schedule, compute_dtype, draw)

@@ -10,10 +10,14 @@ trip only with ``-transform_bottleneck``, C8), keeps the best checkpoint
 with its optimizer state, and finally evaluates teacher and student on the
 test split, the student from its best checkpoint.  Step scalars are read
 one step late (``StepMetrics``), so the loop never waits on the step it just
-queued.
+queued.  The step runs in ``tpu.compute_dtype`` (bfloat16 unless the config
+says float32, as in the JAX package); with ``org_loss_factor != 0`` it adds
+the student's detection losses on the loader's targets, its samplers
+seeded from ``--seed``.
 
     python -m hnd_ghnd_tpu_torch.runners.mimic_runner --config <yaml> \\
-        -distill -transform_bottleneck [--device cpu]
+        -distill -transform_bottleneck [--device cpu] \\
+        [--json '{"tpu": {"compute_dtype": "bfloat16"}}']
 
 ``distill`` is the batch-level loop over given batches (dicts of arrays),
 whose evals return raw detections; ``distill_coco`` is the runner's loop
@@ -21,8 +25,9 @@ over the loaders.  TensorBoard and the profiler (A18) raise.
 
 N ranks (``torchrun --nproc_per_node N -m
 hnd_ghnd_tpu_torch.runners.mimic_runner ...``, or ``--dist_url env://``
-with RANK, WORLD_SIZE and LOCAL_RANK set) run JAX's global-batch step
-(parallel/train_step.py): ``train.batch_size`` is per rank, rank 0 logs and
+with RANK, WORLD_SIZE and LOCAL_RANK set) run JAX's global-batch step, or
+with the org term its per-rank average (parallel/train_step.py):
+``train.batch_size`` is per rank, rank 0 logs and
 writes the checkpoints, and the best one is chosen on the merged val mAP,
 the same on every rank.
 """
@@ -68,15 +73,12 @@ def get_argparser() -> argparse.ArgumentParser:
 
 
 def make_step(teacher: RCNN, student: RCNN, config: Dict[str, Any],
-              steps_per_epoch: int) -> DistillStep:
-    """The distill step of ``config["train"]`` on one device; the teacher is
-    frozen here."""
+              steps_per_epoch: int, seed: int = 0) -> DistillStep:
+    """The distill step of ``config["train"]`` on one device in
+    ``tpu.compute_dtype``; the teacher is frozen here.  ``seed`` seeds the
+    samplers of the org term (``org_loss_factor != 0``)."""
     train_cfg = config["train"]
     compute_dtype = compute_dtype_from_config(config)
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"distillation in {compute_dtype} is not ported (ROADMAP A4): "
-            "set tpu.compute_dtype: float32")
     configure_precision(compute_dtype)
     device = next(student.parameters()).device
     if next(teacher.parameters()).device != device:
@@ -87,13 +89,17 @@ def make_step(teacher: RCNN, student: RCNN, config: Dict[str, Any],
     box = DistillationBox(teacher, student, train_cfg["criterion"])
     return make_distill_train_step(box, train_cfg["optimizer"],
                                    train_cfg.get("scheduler"),
-                                   steps_per_epoch, warmup)
+                                   steps_per_epoch, warmup, compute_dtype,
+                                   seed=seed)
 
 
 def train_epoch(step: DistillStep, batches: Iterable, log_freq: int = 0,
                 header: str = "") -> Dict[str, Any]:
     """One epoch of ``step`` over ``batches`` (dicts with ``images``, or the
     loader's (batch, targets, host_targets)), the student in train mode.
+    With the org term the batches carry their targets ((batch, targets) or
+    the loader's triple), and the batch and targets go to the device as
+    ``coco_runner.train_epoch`` moves them.
 
     Returns {"steps": [(step, loss, {term: value}, ms)], "seconds": the
     epoch's wall time, "loader_s": the time spent waiting on ``batches``};
@@ -115,14 +121,21 @@ def train_epoch(step: DistillStep, batches: Iterable, log_freq: int = 0,
 
     t_start = time.perf_counter()
     batches = common.Timed(batches)
+    org = step.box.use_org_loss
     for item in batches:
         batch = item[0] if isinstance(item, tuple) else item
-        images = to_device({"images": batch["images"]}, device)["images"]
+        if org:
+            if not isinstance(item, tuple):
+                raise ValueError("org_loss_factor != 0: the batches must "
+                                 "carry their targets")
+            args = (to_device(batch, device), to_device(item[1], device))
+        else:
+            args = (to_device({"images": batch["images"]}, device),)
         start = None
         if cuda:
             start = torch.cuda.Event(enable_timing=True)
             start.record()
-        loss, terms = step(images)
+        loss, terms = step(*args)
         record(metrics.push(step.step - 1, loss, terms, start))
     record(metrics.drain())
     out["seconds"] = time.perf_counter() - t_start
@@ -134,11 +147,15 @@ def distill(teacher: RCNN, student: RCNN, config: Dict[str, Any],
             train_batches: Iterable[Dict[str, Any]],
             val_batches: Iterable[Dict[str, Any]],
             steps_per_epoch: int,
-            use_bottleneck_transformer: bool = False) -> Dict[str, List]:
+            use_bottleneck_transformer: bool = False,
+            seed: int = 0) -> Dict[str, List]:
     """Distil ``student`` from ``teacher`` for ``train.num_epochs`` epochs,
     each over ``train_batches`` (dicts with ``images`` [B, H, W, 3], uint8
-    or float in [0, 1], on the host or on the models' device).  Both models
-    are on one device, the card unless the caller put them on the CPU.
+    or float in [0, 1], on the host or on the models' device; with
+    ``org_loss_factor != 0``, (batch, targets) pairs as
+    ``coco_runner.train`` takes them, ``seed`` seeding the samplers).
+    Both models are on one device, the card unless the caller put them on
+    the CPU.
     The student trains what its factory left trainable (everything outside
     ``frozen_modules``).  Each epoch's eval quantizes and dequantizes the
     bottleneck only with ``use_bottleneck_transformer`` (JAX's
@@ -147,7 +164,7 @@ def distill(teacher: RCNN, student: RCNN, config: Dict[str, Any],
     Returns {"steps": [(step, loss, {term: value}, ms)], "evals": [the
     records of ``evaluate`` for each epoch]}; ms is the step's time between
     CUDA events (None on the CPU)."""
-    step = make_step(teacher, student, config, steps_per_epoch)
+    step = make_step(teacher, student, config, steps_per_epoch, seed)
     history: Dict[str, List] = {"steps": [], "evals": []}
     for _ in range(int(config["train"]["num_epochs"])):
         history["steps"] += train_epoch(step, train_batches)["steps"]
@@ -174,7 +191,7 @@ def distill_coco(teacher: RCNN, student: RCNN, config: Dict[str, Any],
     train_cfg = config["train"]
     ckpt_path = config["student_model"].get("ckpt")
     common.check_ckpt_backend(config)
-    step = make_step(teacher, student, config, len(train_loader))
+    step = make_step(teacher, student, config, len(train_loader), args.seed)
     best = 0.0
     if ckpt_util.check_if_exists(ckpt_path):
         best = common.resume(ckpt_path, student, step)

@@ -20,7 +20,8 @@ take the same uniform draws: JAX's, replayed from its key splits
     in the port and moved by exactly lr * wd * p in JAX (ROADMAP C7);
   * ``coco_runner.train`` for 2 steps and 1 epoch, in the config's
     bfloat16 (``tpu.compute_dtype`` defaults to bfloat16 as in JAX), and a
-    non-finite loss stopping it; distillation in bfloat16 raising.
+    non-finite loss stopping it; distillation in bfloat16 running (the
+    fused stem's switch raising on it).
 """
 import copy
 
@@ -296,10 +297,11 @@ def _images(seed=0):
 def test_bf16_trunk_and_fpn_within_jax_own_bf16_gap(org):
     jm, params, state, pm = org
     images = _images()["images"]
-    fpn = jax.jit(lambda x: jm.backbone_features(params, state, x,
-                                                 training=False)[1])
-    want = fpn(jnp.asarray(images, jnp.bfloat16))
-    want32 = fpn(jnp.asarray(images))
+    # the weights are arguments: closed over, XLA would constant-fold them
+    fpn = jax.jit(lambda p, s, x: jm.backbone_features(p, s, x,
+                                                       training=False)[1])
+    want = fpn(params, state, jnp.asarray(images, jnp.bfloat16))
+    want32 = fpn(params, state, jnp.asarray(images))
     with torch.no_grad():
         _, got = pm.backbone_features(torch.from_numpy(images).bfloat16())
     for level, (g, w, w32) in enumerate(zip(got, want, want32)):
@@ -450,12 +452,30 @@ def test_coco_runner_stops_on_a_non_finite_loss():
 
 
 def test_distillation_in_bf16_raises():
+    """Distillation in bfloat16 (the config's default, as in JAX) runs its
+    trunks in bfloat16; what still raises is the fused stem's switch, whose
+    kernels take float32 only."""
     student = get_model(STUDENT_MODEL, seed=0, device="cpu")
     teacher = get_model(ORG_MODEL, seed=1, device="cpu")
+    seen = []
+    teacher.backbone.body.layer1.register_forward_hook(
+        lambda m, args, out: seen.append(out.dtype))
+    student.backbone.body.layer1.register_forward_hook(
+        lambda m, args, out: seen.append(out[0].dtype))
+    train = [{"images": _images(40)["images"]}]
     for tpu in ({"compute_dtype": "bfloat16"}, {}):
-        config = {"student_model": STUDENT_MODEL, "train": TRAIN, "tpu": tpu}
-        with pytest.raises(NotImplementedError, match="A4"):
-            distill(teacher, student, config, [], [], 1)
+        config = {"student_model": STUDENT_MODEL,
+                  "train": dict(TRAIN, num_epochs=1), "tpu": tpu}
+        seen.clear()
+        hist = distill(teacher, student, config, train, [], 1)
+        (_, loss, terms, _), = hist["steps"]
+        assert np.isfinite(loss) and set(terms) == set(
+            TRAIN["criterion"]["terms"])
+        assert seen == [torch.bfloat16, torch.bfloat16]
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("HND_TPU_PALLAS_STEM", "1")
+            with pytest.raises(TypeError, match="bfloat16"):
+                distill(teacher, student, config, train, [], 1)
 
 
 def _dets_equal(a, b):

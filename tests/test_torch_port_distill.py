@@ -11,7 +11,8 @@ variance 1, so their ``weight``/``bias`` are JAX's ``scale``/``bias`` leaves.
   * the schedule equals ``build_schedule`` at the warmup's start and end
     and at each milestone;
   * the updatable names and the parameter count equal JAX's;
-  * the criterion equals JAX's;
+  * the criterion equals JAX's (the org term too; more in
+    tests/test_torch_port_distill_org.py);
   * one step, with the stem switch off and on (JAX's Pallas stem in
     interpret mode, the port's fused Function on its plain versions):
     loss and terms to 1e-5 relative of the same MSE-sums of JAX's features
@@ -120,6 +121,10 @@ def to_jax_layout(t, layout):
 
 @pytest.fixture(scope="module")
 def weights():
+    return distill_weights()
+
+
+def distill_weights():
     """(JAX teacher, t_params, t_state, JAX student, s_params, s_state)."""
     jt = jax_build_model(TEACHER_MODEL)
     tp, tstate = _np(jax_init_model(jt, 0))
@@ -158,16 +163,19 @@ def jax_step(weights, images):
     jt, tp, tstate, js, sp, sstate = weights
     box = JaxBox(jt, js, TRAIN["criterion"])
 
-    def f(p):
-        return box.loss(tp, tstate, p, sstate, {"images": images})
+    def f(p, tp, ts, ss, x):
+        return box.loss(tp, ts, p, ss, {"images": x})
 
-    def features(p):
-        t, _ = box._features(jt, tp, tstate, images, training=False)
-        s, _ = box._features(js, p, sstate, images, training=True)
+    def features(p, tp, ts, ss, x):
+        t, _ = box._features(jt, tp, ts, x, training=False)
+        s, _ = box._features(js, p, ss, x, training=True)
         return t, s
 
+    # the weights and images are arguments: closed over, XLA would
+    # constant-fold the teacher's forward at compile time (~25 s)
     ((_, (_, new_state)), grads), (t, s) = jax.jit(
-        lambda p: (jax.value_and_grad(f, has_aux=True)(p), features(p)))(sp)
+        lambda *a: (jax.value_and_grad(f, has_aux=True)(*a), features(*a)))(
+        sp, tp, tstate, sstate, images)
     grads = apply_grad_mask(grads, trainable_mask(sp, FROZEN))
     terms = {}
     for name, (t_path, s_path) in box.pairs.items():
@@ -248,12 +256,18 @@ def test_criterion_matches_jax():
                                    rtol=1e-6)
     assert _max_stage(["backbone.body.layer1"]) == 1
     assert _max_stage(["backbone.body.layer3", "backbone.body.layer2"]) == 3
-    with pytest.raises(NotImplementedError):
-        _max_stage(["backbone.fpn"])
-    bad = copy.deepcopy(TRAIN["criterion"])
-    bad["params"]["org_loss_factor"] = 1.0
-    with pytest.raises(NotImplementedError):
-        get_loss(bad)
+    # the FPN term reads all four stages, as in JAX (box.py:33-44)
+    assert _max_stage(["backbone.fpn"]) == 4
+    # org_loss_factor adds factor x the detection losses to the total
+    crit["params"]["org_loss_factor"] = 1.0
+    org = {"loss_classifier": 0.5, "loss_objectness": 0.25}
+    total, _ = get_loss(crit)({k: (torch.from_numpy(a), torch.from_numpy(b))
+                               for k, (a, b) in pairs.items()},
+                              {k: torch.tensor(v) for k, v in org.items()})
+    want_total, _ = jax_get_loss(crit)(
+        {k: (jnp.asarray(a), jnp.asarray(b)) for k, (a, b) in pairs.items()},
+        {k: jnp.asarray(v) for k, v in org.items()})
+    np.testing.assert_allclose(float(total), float(want_total), rtol=1e-6)
 
 
 def test_step_loss_and_terms_match_jax(steps):
@@ -352,8 +366,8 @@ def test_port_step_freezes_and_moves(weights):
     before = {n: t.clone() for n, t in ps.state_dict().items()}
     box = DistillationBox(pt, ps, TRAIN["criterion"])
     step = make_distill_train_step(box, TRAIN["optimizer"], TRAIN["scheduler"],
-                                   10, 9)
-    loss, terms = step(torch.from_numpy(_images()))
+                                   10, 9, compute_dtype=torch.float32)
+    loss, terms = step({"images": torch.from_numpy(_images())})
     assert torch.isfinite(loss) and set(terms) == set(TRAIN["criterion"]["terms"])
     trainable = set(updatable_param_names(ps))
     for n, p in ps.named_parameters():

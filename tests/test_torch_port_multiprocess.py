@@ -487,11 +487,12 @@ def task_distill():
     teacher.eval().requires_grad_(False)
     student.train()
     step = make_distill_train_step(
-        DistillationBox(teacher, student, HND_CRITERION), SGD)
+        DistillationBox(teacher, student, HND_CRITERION), SGD,
+        compute_dtype=torch.float32)
     losses = []
     with torch.backends.mkldnn.flags(enabled=False):
         for images in distill_images():
-            loss, terms = step(torch.from_numpy(shard(images)))
+            loss, terms = step({"images": torch.from_numpy(shard(images))})
             losses.append((float(loss), {k: float(v)
                                          for k, v in terms.items()}))
     return {"losses": losses, "state": trained_state(student)}

@@ -375,6 +375,46 @@ def test_distill_resumes_from_the_best_checkpoint(case, port_distill):
     assert after["lr_step"] == (4 if epoch["saved"] else 2)
 
 
+def test_distill_with_the_org_term_in_bf16_from_the_yaml(case):
+    """``-distill`` with ``--json`` turning on ``org_loss_factor`` and the
+    JAX package's default bfloat16: one epoch of two steps on the loader's
+    targets, each logging the four feature terms and the four org_ terms,
+    finite, the student's trunk in bfloat16, then its float32 evals (on
+    the first EVAL_BATCH images: one eval batch each)."""
+    root, config = case
+    first = str(root / "first_images.json")
+    path = write_config(root, config, "org_bf16",
+                        str(root / "org_bf16_student.pt"))
+    seen = []
+    forward = mimic_runner.DistillationBox._features
+
+    def features(box, model, images, full=False):
+        seen.append(images.dtype)
+        return forward(box, model, images, full)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mimic_runner.DistillationBox, "_features", features)
+        result, _ = port_main(mimic_runner, [
+            "--config", path, "--device", "cpu", "-distill",
+            "-skip_teacher_eval", "--json", json.dumps(
+                {"train": {"criterion": {"params": {"org_loss_factor": 1.0}}},
+                 "tpu": {"compute_dtype": "bfloat16"},
+                 "dataset": {"splits": {"val": {"annotations": first},
+                                        "test": {"annotations": first}}}})])
+    steps = result["distill"]["steps"]
+    assert [s[0] for s in steps] == [0, 1]
+    org = {"org_loss_classifier", "org_loss_box_reg", "org_loss_objectness",
+           "org_loss_rpn_box_reg"}
+    for _, loss, terms, _ in steps:
+        assert set(terms) == {f"layer{i}" for i in (1, 2, 3, 4)} | org
+        assert np.isfinite(loss) and all(np.isfinite(v)
+                                         for v in terms.values())
+        assert loss == pytest.approx(sum(terms.values()), rel=1e-5)
+    assert seen == [torch.bfloat16] * 4  # teacher and student, two steps
+    assert result["student"]["eval"]["batches"] == 1
+    assert np.isfinite(result["student"]["stats"]["bbox"]).all()
+
+
 def test_unported_flags_raise(case):
     root, config = case
     path = write_config(root, config, "flags")
