@@ -21,15 +21,18 @@ paths, at full width with random weights and BN statistics from a seed:
   * the rest of distillation (``distill_org_phase``, ROADMAP A4): the
     same student and teacher, batch 4 on both buckets with seeded
     targets, in float32 with ``org_loss_factor`` 1 (the stem switch on),
-    then in bfloat16 without and with the term (the fused stem takes
-    float32 only): the org term's RoIAlign forward (f32 and bf16 tables),
+    then in bfloat16 without and with the term (cuDNN's stem), then in
+    bfloat16 with the stem switch on (R12: the stem kernels in bf16, their
+    step times beside the switched-off run's): the org term's RoIAlign
+    forward (f32 and bf16 tables),
     its backward and the RPN's NMS launched once per step, the BN
     statistics advanced once a step, the bfloat16 terms against the
     float32 ones, and one float32 org step compared with a float64 step
     on the CPU on the CPU's RoI samples;
   * supervised training: ``coco_runner.train`` of the org Faster R-CNN of
     config/org/faster_rcnn-backbone_resnet50.yaml in bfloat16, batch 2 on
-    both buckets with seeded synthetic targets, then its float32 eval on a
+    both buckets with seeded synthetic targets, the stem switch on (its
+    frozen stem through the bf16 stem kernel), then its float32 eval on a
     batch-8 serving batch; one float32 step compared with a float64 step on
     the CPU; the same training for the org Mask R-CNN and Keypoint R-CNN
     (config/org/{mask,keypoint}_rcnn-backbone_resnet50.yaml) with seeded
@@ -44,9 +47,13 @@ paths, at full width with random weights and BN statistics from a seed:
     config's blocks, -distill -transform_bottleneck, 2 epochs at batch 4
     with the stem switch on, COCOeval of each epoch's val, the best
     checkpoint, the test evals at batch 1; the same with -test_only from
-    that checkpoint; ``mimic_runner.run -distill`` for one epoch with
+    that checkpoint; one epoch of the same distillation with the loader on
+    its pure path (the runs before and after take the native host
+    libraries where they build: which path, and the loader wait both
+    ways, are printed); ``mimic_runner.run -distill`` for one epoch with
     ``--json`` turning on ``org_loss_factor`` and bfloat16, its targets
-    the fixture's boxes; ``coco_runner.run -train`` of the org model for one
+    the fixture's boxes, with ``--tb_dir`` and ``--profile_dir`` (the
+    events and the trace read back); ``coco_runner.run -train`` of the org model for one
     epoch of bfloat16 steps on the fixture's own boxes, and of the org
     Mask R-CNN (on the boxes' polygons) and Keypoint R-CNN (on a
     person-keypoint file of the same boxes), scored by COCOeval's segm and
@@ -298,6 +305,10 @@ ROI_TOL = 1e-5                 # RoIAlign: identical arithmetic, order only
 # forward, B x OH x OW-term sums (1.1 M at batch 4) for dW
 STEM_FWD_TOL = 1e-5            # x max |plain output|
 STEM_DW_TOL = 1e-4             # x max |plain dW|
+# bf16 stem forwards: at most this share of the elements may differ from
+# the plain version's (0 measured on all four shapes; a weight left
+# unrounded flips about a fifth of them, and stays within one ulp)
+STEM_BF16_DIFF_FRAC = 1e-4
 REPS = 25                      # timed runs per kernel; the median is kept
 # ~5 ms of the card's clock: longer than the host takes to enqueue any
 # kernel's call with its wrapper's checks (time_ms's device reading)
@@ -305,6 +316,7 @@ SPIN_CYCLES = 10_000_000
 # the card's peaks for the bound of a kernel (H100 SXM data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12        # float32 outside the tensor cores
+PEAK_BF16_PER_S = 989e12       # dense bf16 on the tensor cores
 PEAK_INT8_PER_S = 1979e12      # dense int8 on the tensor cores
 # the distill phase: batch 4 (train.batch_size), pixel_dtype float32; the
 # first batch comes back last, so the loss must have fallen on it
@@ -651,38 +663,86 @@ def stem_kernels_phase(dev: torch.device, kernels: dict) -> None:
     step's shapes (batch 4 on both buckets), on a ragged shape (33 x 50
     outputs: a partial tile in each direction) and on one with W/2 odd
     whose tiles no persistent grid divides (65 x 673 outputs, 594 tiles),
-    timed at both buckets."""
+    timed at both buckets; in float32, then with bfloat16 activations (R12:
+    rows ``*_bf16``, the forwards within one bf16 ulp of the plain
+    version's largest value and at most STEM_BF16_DIFF_FRAC of their
+    elements differing from it, dW within STEM_DW_TOL; the library calls
+    in bfloat16 too, and the bound's operations at the bf16 rate).  A
+    control holds the plain output with the weight left unrounded to the
+    same count, which must fail it."""
     import torch.nn.functional as F
     from hnd_ghnd_tpu_torch.ops import stem as ts
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
-    gen = torch.Generator(device=dev).manual_seed(SEED)
     shapes = [(TRAIN_BATCH, 3) + BUCKETS[0], (TRAIN_BATCH, 3) + BUCKETS[1],
               (2, 3, 66, 100), (3, 3, 130, 1346)]
-    for shape in shapes:
-        x, w, scale, bias = stem_inputs(gen, shape, dev)
-        want, conv = ts.stem_forward(x, w, scale, bias, with_conv=True)
-        got = SK.stem_fwd(x, w, scale, bias)
-        got_res, got_conv = SK.stem_fwd_res(x, w, scale, bias)
-        g = torch.randn(conv.shape, generator=gen, device=dev)
-        dw = SK.stem_dw(x, g)
-        want_dw = ts.stem_weight_grad(x, g)
-        torch.cuda.synchronize()
-        errs = {
-            "stem_fwd": (float((got - want).abs().max()),
-                         float(want.abs().max()), STEM_FWD_TOL),
-            "stem_fwd_res": (max(float((got_res - want).abs().max()),
-                                 float((got_conv - conv).abs().max())),
-                             float(conv.abs().max()), STEM_FWD_TOL),
-            "stem_dw": (float((dw - want_dw).abs().max()),
-                        float(want_dw.abs().max()), STEM_DW_TOL),
-        }
-        check(torch.equal(SK.stem_dw(x, g), dw), "stem_dw is not repeatable")
-        for name, (err, scale_, tol) in errs.items():
-            log(f"[stem] {name} {shape}: max abs err {err:.3e} (max |plain| "
-                f"{scale_:.3e}, bound {tol} x max)")
-            check(err <= tol * scale_, f"{name} {shape}: {err} > {tol} x "
-                  f"{scale_}")
-        if shape in shapes[:2]:
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        bf16 = dtype == torch.bfloat16
+        for shape in shapes:
+            x, w, scale, bias = stem_inputs(gen, shape, dev)
+            x = x.to(dtype)
+            want, conv = ts.stem_forward(x, w, scale, bias, with_conv=True)
+            got = SK.stem_fwd(x, w, scale, bias)
+            got_res, got_conv = SK.stem_fwd_res(x, w, scale, bias)
+            g = torch.randn(conv.shape, generator=gen, device=dev).to(dtype)
+            dw = SK.stem_dw(x, g)
+            want_dw = ts.stem_weight_grad(x, g)
+            torch.cuda.synchronize()
+
+            def err(a, b):
+                return float((a.float() - b.float()).abs().max())
+
+            def fwd_bound(t):
+                m = float(t.float().abs().max())
+                return bf16_ulp(m) if bf16 else STEM_FWD_TOL * m
+
+            # (error, its bound) of each output; the residual's output is
+            # held as the forward's (float32: to the conv's largest value,
+            # as before bf16)
+            checks = {
+                "stem_fwd": [(err(got, want), fwd_bound(want))],
+                "stem_fwd_res": [(err(got_res, want),
+                                  fwd_bound(want) if bf16 else
+                                  fwd_bound(conv)),
+                                 (err(got_conv, conv), fwd_bound(conv))],
+                "stem_dw": [(err(dw, want_dw),
+                             STEM_DW_TOL * float(want_dw.abs().max()))],
+            }
+            check(torch.equal(SK.stem_dw(x, g), dw),
+                  f"stem_dw{suffix} is not repeatable")
+            if bf16:
+                most = int(STEM_BF16_DIFF_FRAC * want.numel())
+                for name, a, b in (("stem_fwd", got, want),
+                                   ("stem_fwd_res", got_res, want),
+                                   ("stem_fwd_res conv", got_conv, conv)):
+                    n = int((a != b).sum())
+                    log(f"[stem] {name}_bf16 {shape}: {n} of {b.numel()} "
+                        f"elements differ (at most {most})")
+                    check(n <= most, f"{name}_bf16 {shape}: {n} elements "
+                          f"differ > {most}")
+                # control: JAX rounds the weight to bf16
+                # (pallas_stem.py:249); the plain output without that
+                # rounding must fail the count
+                tf32 = torch.backends.cudnn.allow_tf32
+                torch.backends.cudnn.allow_tf32 = False
+                ctrl = ts.stem_forward(x.float(), w, scale, bias).to(dtype)
+                torch.backends.cudnn.allow_tf32 = tf32
+                n = int((got != ctrl).sum())
+                log(f"[stem] control, stem_fwd_bf16 {shape} against the "
+                    f"plain version with the weight left unrounded: {n} "
+                    f"elements differ (bound {most}), max abs err "
+                    f"{err(got, ctrl):.3e} (one ulp {fwd_bound(want):.3e})")
+                check(n > most, f"control: the count does not see an "
+                      f"unrounded weight ({n} <= {most})")
+            errs = {}
+            for name, pairs in checks.items():
+                for e, b in pairs:
+                    log(f"[stem] {name}{suffix} {shape}: max abs err "
+                        f"{e:.3e} (bound {b:.3e})")
+                    check(e <= b, f"{name}{suffix} {shape}: {e} > {b}")
+                errs[name] = (max(e for e, _ in pairs),)
+            if shape not in shapes[:2]:
+                continue
             times = {
                 "stem_fwd": (timings(lambda: SK.stem_fwd(x, w, scale, bias)),
                              time_ms(lambda: ts.stem_forward(x, w, scale,
@@ -694,28 +754,32 @@ def stem_kernels_phase(dev: torch.device, kernels: dict) -> None:
                 "stem_dw": (timings(lambda: SK.stem_dw(x, g)),
                             time_ms(lambda: ts.stem_weight_grad(x, g))),
             }
-            # one PyTorch call each: the conv alone (no affine, no ReLU)
-            # for the forwards, conv2d_weight for dW
-            conv_ms = time_ms(lambda: F.conv2d(x, w, stride=2, padding=3))
+            # one PyTorch call each, in the activations' dtype: the conv
+            # alone (no affine, no ReLU) for the forwards, conv2d_weight
+            # for dW
+            wl = w.to(dtype)
+            conv_ms = time_ms(lambda: F.conv2d(x, wl, stride=2, padding=3))
             dw_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
                 x, w.shape, g, stride=2, padding=3))
             for name, (k, p_ms) in times.items():
                 lib = dw_ms if name == "stem_dw" else conv_ms
-                log(f"[stem] {name} {shape}: {k['ms']:.4f} ms kernel "
-                    f"({k['device_ms']:.4f} on the card), {p_ms:.4f} ms plain, "
-                    f"{lib:.4f} ms library (median of {REPS})")
-        if shape == shapes[0]:
+                log(f"[stem] {name}{suffix} {shape}: {k['ms']:.4f} ms kernel "
+                    f"({k['device_ms']:.4f} on the card), {p_ms:.4f} ms "
+                    f"plain, {lib:.4f} ms library (median of {REPS})")
+            if shape != shapes[0]:
+                continue
             macs = 2.0 * 147 * conv.numel()
+            peak = PEAK_BF16_PER_S if bf16 else PEAK_FP32_PER_S
             bounds = {
                 "stem_fwd": bound(nbytes(x, w, scale, bias, want),
-                                  macs + 3.0 * want.numel()),
+                                  macs + 3.0 * want.numel(), peak),
                 "stem_fwd_res": bound(nbytes(x, w, scale, bias, want, conv),
-                                      macs + 3.0 * want.numel()),
-                "stem_dw": bound(nbytes(x, g, dw), macs),
+                                      macs + 3.0 * want.numel(), peak),
+                "stem_dw": bound(nbytes(x, g, dw), macs, peak),
             }
             for name, line in (("stem_fwd", 126), ("stem_fwd_res", 132),
                                ("stem_dw", 141)):
-                kernels[name] = dict(
+                kernels[name + suffix] = dict(
                     source="hnd_ghnd_tpu_torch/csrc/stem.cu",
                     replaces=f"hnd_ghnd_tpu/ops/pallas_stem.py:{line}",
                     max_abs_err=errs[name][0], **times[name][0],
@@ -1113,10 +1177,12 @@ def bn_tracked(model: torch.nn.Module) -> list:
 
 def distill_org_phase(dev: torch.device):
     """``mimic_runner.distill`` of the distill phase's student and teacher
-    on seeded (batch, targets), from the same start three times: float32
+    on seeded (batch, targets), from the same start four times: float32
     with org_loss_factor ORG_FACTOR (stem switch on), bfloat16 without the
-    term and bfloat16 with it (switch off: the fused stem takes float32
-    only).  Returns (teacher, student at its start, {run: launches})."""
+    term and bfloat16 with it (switch off, cuDNN's stem), and bfloat16
+    without the term with the switch on (R12: the stem kernels in bf16),
+    whose step times are set beside the switched-off run's.  Returns
+    (teacher, student at its start, {run: launches})."""
     from hnd_ghnd_tpu_torch.runners.mimic_runner import distill
     teacher, student = distill_models(dev)
     start = copy.deepcopy(student.state_dict())
@@ -1125,10 +1191,12 @@ def distill_org_phase(dev: torch.device):
     org_keys = {f"org_{k}" for k in ("loss_classifier", "loss_box_reg",
                                      "loss_objectness", "loss_rpn_box_reg")}
     runs, launches = {}, {}
+    medians = {}
     for tag, dtype, factor, stem in (("f32_org", "float32", ORG_FACTOR, "1"),
                                      ("bf16", "bfloat16", 0.0, "0"),
                                      ("bf16_org", "bfloat16", ORG_FACTOR,
-                                      "0")):
+                                      "0"),
+                                     ("bf16_stem", "bfloat16", 0.0, "1")):
         os.environ["HND_TPU_PALLAS_STEM"] = stem
         student.load_state_dict(start)
         crit = org_criterion()
@@ -1166,13 +1234,16 @@ def distill_org_phase(dev: torch.device):
                             "nms_keep": 5 * n},
                 "bf16": {},
                 "bf16_org": {"roi_align_bf16": n, "roi_align_bwd": n,
-                             "nms_keep": 5 * n}}[tag]
+                             "nms_keep": 5 * n},
+                "bf16_stem": {"stem_fwd_bf16": n, "stem_fwd_res_bf16": n,
+                              "stem_dw_bf16": n}}[tag]
         check(counts == want, f"{tag}: launches {counts}, want {want}")
         for bi, bucket in enumerate(BUCKETS):
             first = bi * ORG_STEPS_PER_BUCKET
             ms = [s[3] for s in hist["steps"]
                   if tuple(batches[s[0]][0]["images"].shape[1:3]) == bucket
                   and s[0] != first]
+            medians[tag, bucket] = statistics.median(ms)
             log(f"[distill-org] {tag} bucket {bucket}: median step "
                 f"{statistics.median(ms):.3f} ms over {len(ms)} steps "
                 f"({TRAIN_BATCH / statistics.median(ms) * 1e3:.2f} img/s)")
@@ -1181,8 +1252,13 @@ def distill_org_phase(dev: torch.device):
     log(f"[distill-org] the bottleneck's 8 BNs advanced once a step in each "
         "run; every kernel of the org term launched once a step, the RPN's "
         "NMS five times")
+    for bucket in BUCKETS:
+        log(f"[distill-org] bfloat16 step, bucket {bucket}: stem switch on "
+            f"{medians['bf16_stem', bucket]:.3f} ms (the bf16 stem kernels), "
+            f"off {medians['bf16', bucket]:.3f} ms (cuDNN)")
     # the first step: the same weights and batch in either dtype
-    for tag, ref in (("bf16", "f32_org"), ("bf16_org", "f32_org")):
+    for tag, ref in (("bf16", "f32_org"), ("bf16_org", "f32_org"),
+                     ("bf16_stem", "f32_org")):
         got, want = runs[tag][0][2], runs[ref][0][2]
         rels = {k: abs(v - want[k]) / abs(want[k]) for k, v in got.items()}
         log(f"[distill-org] {tag} step 0 terms vs float32: " + ", ".join(
@@ -2173,7 +2249,7 @@ def train_phase(dev: torch.device, eval_batch: dict) -> dict:
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in kernel_counts().items()
                 if k in ("roi_align", "roi_align_bf16", "roi_align_bwd",
-                         "nms_keep")}
+                         "nms_keep", "stem_fwd", "stem_fwd_bf16")}
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"[train] {n} bf16 steps + 1 float32 eval batch in {wall:.3f} s; "
         f"launches {launches}; peak memory {peak:.2f} GiB")
@@ -2189,6 +2265,10 @@ def train_phase(dev: torch.device, eval_batch: dict) -> dict:
           "step")
     check(launches["roi_align"] == 1, "the f32 RoIAlign did not launch once "
           "in the float32 eval")
+    if os.environ.get("HND_TPU_PALLAS_STEM") == "1":
+        check(launches["stem_fwd_bf16"] == n and launches["stem_fwd"] == 1,
+              "the frozen stem did not run its kernel once a step in bf16 "
+              "and once in the float32 eval")
     after = model.state_dict()
     for name in frozen:
         check(torch.equal(after[name], start[name]), f"frozen {name} changed")
@@ -2454,8 +2534,9 @@ def train_cpu_phase(dev: torch.device, model_cfg: dict = ORG_MODEL) -> None:
 def kernel_counts() -> dict:
     """Every kernel wrapper's launch count: the RoIAlign forward by levels'
     dtype (f32 and int8 at any pool size), its bf16 forward and the bf16
-    backward by pool size (7x7 box loss, 14x14 mask or keypoint loss), and
-    the f32 backward at 7x7 (a float32 distill step's org term)."""
+    backward by pool size (7x7 box loss, 14x14 mask or keypoint loss), the
+    f32 backward at 7x7 (a float32 distill step's org term), and the stem
+    kernels by the activations' dtype."""
     from hnd_ghnd_tpu_torch.ops import int8_conv as IC
     from hnd_ghnd_tpu_torch.ops import nms as NMS
     from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
@@ -2475,9 +2556,12 @@ def kernel_counts() -> dict:
             "roi_align_bwd_p14": bwd[(torch.bfloat16, 14)],
             "roi_align_bwd_f32": bwd[(torch.float32, 7)],
             "quantize_levels": RK.quantize_levels.launches,
-            "stem_fwd": SK.stem_fwd.launches,
-            "stem_fwd_res": SK.stem_fwd_res.launches,
-            "stem_dw": SK.stem_dw.launches,
+            "stem_fwd": SK.stem_fwd.launches[torch.float32],
+            "stem_fwd_res": SK.stem_fwd_res.launches[torch.float32],
+            "stem_dw": SK.stem_dw.launches[torch.float32],
+            "stem_fwd_bf16": SK.stem_fwd.launches[torch.bfloat16],
+            "stem_fwd_res_bf16": SK.stem_fwd_res.launches[torch.bfloat16],
+            "stem_dw_bf16": SK.stem_dw.launches[torch.bfloat16],
             "int8_conv": IC.int8_conv.launches,
             "int8_conv_requant": IC.int8_conv_requant.launches,
             # B6's main loops, over both of its entries
@@ -2492,10 +2576,11 @@ def zero_kernel_counts() -> None:
     from hnd_ghnd_tpu_torch.ops import quant_kernels as QK
     from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
-    for fn in (QK.quantize, QK.dequantize, RK.quantize_levels, SK.stem_fwd,
-               SK.stem_fwd_res, SK.stem_dw, IC.int8_conv,
+    for fn in (QK.quantize, QK.dequantize, RK.quantize_levels, IC.int8_conv,
                IC.int8_conv_requant, NMS.nms_keep):
         fn.launches = 0
+    for fn in (SK.stem_fwd, SK.stem_fwd_res, SK.stem_dw):
+        fn.launches.clear()
     NMS.fixpoint.iterations = 0
     for path in IC.template_launches:
         IC.template_launches[path] = 0
@@ -2729,6 +2814,25 @@ def postproc_ab(coco_runner, cfg: dict, args, kind: str, iou: str) -> None:
             f"{r['eval']['cocoeval_s']:.3f}" for r in pool)
         + f" s (in turns one, pool, pool, one); {iou} AP "
         f"{one[0]['stats'][iou][0]:.6f} both ways")
+    if iou != "segm":
+        return
+    # the mask IoUs and the matching on numpy (the library taken away)
+    # against the pool runs above, which ran the native cocomask library
+    from hnd_ghnd_tpu_torch.evals import mask_rle
+    torch.backends.cudnn.deterministic = True
+    native_lib, mask_rle.get_lib = mask_rle.get_lib, lambda: None
+    try:
+        numpy_run = coco_runner.run(cfg, args)["test"]
+    finally:
+        mask_rle.get_lib = native_lib
+    torch.backends.cudnn.deterministic = False
+    check(numpy_run["stats"] == one[0]["stats"], f"{kind}: numpy COCOeval "
+          "moved the stats")
+    log(f"[runner] {kind} test eval at batch {EVAL_BATCH}, host "
+        f"postprocess and COCOeval on the pool: native cocomask " + " / ".join(
+            f"{r['eval']['cocoeval_s']:.3f}" for r in pool)
+        + f" s, numpy {numpy_run['eval']['cocoeval_s']:.3f} s; {iou} AP "
+        f"{numpy_run['stats'][iou][0]:.6f} both ways")
 
 
 def runner_models(dev: torch.device):
@@ -2746,6 +2850,41 @@ def runner_models(dev: torch.device):
                              if not k.startswith("backbone.body.layer1.")},
                             strict=False)
     return teacher, student
+
+
+def _build_info(name: str) -> str:
+    from hnd_ghnd_tpu_torch import _build
+    return str(_build.host_info.get(name, "not built"))
+
+
+def tb_and_trace_checks(tb_dir: str, prof_dir: str, hist: dict,
+                        epoch: dict, log_freq: int) -> None:
+    """The run's ``--tb_dir`` events, read back: ``train/loss`` and each
+    term every ``log_freq`` steps, ``val/map`` the epoch's; its
+    ``--profile_dir`` trace, read back: device kernels in it."""
+    from hnd_ghnd_tpu_torch.utils.profiling import trace_files
+    from hnd_ghnd_tpu_torch.utils.tensorboard import read_scalars
+    (events,) = os.listdir(tb_dir)
+    scalars = read_scalars(os.path.join(tb_dir, events))
+    want = []
+    for idx, loss, terms, _ in hist["steps"]:
+        if idx % log_freq == 0:
+            want += [("train/loss", loss, idx)] + [
+                (f"train/{k}", v, idx) for k, v in terms.items()]
+    want.append(("val/map", epoch["val_map"], 0))
+    check([(t, s) for t, _, s in scalars] == [(t, s) for t, _, s in want]
+          and all(np.float32(v) == np.float32(w) for (_, v, _), (_, w, _)
+                  in zip(scalars, want)),
+          f"--tb_dir events {scalars[:4]}... differ from the run's scalars")
+    (trace,) = trace_files(prof_dir)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(len(kernels) > 0, "the --profile_dir trace holds no device kernel")
+    log(f"[runner] --tb_dir: {len(scalars)} scalars read back, equal to the "
+        f"run's; --profile_dir: {os.path.basename(trace)} "
+        f"{os.path.getsize(trace) / 2**20:.1f} MiB, {len(events)} events, "
+        f"{len(kernels)} device kernels")
 
 
 def epoch_report(tag: str, epoch: dict, steps: list) -> None:
@@ -2784,10 +2923,18 @@ def runner_phase(dev: torch.device, root: str) -> dict:
     from hnd_ghnd_tpu_torch.core.config import overwrite_config
     from hnd_ghnd_tpu_torch.models.convert import jax_params_from_state_dict
     from hnd_ghnd_tpu_torch.models.factory import get_model
-    from hnd_ghnd_tpu_torch.runners import coco_runner, mimic_runner
+    from hnd_ghnd_tpu_torch.data import native_prep
+    from hnd_ghnd_tpu_torch.evals import mask_rle
+    from hnd_ghnd_tpu_torch.runners import coco_runner, common, mimic_runner
     from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
     t0 = time.perf_counter()
     fx = write_runner_fixture(root, np.random.RandomState(SEED + 10))
+    log(f"[runner] host libraries: loader prep "
+        f"{'native' if native_prep.available() else 'pure'} "
+        f"({native_prep.reason()}); COCOeval's matching and mask IoUs "
+        f"{'native (libcocomask)' if mask_rle.get_lib() else 'numpy'}"
+        + ("" if mask_rle.get_lib() else
+           f" ({_build_info('cocomask')})"))
 
     def split(name, ann=None):
         img_dir, own = fx[name]
@@ -2901,13 +3048,47 @@ def runner_phase(dev: torch.device, root: str) -> dict:
         "the reloaded best checkpoint)")
     torch.cuda.empty_cache()
 
-    # ------------- -distill with --json: the org term, in bfloat16
-    os.environ["HND_TPU_PALLAS_STEM"] = "0"  # the stem kernels are f32 only
+    # ------------- the loader's host path: the run above took the native
+    # one where libprep built; one epoch of the same distillation on the
+    # pure path (PIL decode, cv2 resize), no checkpoint written
+    os.environ["HND_TPU_NATIVE_PREP"] = "0"
+    pure_cfg = dict(config, train=dict(TRAIN, num_epochs=1),
+                    student_model=dict(STUDENT_MODEL, ckpt=None))
+    pure_student = get_model(dict(STUDENT_MODEL, ckpt=ckpts["student_org"]),
+                             seed=SEED + 1, device=dev)
+    pure_teacher = get_model(config["teacher_model"], seed=SEED, device=dev)
+    loaders = common.loaders_from_config(
+        pure_cfg, pure_student.kind, TRAIN_BATCH,
+        min_sizes=common.keypoint_min_sizes(pure_student.kind, True))
+    check(not loaders[0].native, "HND_TPU_NATIVE_PREP=0 left the loader "
+          "native")
+    pure = mimic_runner.distill_coco(
+        pure_teacher, pure_student, pure_cfg, mimic_runner.get_argparser()
+        .parse_args(["--config", yaml_path, "-transform_bottleneck"]),
+        *loaders[:2])
+    os.environ.pop("HND_TPU_NATIVE_PREP")
+    del pure_teacher, pure_student, loaders
+    for tag, epoch in (("native", hist["epochs"][0]),
+                       ("pure", pure["epochs"][0])):
+        log(f"[runner] loader {tag}: epoch 0 train loop "
+            f"{epoch['train']['seconds']:.3f} s, loader wait "
+            f"{epoch['train']['loader_s']:.3f} s "
+            f"({epoch['train']['loader_s'] / epoch['train']['seconds']:.1%}"
+            f"); val eval loader wait {epoch['eval']['loader_s']:.3f} s of "
+            f"{epoch['eval']['seconds']:.3f} s")
+    torch.cuda.empty_cache()
+
+    # ------------- -distill with --json: the org term, in bfloat16, with
+    # --tb_dir and --profile_dir (the trace: iterations 3-4 of 4)
+    os.environ["HND_TPU_PALLAS_STEM"] = "0"  # cuDNN's stem, the default
+    tb_dir = os.path.join(root, "tb")
+    prof_dir = os.path.join(root, "profile")
     args = mimic_runner.get_argparser().parse_args(
         ["--config", yaml_path, "--device", str(dev), "-distill",
-         "-transform_bottleneck", "-skip_teacher_eval", "--json", json.dumps(
-             {"train": {"num_epochs": 1, "criterion": {"params": {
-                 "org_loss_factor": ORG_FACTOR}}},
+         "-transform_bottleneck", "-skip_teacher_eval", "--tb_dir", tb_dir,
+         "--profile_dir", prof_dir, "--json", json.dumps(
+             {"train": {"num_epochs": 1, "log_freq": 1, "criterion": {
+                 "params": {"org_loss_factor": ORG_FACTOR}}},
               "tpu": {"compute_dtype": "bfloat16"}})])
     # what main does after loading the YAML
     org_cfg = overwrite_config(copy.deepcopy(config), args.json)
@@ -2939,10 +3120,12 @@ def runner_phase(dev: torch.device, root: str) -> dict:
           and mimic_org["nms_keep"] >= 5 * n_steps,
           f"org runner launches {mimic_org}, want {want}")
     epoch_report("runner org", epoch, hist["steps"])
+    tb_and_trace_checks(tb_dir, prof_dir, hist, epoch,
+                        org_cfg["train"]["log_freq"])
     torch.cuda.empty_cache()
 
     # -------------------------------------------- coco_runner -train
-    os.environ["HND_TPU_PALLAS_STEM"] = "0"  # the stem kernels are f32 only
+    os.environ["HND_TPU_PALLAS_STEM"] = "0"  # cuDNN's stem, the default
     own = split("val")
     org_config = {
         "dataset": {"name": "fixture", "num_workers": 4, "splits": {
@@ -4782,10 +4965,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 8. training
-    os.environ["HND_TPU_PALLAS_STEM"] = "0"  # the stem kernels are f32 only
+    # the switch on: the frozen stem of the bf16 steps runs stem_fwd in
+    # bfloat16, the float32 eval in float32 (R12)
+    os.environ["HND_TPU_PALLAS_STEM"] = "1"
     train_launches = train_phase(dev, batches[0])
+    os.environ["HND_TPU_PALLAS_STEM"] = "0"
     launches.update({k: train_launches[k] for k in
                      ("roi_align_bf16", "roi_align_bwd")})
+    # the bf16 stem kernels' launches: the bf16 distill step's with the
+    # switch on (phase 7b), the forward's also the bf16 coco steps'
+    for name in ("stem_fwd_bf16", "stem_fwd_res_bf16", "stem_dw_bf16"):
+        launches[name] = org_launches["bf16_stem"][name]
+    launches["stem_fwd_bf16"] += train_launches["stem_fwd_bf16"]
 
     # ---------------------------------------------------------- 9. card vs CPU
     train_cpu_phase(dev)
@@ -4838,7 +5029,8 @@ def main() -> int:
              **{f"distill_{run}": counts
                 for run, counts in org_launches.items() if counts},
              "train": {k: train_launches[k] for k in
-                       ("roi_align_bf16", "roi_align_bwd", "nms_keep")},
+                       ("roi_align_bf16", "roi_align_bwd", "nms_keep",
+                        "stem_fwd_bf16")},
              **{f"train_{kind}": counts
                 for kind, counts in heads_train.items()},
              **{f"{run}_runner": {k: v for k, v in runner[key].items() if v}
@@ -4871,7 +5063,8 @@ def main() -> int:
     # every path that runs a detector's eval or training forward runs NMS
     # on the card (kernel_counts checked that none ran the fixpoint)
     for path, counts in paths.items():
-        if path not in ("heads", "distill", "ext_runner"):
+        if path not in ("heads", "distill", "distill_bf16_stem",
+                        "ext_runner"):
             check(counts.get("nms_keep", 0) > 0,
                   f"the {path} path never launched nms_keep")
     print(card, flush=True)

@@ -55,13 +55,28 @@
 //     [64, 147] partial; a second pass adds the partials in block order.
 //     No float atomics: repeated steps give the same bits.
 //
+//   bfloat16 (R12): JAX's Pallas stem runs in the input's dtype.  With bf16
+//     x the weights are rounded to bf16 as they are staged (JAX's
+//     .astype(x.dtype)), the output and the pre-affine conv are stored in
+//     bf16, and dW takes bf16 x and cotangent; scale, bias and dW stay
+//     float32.  A bf16 x bf16 product is exact in float32, so the same
+//     float32 FMA main loop computes JAX's function: only the staging
+//     (a load and a widening, since cp.async moves 4 bytes at least: each
+//     thread loads all of its elements, then stores them) and the stores
+//     differ.  Bound at batch 4, 832x1344: bytes, 0.051 ms forward and dW,
+//     0.093 ms with the bf16 residual; 21.0 GFLOP at the bf16 tensor-core
+//     rate is 0.021 ms, but this loop runs on the float32 FMA units (0.31
+//     ms), so it stays far from the bound until a tensor-core design.
+//
 // Sums run in another order than cuDNN's or the CPU's: the forward agrees
 // with its plain version to ~1e-6 of the largest output, dW to ~1e-5 of
 // the largest gradient.  Build without --use_fast_math.
 
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -155,31 +170,91 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Start copying the zero-padded input window of tile t of image x: window
+// Where window row i, position pos of tile t of x comes from (as
+// window_async lays it out): the source pointer and whether it lies in the
+// image (the zero padding does not).
+template <int kRows, int kPitch, bool kSplit, typename T>
+__device__ __forceinline__ const T* window_src(const T* xb, int H, int W,
+                                               Tile t, int i, int pos,
+                                               bool* in) {
+  const int c = i / kRows;
+  const int gy = 2 * t.oy0 - 3 + i - c * kRows;
+  const int col = !kSplit ? pos
+                  : pos < kPitch / 2 ? 2 * pos : 2 * (pos - kPitch / 2) + 1;
+  const int gx = 2 * t.ox0 - 3 + col;
+  *in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+  return *in ? xb + ((size_t)c * H + gy) * W + gx : xb;
+}
+
+// Stage the zero-padded input window of tile t of image x as float: window
 // row r of channel c is image row 2*oy0-3+r, and position pos of it holds
 // image column 2*ox0-3+col, at xs[(c * kRows + r) * kPitch + pos]: col = pos,
 // or with kSplit the even columns first, col = 2*pos, then the odd ones,
 // col = 2*(pos - kPitch/2) + 1.  Warps take whole rows and lanes
-// consecutive positions, so a copy needs no division.
-template <int kRows, int kPitch, bool kSplit>
-__device__ __forceinline__ void window_async(const float* __restrict__ x,
-                                             int H, int W, Tile t,
-                                             float* xs) {
-  const float* xb = x + (size_t)t.b * kCin * H * W;
+// consecutive positions, so a copy needs no division.  float32 goes through
+// cp.async (in flight until the caller waits); bfloat16 is loaded into
+// registers, all of a thread's elements first, then widened and stored.
+template <int kRows, int kPitch, bool kSplit, int kThreads, typename T>
+__device__ __forceinline__ void window_async(const T* __restrict__ x, int H,
+                                             int W, Tile t, float* xs) {
+  const T* xb = x + (size_t)t.b * kCin * H * W;
   const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x >> 5; i < kCin * kRows; i += blockDim.x >> 5) {
-    const int c = i / kRows;
-    const int gy = 2 * t.oy0 - 3 + i - c * kRows;
-    const bool row_in = gy >= 0 && gy < H;
-    const float* src = xb + ((size_t)c * H + (row_in ? gy : 0)) * W;
-    for (int pos = lane; pos < kPitch; pos += 32) {
-      const int col = !kSplit ? pos
-                      : pos < kPitch / 2 ? 2 * pos
-                                         : 2 * (pos - kPitch / 2) + 1;
-      const int gx = 2 * t.ox0 - 3 + col;
-      const bool in = row_in && gx >= 0 && gx < W;
-      cp_async_f32(xs + i * kPitch + pos, in ? src + gx : xb, in);
+  const int warp = threadIdx.x >> 5;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kN = kCin * kRows;
+  if constexpr (std::is_same<T, float>::value) {
+    for (int i = warp; i < kN; i += kWarps) {
+      const int c = i / kRows;
+      const int gy = 2 * t.oy0 - 3 + i - c * kRows;
+      const bool row_in = gy >= 0 && gy < H;
+      const float* src = xb + ((size_t)c * H + (row_in ? gy : 0)) * W;
+      for (int pos = lane; pos < kPitch; pos += 32) {
+        const int col = !kSplit ? pos
+                        : pos < kPitch / 2 ? 2 * pos
+                                           : 2 * (pos - kPitch / 2) + 1;
+        const int gx = 2 * t.ox0 - 3 + col;
+        const bool in = row_in && gx >= 0 && gx < W;
+        cp_async_f32(xs + i * kPitch + pos, in ? src + gx : xb, in);
+      }
     }
+  } else {
+    constexpr int kRowIt = (kN + kWarps - 1) / kWarps;
+    constexpr int kPosIt = (kPitch + 31) / 32;
+    __nv_bfloat16 v[kRowIt][kPosIt];
+#pragma unroll
+    for (int a = 0; a < kRowIt; ++a) {
+#pragma unroll
+      for (int b = 0; b < kPosIt; ++b) {
+        const int i = warp + a * kWarps;
+        const int pos = lane + 32 * b;
+        bool in = false;
+        const T* src = xb;
+        if (i < kN && pos < kPitch)
+          src = window_src<kRows, kPitch, kSplit>(xb, H, W, t, i, pos, &in);
+        v[a][b] = in ? *src : __float2bfloat16_rn(0.0f);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kRowIt; ++a) {
+#pragma unroll
+      for (int b = 0; b < kPosIt; ++b) {
+        const int i = warp + a * kWarps;
+        const int pos = lane + 32 * b;
+        if (i < kN && pos < kPitch)
+          xs[i * kPitch + pos] = __bfloat162float(v[a][b]);
+      }
+    }
+  }
+}
+
+// A staged weight: float32 as it is, or rounded to bfloat16 for bf16
+// inputs (JAX's wmat.astype(x.dtype)), then held as float (exactly).
+template <typename T>
+__device__ __forceinline__ float staged_weight(float w) {
+  if constexpr (std::is_same<T, float>::value) {
+    return w;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(w));
   }
 }
 
@@ -196,12 +271,32 @@ __device__ __forceinline__ void store_pixels(float* p, const float (&v)[kPix],
   }
 }
 
-template <bool kWithConv>
+// The same in bfloat16, each value rounded to nearest even: one 8-byte
+// store when it can.
+__device__ __forceinline__ void store_pixels(__nv_bfloat16* p,
+                                             const float (&v)[kPix], int n) {
+  if (n == kPix && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<const unsigned*>(&lo);
+    u.y = *reinterpret_cast<const unsigned*>(&hi);
+    __stcs(reinterpret_cast<uint2*>(p), u);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kPix; ++j)
+      if (j < n) p[j] = __float2bfloat16_rn(v[j]);
+  }
+}
+
+// T: the type of x, out and conv (float or __nv_bfloat16); the weights,
+// scale and bias are float32, the sums and the affine float32.
+template <bool kWithConv, typename T>
 __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm)
-stem_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+stem_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ scale,
-                const float* __restrict__ bias, float* __restrict__ out,
-                float* __restrict__ conv, int B, int H, int W) {
+                const float* __restrict__ bias, T* __restrict__ out,
+                T* __restrict__ conv, int B, int H, int W) {
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);  // [147][64]
   float* win = ws + kTaps * kCout;              // two input windows
@@ -210,10 +305,12 @@ stem_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const Tiles tiles = tiles_of(B, H, W, kTR);
   int tile = blockIdx.x;
   // the first window is in flight while the weights are staged
-  window_async<kWR, kFwdCols, true>(x, H, W, tile_at(tiles, tile, kTR), win);
+  window_async<kWR, kFwdCols, true, kFwdThreads>(
+      x, H, W, tile_at(tiles, tile, kTR), win);
   cp_async_commit();
   for (int i = threadIdx.x; i < kTaps * kCout; i += kFwdThreads) {
-    ws[i] = __ldg(w + (i % kCout) * kTaps + i / kCout);  // OIHW -> [tap][o]
+    // OIHW -> [tap][o]
+    ws[i] = staged_weight<T>(__ldg(w + (i % kCout) * kTaps + i / kCout));
   }
 
   const int warp = threadIdx.x >> 5;
@@ -227,8 +324,8 @@ stem_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int k = 0; tile < tiles.n; ++k, tile += gridDim.x) {
     const int next = tile + gridDim.x;
     if (next < tiles.n)
-      window_async<kWR, kFwdCols, true>(x, H, W, tile_at(tiles, next, kTR),
-                                        win + ((k + 1) & 1) * kFwdWin);
+      window_async<kWR, kFwdCols, true, kFwdThreads>(
+          x, H, W, tile_at(tiles, next, kTR), win + ((k + 1) & 1) * kFwdWin);
     cp_async_commit();
     cp_async_wait<1>();  // this tile's window (and, at first, the weights)
     __syncthreads();
@@ -302,9 +399,11 @@ stem_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // cotangent as [pixel][64], chunk k (channels 4k .. 4k+3) of pixel p at
 // 4 * (k ^ (p & 7)); warp k copies chunk k, 8 pixels x 4 channels at a
 // time, so the 32 words land in 32 banks.  Then the input window
-// (window_async, 69 columns a row).
-__device__ __forceinline__ void dw_tile_async(const float* __restrict__ x,
-                                              const float* __restrict__ g,
+// (window_async, 69 columns a row).  bfloat16 is loaded and widened as
+// window_async does it.
+template <typename T>
+__device__ __forceinline__ void dw_tile_async(const T* __restrict__ x,
+                                              const T* __restrict__ g,
                                               int H, int W, Tile t,
                                               float* stage) {
   const int OH = H / 2;
@@ -313,26 +412,45 @@ __device__ __forceinline__ void dw_tile_async(const float* __restrict__ x,
   const int lane = threadIdx.x & 31;
   const int chunk = threadIdx.x >> 5;
   const int px8 = lane >> 2;                   // p & 7
-  const float* gb = g + (size_t)t.b * kCout * plane;
-  const float* go = gb + (4 * chunk + (lane & 3)) * plane;
+  const T* gb = g + (size_t)t.b * kCout * plane;
+  const T* go = gb + (4 * chunk + (lane & 3)) * plane;
   float* dst = stage + px8 * kCout + 4 * (chunk ^ px8) + (lane & 3);
+  if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-  for (int row = 0; row < kDwTR; ++row) {
-    const int oy = t.oy0 + row;
+    for (int row = 0; row < kDwTR; ++row) {
+      const int oy = t.oy0 + row;
 #pragma unroll
-    for (int px = 0; px < kTC; px += 8) {
-      const int ox = t.ox0 + px + px8;
-      const bool in = oy < OH && ox < OW;
-      cp_async_f32(dst + (row * kTC + px) * kCout,
-                   in ? go + (size_t)oy * OW + ox : gb, in);
+      for (int px = 0; px < kTC; px += 8) {
+        const int ox = t.ox0 + px + px8;
+        const bool in = oy < OH && ox < OW;
+        cp_async_f32(dst + (row * kTC + px) * kCout,
+                     in ? go + (size_t)oy * OW + ox : gb, in);
+      }
     }
+  } else {
+    __nv_bfloat16 v[kDwTR][kTC / 8];
+#pragma unroll
+    for (int row = 0; row < kDwTR; ++row) {
+      const int oy = t.oy0 + row;
+#pragma unroll
+      for (int px = 0; px < kTC; px += 8) {
+        const int ox = t.ox0 + px + px8;
+        v[row][px / 8] = oy < OH && ox < OW ? go[(size_t)oy * OW + ox]
+                                            : __float2bfloat16_rn(0.0f);
+      }
+    }
+#pragma unroll
+    for (int row = 0; row < kDwTR; ++row)
+#pragma unroll
+      for (int px = 0; px < kTC; px += 8)
+        dst[(row * kTC + px) * kCout] = __bfloat162float(v[row][px / 8]);
   }
-  window_async<kDwWR, kDwCols, false>(x, H, W, t, stage + kGTile);
+  window_async<kDwWR, kDwCols, false, kDwThreads>(x, H, W, t, stage + kGTile);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kDwThreads, 1)
-stem_dw_partial_kernel(const float* __restrict__ x,
-                       const float* __restrict__ g,
+stem_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
                        float* __restrict__ partials, int B, int H, int W) {
   extern __shared__ float4 smem4[];
   float* stages = reinterpret_cast<float*>(smem4);  // two of kDwStage
@@ -485,37 +603,71 @@ cudaError_t opt_in_smem(Kernel kernel, int bytes,
   return err;
 }
 
+// The shared-memory opt-in of each instantiation, per device.
+template <bool kWithConv, typename T>
 std::atomic<unsigned> fwd_ready{0};
-std::atomic<unsigned> fwd_res_ready{0};
+template <typename T>
 std::atomic<unsigned> dw_ready{0};
+
+template <typename T>
+cudaError_t launch_fwd(const void* x, const float* w, const float* scale,
+                       const float* bias, void* out, void* conv, int B, int H,
+                       int W, cudaStream_t s) {
+  int blocks = 0;
+  cudaError_t err = grid_blocks(B, H, W, kTR, kFwdBlocksPerSm, &blocks);
+  if (err != cudaSuccess) return err;
+  const T* xt = static_cast<const T*>(x);
+  if (conv != nullptr) {
+    err = opt_in_smem(stem_fwd_kernel<true, T>, kFwdSmem,
+                      fwd_ready<true, T>);
+    if (err != cudaSuccess) return err;
+    stem_fwd_kernel<true, T><<<blocks, kFwdThreads, kFwdSmem, s>>>(
+        xt, w, scale, bias, static_cast<T*>(out), static_cast<T*>(conv), B,
+        H, W);
+  } else {
+    err = opt_in_smem(stem_fwd_kernel<false, T>, kFwdSmem,
+                      fwd_ready<false, T>);
+    if (err != cudaSuccess) return err;
+    stem_fwd_kernel<false, T><<<blocks, kFwdThreads, kFwdSmem, s>>>(
+        xt, w, scale, bias, static_cast<T*>(out), nullptr, B, H, W);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dw(const void* x, const void* g, float* partials,
+                      float* dw, int B, int H, int W, cudaStream_t s) {
+  int blocks = 0;
+  cudaError_t err = grid_blocks(B, H, W, kDwTR, 1, &blocks);
+  if (err != cudaSuccess) return err;
+  err = opt_in_smem(stem_dw_partial_kernel<T>, kDwSmem, dw_ready<T>);
+  if (err != cudaSuccess) return err;
+  stem_dw_partial_kernel<T><<<blocks, kDwThreads, kDwSmem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), partials, B, H, W);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  stem_dw_reduce_kernel<<<(kCout * kTaps + 255) / 256, 256, 0, s>>>(
+      partials, blocks, dw);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
 // x [B, 3, H, W], w [64, 3, 7, 7], scale/bias [64] -> out [B, 64, H/2, W/2];
-// conv (same shape) is written too when it is not null.  All float32,
-// contiguous, on the stream's device.
-int hnd_stem_fwd(const float* x, const float* w, const float* scale,
-                 const float* bias, float* out, float* conv, int B, int H,
-                 int W, void* stream) {
+// conv (same shape) is written too when it is not null.  x, out and conv
+// are float32, or bfloat16 when bf16 is not 0; w, scale and bias float32.
+// All contiguous, on the stream's device.
+int hnd_stem_fwd(const void* x, const float* w, const float* scale,
+                 const float* bias, void* out, void* conv, int B, int H,
+                 int W, int bf16, void* stream) {
   if (bad_shape(B, H, W)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int blocks = 0;
-  cudaError_t err = grid_blocks(B, H, W, kTR, kFwdBlocksPerSm, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  if (conv != nullptr) {
-    err = opt_in_smem(stem_fwd_kernel<true>, kFwdSmem, fwd_res_ready);
-    if (err != cudaSuccess) return (int)err;
-    stem_fwd_kernel<true><<<blocks, kFwdThreads, kFwdSmem, s>>>(
-        x, w, scale, bias, out, conv, B, H, W);
-  } else {
-    err = opt_in_smem(stem_fwd_kernel<false>, kFwdSmem, fwd_ready);
-    if (err != cudaSuccess) return (int)err;
-    stem_fwd_kernel<false><<<blocks, kFwdThreads, kFwdSmem, s>>>(
-        x, w, scale, bias, out, nullptr, B, H, W);
-  }
-  return (int)cudaGetLastError();
+  return (int)(bf16 ? launch_fwd<__nv_bfloat16>(x, w, scale, bias, out, conv,
+                                                B, H, W, s)
+                    : launch_fwd<float>(x, w, scale, bias, out, conv, B, H,
+                                        W, s));
 }
 
 // Number of floats the caller must allocate for hnd_stem_dw's partials
@@ -528,24 +680,15 @@ int hnd_stem_dw_partials_size(int B, int H, int W) {
   return blocks * kCout * kTaps;
 }
 
-// x [B, 3, H, W], g [B, 64, H/2, W/2] (the conv's cotangent) -> dw
-// [64, 3, 7, 7], through partials of hnd_stem_dw_partials_size floats.
-int hnd_stem_dw(const float* x, const float* g, float* partials, float* dw,
-                int B, int H, int W, void* stream) {
+// x [B, 3, H, W], g [B, 64, H/2, W/2] (the conv's cotangent; both float32,
+// or both bfloat16 when bf16 is not 0) -> dw [64, 3, 7, 7] float32, through
+// partials of hnd_stem_dw_partials_size floats.
+int hnd_stem_dw(const void* x, const void* g, float* partials, float* dw,
+                int B, int H, int W, int bf16, void* stream) {
   if (bad_shape(B, H, W)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int blocks = 0;
-  cudaError_t err = grid_blocks(B, H, W, kDwTR, 1, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  err = opt_in_smem(stem_dw_partial_kernel, kDwSmem, dw_ready);
-  if (err != cudaSuccess) return (int)err;
-  stem_dw_partial_kernel<<<blocks, kDwThreads, kDwSmem, s>>>(x, g, partials,
-                                                             B, H, W);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  stem_dw_reduce_kernel<<<(kCout * kTaps + 255) / 256, 256, 0, s>>>(
-      partials, blocks, dw);
-  return (int)cudaGetLastError();
+  return (int)(bf16 ? launch_dw<__nv_bfloat16>(x, g, partials, dw, B, H, W, s)
+                    : launch_dw<float>(x, g, partials, dw, B, H, W, s));
 }
 
 }  // extern "C"

@@ -12,8 +12,8 @@ src/utils/coco_util.py):
   * optional ``jpeg_quality`` re-encode to simulate lossy input channels
     (coco_util.py:223-226).
 
-Images decode with PIL, imported by ``load_image`` alone; the JAX
-package's native libjpeg decode has no counterpart here.
+Images decode with libjpeg through data/native_prep.py where it is built
+(JAX's coco.py:160-165), else with PIL, imported by ``load_image`` alone.
 """
 from __future__ import annotations
 
@@ -23,6 +23,8 @@ import os
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+
+from hnd_ghnd_tpu_torch.data import native_prep
 
 # 17 COCO person keypoints; left/right index swap map for horizontal flip
 COCO_PERSON_KEYPOINT_FLIP_INDS = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11,
@@ -157,12 +159,21 @@ class CocoDataset:
         from PIL import Image
         info = self.images[image_id]
         path = os.path.join(self.img_dir, info["file_name"])
+        if self.jpeg_quality is None:
+            # libjpeg when the native prep decodes (GIL released); PIL for
+            # the rest (PNGs, other colour spaces, no libjpeg)
+            with open(path, "rb") as f:
+                data = f.read()
+            arr = native_prep.decode_jpeg(data)
+            if arr is not None:
+                return arr
+            return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"),
+                              dtype=np.uint8)
         img = Image.open(path).convert("RGB")
-        if self.jpeg_quality is not None:
-            buf = io.BytesIO()
-            img.save(buf, format="jpeg", quality=self.jpeg_quality)
-            buf.seek(0)
-            img = Image.open(buf).convert("RGB")
+        buf = io.BytesIO()
+        img.save(buf, format="jpeg", quality=self.jpeg_quality)
+        buf.seek(0)
+        img = Image.open(buf).convert("RGB")
         return np.asarray(img, dtype=np.uint8)
 
     def __getitem__(self, index: int):

@@ -1,12 +1,19 @@
 """Batched detection data loader with static-shape bucketing.
 
-Counterpart of hnd_ghnd_tpu/data/loader.py on its pure-Python path (the
-native fused prep has no counterpart here), which replaces the reference's
+Counterpart of hnd_ghnd_tpu/data/loader.py, which replaces the reference's
 DataLoader stack (src/utils/data_util.py:18-48 + GroupedBatchSampler,
 src/structure/sampler.py): aspect-ratio grouping makes every batch share
 one padded bucket, and a thread pool overlaps JPEG decode/augment with the
 device's work.  The per-(seed, epoch, index) random draws are the JAX
-loader's, so the batches are bit-identical to its pure-Python path.
+loader's, so the batches are bit-identical to its own on either path:
+
+  * native (data/native_prep.py, the default where libprep builds): the
+    pixels stay decoded uint8 until the batch is emitted, and one C call
+    an image resizes, flips, normalises and pads it into its slot;
+  * pure (``HND_TPU_NATIVE_PREP=0``, or no libprep): cv2 resize, numpy
+    flip and pad.
+
+The first loader of a process logs which path it took and why.
 
 Batch layout:
   images          [B, H, W, 3] float32 in [0, 1], or uint8 codes under
@@ -29,6 +36,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from hnd_ghnd_tpu_torch.data import native_prep
 from hnd_ghnd_tpu_torch.data import transforms as T
 from hnd_ghnd_tpu_torch.data.coco import CocoDataset
 
@@ -90,6 +98,39 @@ def _pad_targets(targets: List[Dict], max_gt: int = MAX_GT,
     return out
 
 
+class _RawItem:
+    """A decoded image not yet resized, with its prep geometry (the native
+    path).  ``shape`` is the resized one, so bucket picking and the batch's
+    sizes read as on the pure path."""
+
+    __slots__ = ("img", "nh", "nw", "flip")
+
+    def __init__(self, img: np.ndarray, nh: int, nw: int, flip: bool):
+        self.img = img
+        self.nh = nh
+        self.nw = nw
+        self.flip = flip
+
+    @property
+    def shape(self):
+        return (self.nh, self.nw, 3)
+
+
+_logged_path: Optional[str] = None
+
+
+def log_prep_path(native: bool) -> str:
+    """Print once a process which host path the loaders take, and why;
+    -> that line."""
+    global _logged_path
+    line = f"[loader] host prep path: {'native' if native else 'pure'} " \
+           f"({native_prep.reason()})"
+    if line != _logged_path:
+        print(line, flush=True)
+        _logged_path = line
+    return line
+
+
 def _bounded_map(pool: ThreadPoolExecutor, fn, items, window: int):
     """pool.map with a bounded in-flight window (submit-as-you-consume)."""
     it = iter(items)
@@ -139,6 +180,8 @@ class DetectionLoader:
             raise ValueError(f"pixel_dtype `{pixel_dtype}` is not float32 "
                              "or uint8")
         self.pixel_dtype = np.uint8 if pixel_dtype == "uint8" else np.float32
+        self.native = native_prep.available()
+        log_prep_path(self.native)
 
     def set_epoch(self, epoch: int) -> None:
         """Shuffle seed bump (DistributedSampler.set_epoch analog,
@@ -161,6 +204,15 @@ class DetectionLoader:
         flip = self.training and rng.random() < self.hflip_prob
         min_size = (rng.choice(self.min_sizes) if self.training
                     else self.min_sizes[-1])
+        if self.native:
+            # the pixels stay uint8 until _emit; the targets move here as
+            # T.hflip and T.resize move them
+            if flip:
+                target = T.hflip_targets(target, ow)
+            nh, nw, _ = T.resize_geometry(oh, ow, min_size, self.max_size)
+            target = T.resize_targets(target, oh, ow, nh, nw)
+            target["original_size"] = (oh, ow)
+            return _RawItem(img, nh, nw, flip), target
         if flip:
             img, target = T.hflip(img, target)
         img, target, _ = T.resize(img, target, min_size, self.max_size)
@@ -206,11 +258,18 @@ class DetectionLoader:
             pool.shutdown(wait=False, cancel_futures=True)
 
     def _emit(self, bucket, items, n_real: Optional[int] = None):
-        imgs = np.stack([T.pad_to(im, bucket) for im, _ in items], axis=0)
-        if self.pixel_dtype == np.uint8:
-            imgs = imgs.astype(np.uint8)
+        if self.native:
+            imgs = np.empty((len(items),) + tuple(bucket) + (3,),
+                            self.pixel_dtype)
+            for i, (raw, _) in enumerate(items):
+                native_prep.prep_into(raw.img, raw.nh, raw.nw, raw.flip,
+                                      imgs[i])
         else:
-            imgs = imgs.astype(np.float32) / 255.0
+            imgs = np.stack([T.pad_to(im, bucket) for im, _ in items], axis=0)
+            if self.pixel_dtype == np.uint8:
+                imgs = imgs.astype(np.uint8)
+            else:
+                imgs = imgs.astype(np.float32) / 255.0
         sizes = np.asarray([[im.shape[0], im.shape[1]] for im, _ in items],
                            np.int32)
         orig = np.asarray([t["original_size"] for _, t in items], np.int32)

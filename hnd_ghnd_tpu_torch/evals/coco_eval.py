@@ -14,8 +14,9 @@ patched pycocotools COCOeval) with the published COCOeval semantics:
     area range are ignored in accumulate;
   * keypoints use OKS with the standard 17 sigmas and maxDets (20,).
 
-The matching and the mask IoUs run in numpy (the JAX package's native
-cocomask library is ROADMAP A15).  The host-side mask/keypoint
+The matching and the mask IoUs run in the native cocomask library where it
+builds (evals/mask_rle.py; ``coco_match`` as JAX's coco_eval.py:129-150
+dispatches it), else in numpy.  The host-side mask/keypoint
 postprocessing lives in evals/postprocess.py; this module consumes final
 predictions.  In a multi-process run each rank evaluates its shard and
 ``CocoEvaluator.synchronize_between_processes`` merges them.
@@ -114,7 +115,25 @@ def match_greedy(ious_s: np.ndarray, g_ignore: np.ndarray,
 
     The published loop (src/utils/coco_eval_util.py:295-340): later gt
     wins IoU ties; ignored gts are rematchable, reachable only when no
-    non-ignored gt qualifies."""
+    non-ignored gt qualifies.  The native ``coco_match`` runs it where the
+    cocomask library is built, ``match_greedy_np`` otherwise."""
+    lib = mask_rle.get_lib()
+    if lib is None:
+        return match_greedy_np(ious_s, g_ignore, thrs)
+    n_d, n_g = ious_s.shape
+    ious_c = np.ascontiguousarray(ious_s, dtype=np.float64)
+    gig_c = np.ascontiguousarray(g_ignore, dtype=np.uint8)
+    thrs_c = np.ascontiguousarray(thrs, dtype=np.float64)
+    out = np.empty((len(thrs), n_d), dtype=np.int32)
+    lib.coco_match(mask_rle._ptr(ious_c, mask_rle._F64P), n_d, n_g,
+                   mask_rle._ptr(gig_c, mask_rle._U8P),
+                   mask_rle._ptr(thrs_c, mask_rle._F64P), len(thrs),
+                   mask_rle._ptr(out, mask_rle._I32P))
+    return out
+
+
+def match_greedy_np(ious_s: np.ndarray, g_ignore: np.ndarray,
+                    thrs: np.ndarray) -> np.ndarray:
     n_d, n_g = ious_s.shape
     n_t = len(thrs)
     out = np.full((n_t, n_d), -1, dtype=np.int32)

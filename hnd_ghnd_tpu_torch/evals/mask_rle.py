@@ -1,21 +1,74 @@
-"""RLE mask utilities in numpy.
+"""RLE mask utilities: the native cocomask library, and numpy.
 
 Counterpart of hnd_ghnd_tpu/evals/mask_rle.py (pycocotools' mask surface
 that the reference consumes: encode/decode/area/IoU,
-src/utils/coco_eval_util.py:107-111, src/utils/coco_util.py:33-47), on its
-numpy path only: the JAX package's native cocomask library
-(native/cocomask/cocomask.cpp) is not built for the port (ROADMAP A15).
+src/utils/coco_eval_util.py:107-111, src/utils/coco_util.py:33-47).
+``encode``, ``decode``, ``area``, ``iou_matrix`` and ``poly_to_rle`` call
+the JAX package's native/cocomask/cocomask.cpp, which the port builds with
+g++ (``_build.load_host("cocomask")``; the run-merge IoU never
+materialises a mask), and evals/coco_eval.py's matching calls its
+``coco_match``.  The numpy functions (``*_np``) are their plain versions:
+the path where the library does not build, and what the native results are
+held to.
 Run-length counts are column-major, uint32, and start with a zero-run.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+import ctypes
+from typing import List, Optional, Sequence
 
 import numpy as np
+
+from hnd_ghnd_tpu_torch import _build
+
+_U32P = ctypes.POINTER(ctypes.c_uint32)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_F64P = ctypes.POINTER(ctypes.c_double)
+_I64 = ctypes.c_int64
+_bound: Optional[ctypes.CDLL] = None
+
+
+def get_lib() -> Optional[ctypes.CDLL]:
+    """The cocomask library with its signatures; None where it does not
+    build."""
+    global _bound
+    lib = _build.load_host("cocomask")
+    if lib is not None and _bound is not lib:
+        for name, res, args in (
+                ("rle_encode", _I64, [_U8P, _I64, _I64, _U32P]),
+                ("rle_decode", None, [_U32P, _I64, _I64, _I64, _U8P]),
+                ("rle_area", _I64, [_U32P, _I64]),
+                ("rle_iou_matrix", None, [_U32P, _I64P, _I64, _U32P, _I64P,
+                                          _I64, _I32P, _F64P]),
+                ("poly_to_rle", _I64, [_F64P, _I64, _I64, _I64, _U32P,
+                                       _I64]),
+                ("coco_match", None, [_F64P, _I64, _I64, _U8P, _F64P, _I64,
+                                      _I32P])):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = res, args
+        _bound = lib
+    return lib
+
+
+def _ptr(arr: np.ndarray, ptype):
+    return arr.ctypes.data_as(ptype)
 
 
 def encode(mask: np.ndarray) -> np.ndarray:
     """Binary [h, w] mask -> column-major run lengths (uint32)."""
+    lib = get_lib()
+    if lib is None:
+        return encode_np(mask)
+    mask = np.ascontiguousarray(mask, dtype=np.uint8)
+    h, w = mask.shape
+    out = np.empty(h * w + 1, dtype=np.uint32)
+    n = lib.rle_encode(_ptr(mask, _U8P), h, w, _ptr(out, _U32P))
+    return out[:n].copy()
+
+
+def encode_np(mask: np.ndarray) -> np.ndarray:
     mask = np.ascontiguousarray(mask, dtype=np.uint8)
     flat = mask.T.reshape(-1)
     changes = np.flatnonzero(np.diff(flat)) + 1
@@ -34,6 +87,16 @@ def _flat(counts: np.ndarray) -> np.ndarray:
 
 
 def decode(counts: np.ndarray, h: int, w: int) -> np.ndarray:
+    lib = get_lib()
+    if lib is None:
+        return decode_np(counts, h, w)
+    counts = np.ascontiguousarray(counts, dtype=np.uint32)
+    out = np.zeros((h, w), dtype=np.uint8)
+    lib.rle_decode(_ptr(counts, _U32P), len(counts), h, w, _ptr(out, _U8P))
+    return out
+
+
+def decode_np(counts: np.ndarray, h: int, w: int) -> np.ndarray:
     flat = np.zeros(h * w, dtype=np.uint8)
     runs = _flat(counts)[:h * w]
     flat[:len(runs)] = runs
@@ -41,13 +104,42 @@ def decode(counts: np.ndarray, h: int, w: int) -> np.ndarray:
 
 
 def area(counts: np.ndarray) -> int:
+    lib = get_lib()
+    if lib is None:
+        return area_np(counts)
+    counts = np.ascontiguousarray(counts, dtype=np.uint32)
+    return int(lib.rle_area(_ptr(counts, _U32P), len(counts)))
+
+
+def area_np(counts: np.ndarray) -> int:
     return int(np.asarray(counts, dtype=np.int64)[1::2].sum())
 
 
 def iou_matrix(det_rles: Sequence[np.ndarray], gt_rles: Sequence[np.ndarray],
                iscrowd: np.ndarray) -> np.ndarray:
     """IoU between RLE sets over a shared canvas; crowd gt -> inter/det
-    (intersections are exact integer counts, the native library's)."""
+    (intersections are exact integer counts, the quotient a float64)."""
+    n_det, n_gt = len(det_rles), len(gt_rles)
+    lib = get_lib()
+    if n_det == 0 or n_gt == 0 or lib is None:
+        return iou_matrix_np(det_rles, gt_rles, iscrowd)
+    runs, offs = [], []
+    for rles in (det_rles, gt_rles):
+        runs.append(np.ascontiguousarray(np.concatenate(
+            [np.asarray(r, np.uint32) for r in rles])))
+        offs.append(np.concatenate(
+            [[0], np.cumsum([len(r) for r in rles])]).astype(np.int64))
+    iscrowd = np.ascontiguousarray(iscrowd, dtype=np.int32)
+    out = np.zeros((n_det, n_gt), dtype=np.float64)
+    lib.rle_iou_matrix(_ptr(runs[0], _U32P), _ptr(offs[0], _I64P), n_det,
+                       _ptr(runs[1], _U32P), _ptr(offs[1], _I64P), n_gt,
+                       _ptr(iscrowd, _I32P), _ptr(out, _F64P))
+    return out
+
+
+def iou_matrix_np(det_rles: Sequence[np.ndarray],
+                  gt_rles: Sequence[np.ndarray],
+                  iscrowd: np.ndarray) -> np.ndarray:
     n_det, n_gt = len(det_rles), len(gt_rles)
     if n_det == 0 or n_gt == 0:
         return np.zeros((n_det, n_gt))
@@ -55,12 +147,12 @@ def iou_matrix(det_rles: Sequence[np.ndarray], gt_rles: Sequence[np.ndarray],
     gts = [_flat(g) for g in gt_rles]
     n = min(len(g) for g in gts)
     gt_stack = np.stack([g[:n] for g in gts]).astype(bool)
-    ga = np.asarray([area(g) for g in gt_rles], dtype=np.int64)
+    ga = np.asarray([area_np(g) for g in gt_rles], dtype=np.int64)
     out = np.zeros((n_det, n_gt))
     for i, d in enumerate(det_rles):
         dm = _flat(d)[:n].astype(bool)
         inter = np.count_nonzero(gt_stack & dm[None], axis=1).astype(np.int64)
-        da = area(d)
+        da = area_np(d)
         denom = np.where(iscrowd != 0, da, da + ga - inter).astype(np.float64)
         np.divide(inter.astype(np.float64), denom, out=out[i],
                   where=denom > 0)
@@ -72,6 +164,20 @@ def poly_to_rle(xy: Sequence[float], h: int, w: int) -> np.ndarray:
     rleFrPoly (5x-upsampled boundary walk -> column-crossing downsample ->
     sorted-diff run encoding).  This is the rasterization COCO ground truth
     was published with."""
+    pts = np.ascontiguousarray(xy, dtype=np.float64).reshape(-1)
+    k = len(pts) // 2
+    lib = get_lib()
+    if lib is not None:
+        max_counts = int(h * w + 2 + 4 * k * 5)
+        out = np.empty(max_counts, dtype=np.uint32)
+        n = lib.poly_to_rle(_ptr(pts, _F64P), k, h, w, _ptr(out, _U32P),
+                            max_counts)
+        if n >= 0:
+            return out[:n].copy()
+    return poly_to_rle_np(pts, h, w)
+
+
+def poly_to_rle_np(xy: Sequence[float], h: int, w: int) -> np.ndarray:
     pts = np.ascontiguousarray(xy, dtype=np.float64).reshape(-1)
     k = len(pts) // 2
     if k < 3:

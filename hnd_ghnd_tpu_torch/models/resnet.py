@@ -86,11 +86,6 @@ class ResNetBody(nn.Module):
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         if use_fused_stem() and stem_supported(x):
-            if x.dtype != self.conv1.weight.dtype:
-                raise TypeError(f"HND_TPU_PALLAS_STEM=1: the fused stem "
-                                f"runs in its weights' dtype, not {x.dtype} "
-                                f"activations (bfloat16 training: switch "
-                                f"it off)")
             scale, bias = self.bn1.folded()
             y = stem_kernels.stem_conv_bn_relu(x, self.conv1.weight, scale,
                                                bias)

@@ -10,6 +10,13 @@ ops/stem_kernels.py (the CPU path, and what the card is held against):
     it is also the oracle of the fused ``autograd.Function``;
   * ``stem_weight_grad``: dW = sum over B x OH x OW of the input patches
     times the conv's cotangent.
+
+In bfloat16 (pallas_stem.py runs in the input's dtype) the weight is
+rounded to bf16 (JAX's ``w.astype(x.dtype)``), the products of bf16
+operands are summed in float32, the affine and the ReLU run in float32 and
+the output and the conv are stored in bf16; dW sums bf16 patches times a
+bf16 cotangent in float32 and stays float32.  Every other dtype computes in
+its own (float64 on the CPU serves as a reference).
 """
 from __future__ import annotations
 
@@ -33,21 +40,31 @@ def stem_supported(x: torch.Tensor) -> bool:
 
 
 def stem_conv(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The conv before the affine: in x's dtype, but for bfloat16 x the
+    float32 sum of the bf16 products (not yet rounded)."""
+    if x.dtype == torch.bfloat16:
+        return F.conv2d(x.float(), weight.to(torch.bfloat16).float(),
+                        stride=STRIDE, padding=PADDING)
     return F.conv2d(x, weight, stride=STRIDE, padding=PADDING)
 
 
 def stem_forward(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
                  bias: torch.Tensor, with_conv: bool = False):
     """x [B, 3, H, W], weight [64, 3, 7, 7], scale/bias [64] ->
-    out [B, 64, H/2, W/2] (and the pre-affine conv with ``with_conv``)."""
+    out [B, 64, H/2, W/2] (and the pre-affine conv with ``with_conv``),
+    both in x's dtype."""
     conv = stem_conv(x, weight)
     out = torch.relu(conv * scale[None, :, None, None]
                      + bias[None, :, None, None])
+    out, conv = out.to(x.dtype), conv.to(x.dtype)
     return (out, conv) if with_conv else out
 
 
 def stem_weight_grad(x: torch.Tensor, g_conv: torch.Tensor) -> torch.Tensor:
-    """dW [64, 3, 7, 7] of the stem conv from its input and cotangent."""
+    """dW [64, 3, 7, 7] of the stem conv from its input and cotangent
+    (float32 from bfloat16 operands)."""
+    if x.dtype == torch.bfloat16:
+        x, g_conv = x.float(), g_conv.float()
     return torch.nn.grad.conv2d_weight(
         x, (g_conv.shape[1], x.shape[1], KERNEL, KERNEL), g_conv,
         stride=STRIDE, padding=PADDING)

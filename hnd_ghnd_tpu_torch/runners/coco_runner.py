@@ -28,7 +28,7 @@ from __future__ import annotations
 import argparse
 import math
 import time
-from typing import Any, Dict, Iterable, List, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -44,6 +44,8 @@ from hnd_ghnd_tpu_torch.runners.common import (StepMetrics,
                                                configure_precision, evaluate,
                                                to_device)
 from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
+from hnd_ghnd_tpu_torch.utils.logging import MetricLogger
+from hnd_ghnd_tpu_torch.utils.tensorboard import SummaryWriter
 
 Batch = Dict[str, Any]
 
@@ -54,7 +56,7 @@ def get_argparser() -> argparse.ArgumentParser:
     parser.add_argument("-train", action="store_true")
     parser.add_argument("-test_only", action="store_true")
     parser.add_argument("--tb_dir", default=None,
-                        help="not ported (ROADMAP A18): raises")
+                        help="write TensorBoard scalars here (rank 0)")
     return parser
 
 
@@ -72,9 +74,14 @@ def make_step(model: RCNN, config: Dict[str, Any], steps_per_epoch: int,
         steps_per_epoch, warmup, compute_dtype, seed=seed)
 
 
-def train_epoch(step: DetectionStep, batches: Iterable) -> Dict[str, Any]:
+def train_epoch(step: DetectionStep, batches: Iterable, log_freq: int = 0,
+                header: str = "",
+                tb: Optional[SummaryWriter] = None) -> Dict[str, Any]:
     """One epoch of ``step`` over ``batches``: (batch, targets) pairs, or the
     loader's (batch, targets, host_targets).  Raises on a non-finite loss.
+    With ``log_freq``, a ``MetricLogger`` line every ``log_freq`` batches
+    (``log_every``, JAX's coco_runner.py:93-127) and the scalars to ``tb``
+    every ``log_freq`` steps, both from the lag-1 reads.
 
     Returns {"steps": [(step, loss, {term: value}, ms)], "seconds",
     "loader_s"} as mimic_runner.train_epoch."""
@@ -83,6 +90,7 @@ def train_epoch(step: DetectionStep, batches: Iterable) -> Dict[str, Any]:
     cuda = device.type == "cuda"
     model.train()
     metrics = StepMetrics()
+    meters = MetricLogger()
     out: Dict[str, Any] = {"steps": []}
 
     def record(entries):
@@ -94,10 +102,15 @@ def train_epoch(step: DetectionStep, batches: Iterable) -> Dict[str, Any]:
                     f"{', '.join(bad) or 'sum'} ({entry[2]}), stopping "
                     "training")
             out["steps"].append(entry)
+            meters.update(loss=entry[1], **entry[2])
+            if tb is not None:
+                common.log_train_scalars(tb, entry, log_freq)
 
     t_start = time.perf_counter()
     batches = common.Timed(batches)
-    for item in batches:
+    items = meters.log_every(batches, log_freq, header) if log_freq \
+        else batches
+    for item in items:
         batch, targets = item[0], item[1]
         batch, targets = to_device(batch, device), to_device(targets, device)
         start = None
@@ -143,32 +156,38 @@ def train_coco(model: RCNN, config: Dict[str, Any], args: argparse.Namespace,
     """The runner's training (coco_runner.py:41-166): epochs over
     ``train_loader`` (``set_epoch`` each), the val bbox mAP after each, the
     best checkpoint at ``model.ckpt`` when it rises, resuming from that file
-    when it exists.  Returns {"steps", "epochs"} as
-    mimic_runner.distill_coco."""
+    when it exists; ``--tb_dir``'s scalars.  Returns {"steps", "epochs"}
+    as mimic_runner.distill_coco."""
     ckpt_path = config["model"].get("ckpt")
     common.check_ckpt_backend(config)
     step = make_step(model, config, len(train_loader), args.seed)
     best = 0.0
     if ckpt_util.check_if_exists(ckpt_path):
         best = common.resume(ckpt_path, model, step)
+    log_freq = int(config["train"].get("log_freq", 1000))
     history: Dict[str, List] = {"steps": [], "epochs": []}
-    for epoch in range(int(config["train"]["num_epochs"])):
-        train_loader.set_epoch(epoch)
-        done = train_epoch(step, common.epoch_batches(train_loader))
-        history["steps"] += done.pop("steps")
-        common.mean_over_ranks(done)
-        evaluator, times = common.coco_evaluate(model.eval(), val_loader)
-        model.train()
-        val_map = float(evaluator.stats["bbox"][0])
-        saved = bool(val_map > best and ckpt_path)
-        if saved:
-            best = val_map
-            multihost.save_on_master(common.save_checkpoint, ckpt_path,
-                                     model, step, best, config, args)
-            print(f"saved best ckpt (val mAP {val_map:.4f})", flush=True)
-        history["epochs"].append({
-            "val_map": val_map, "saved": saved, "train": done, "eval": times,
-            "stats": {k: v.tolist() for k, v in evaluator.stats.items()}})
+    with common.summary_writer(args) as tb:
+        for epoch in range(int(config["train"]["num_epochs"])):
+            train_loader.set_epoch(epoch)
+            done = train_epoch(step, common.epoch_batches(train_loader),
+                               log_freq, f"Epoch: [{epoch}]", tb)
+            history["steps"] += done.pop("steps")
+            common.mean_over_ranks(done)
+            evaluator, times = common.coco_evaluate(model.eval(), val_loader)
+            model.train()
+            val_map = float(evaluator.stats["bbox"][0])
+            tb.add_scalar("val/map", val_map, epoch)
+            tb.flush()
+            saved = bool(val_map > best and ckpt_path)
+            if saved:
+                best = val_map
+                multihost.save_on_master(common.save_checkpoint, ckpt_path,
+                                         model, step, best, config, args)
+                print(f"saved best ckpt (val mAP {val_map:.4f})", flush=True)
+            history["epochs"].append({
+                "val_map": val_map, "saved": saved, "train": done,
+                "eval": times,
+                "stats": {k: v.tolist() for k, v in evaluator.stats.items()}})
     return history
 
 
@@ -177,7 +196,6 @@ def run(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
     (``common.distributed``; each trains and evaluates its shard).
     Returns {"train": the history of ``train_coco`` (with -train), "test":
     {"stats", "eval"}}."""
-    common.check_unported_args(args)
     with common.distributed(args) as device:
         return _run(config, args, device)
 

@@ -43,12 +43,14 @@ import torch
 
 from hnd_ghnd_tpu_torch.evals.coco_eval import CocoEvaluator
 from hnd_ghnd_tpu_torch.evals.postprocess import finalize_predictions
-from hnd_ghnd_tpu_torch.models.convert import jax_params_from_state_dict
+from hnd_ghnd_tpu_torch.models.convert import (jax_params_from_state_dict,
+                                               state_dict_from_jax)
 from hnd_ghnd_tpu_torch.models.factory import get_iou_types, load_weights
 from hnd_ghnd_tpu_torch.models.rcnn import RCNN
 from hnd_ghnd_tpu_torch.parallel import multihost
 from hnd_ghnd_tpu_torch.parallel.train_step import images_to_compute
 from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
+from hnd_ghnd_tpu_torch.utils.tensorboard import SummaryWriter
 
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -83,12 +85,23 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--process_id", type=int, default=None)
 
 
-def check_unported_args(args: argparse.Namespace) -> None:
-    """Raise on a flag whose feature the port does not have yet."""
-    for flag in ("tb_dir", "profile_dir"):
-        if getattr(args, flag, None):
-            raise NotImplementedError(f"--{flag}: TensorBoard curves and the "
-                                      "profiler trace are ROADMAP A18")
+def summary_writer(args: argparse.Namespace) -> SummaryWriter:
+    """``--tb_dir``'s event writer on rank 0; a writer that writes nothing
+    on the other ranks and without the flag (JAX's runners)."""
+    return SummaryWriter(getattr(args, "tb_dir", None)
+                         if multihost.is_main_process() else None)
+
+
+def log_train_scalars(tb: SummaryWriter, entry: Tuple,
+                      log_freq: int) -> None:
+    """``train/loss`` and ``train/{term}`` of a ``StepMetrics`` entry, on
+    the steps that are multiples of ``log_freq``: host values already read,
+    so logging waits for nothing on the device."""
+    idx, loss, terms = entry[:3]
+    if log_freq and idx % log_freq == 0:
+        tb.add_scalar("train/loss", loss, idx)
+        for k, v in terms.items():
+            tb.add_scalar(f"train/{k}", v, idx)
 
 
 def rank_device(device: str | torch.device) -> torch.device:
@@ -249,20 +262,92 @@ def save_checkpoint(path: str, model: RCNN, step, best_value: float,
         args=vars(args))
 
 
+def _optax_states(tree) -> Dict[str, Any]:
+    """The optax states in a JAX checkpoint's ``opt_state`` (inert stubs of
+    utils/ckpt.py, nested in the tuples of ``optax.chain``) by class
+    name."""
+    if isinstance(tree, (tuple, list)):
+        out: Dict[str, Any] = {}
+        for t in tree:
+            out.update(_optax_states(t))
+        return out
+    if type(tree).__module__.split(".")[0] == "optax":
+        return {type(tree).__name__: tree}
+    return {}
+
+
+def opt_state_from_jax(opt_state, state, model: RCNN,
+                       optimizer: torch.optim.Optimizer):
+    """A JAX checkpoint's optax state as ``optimizer``'s ``state_dict``,
+    and the schedule step (optax's count).
+
+    ``optax.adam``'s ScaleByAdamState(count, mu, nu) becomes
+    ``torch.optim.Adam``'s step, exp_avg and exp_avg_sq, and the SGD
+    chain's TraceState ``momentum_buffer``, for each parameter the
+    optimizer updates, in the port's layout (models/convert.py's
+    ``state_dict_from_jax`` maps the mu, nu or trace tree as it maps the
+    params; ``state`` gives it the trainable BNs' statistics).  Leaves the
+    port does not update are left out (JAX decays its frozen ones, C7).
+    Raises ValueError, naming what differs, when the optimizer types
+    differ or an updated parameter has no state of its shape."""
+    states = _optax_states(opt_state)
+    kind = type(optimizer).__name__
+    if kind == "Adam" and "ScaleByAdamState" in states:
+        count, mu, nu = states["ScaleByAdamState"].args
+        trees = {"exp_avg": mu, "exp_avg_sq": nu}
+    elif kind == "SGD" and "ScaleByAdamState" not in states:
+        momentum = optimizer.param_groups[0]["momentum"]
+        if momentum and "TraceState" not in states:
+            raise ValueError(f"SGD with momentum {momentum}: the checkpoint's "
+                             f"optax state has no trace ({sorted(states)})")
+        trees = {"momentum_buffer": states["TraceState"].args[0]} \
+            if momentum else {}
+        if "ScaleByScheduleState" not in states:
+            raise ValueError(f"SGD: the checkpoint's optax state has no "
+                             f"schedule count ({sorted(states)})")
+        count = states["ScaleByScheduleState"].args[0]
+    else:
+        raise ValueError(f"the port's optimizer is {kind}, the checkpoint's "
+                         f"optax state holds {sorted(states)}")
+    maps = {k: state_dict_from_jax(t, state or {}) for k, t in trees.items()}
+    names = {id(p): n for n, p in model.named_parameters()}
+    sd = optimizer.state_dict()
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    sd["state"] = {}
+    for i, p in enumerate(params):
+        name = names.get(id(p))
+        entry = {"step": torch.tensor(float(count))} if kind == "Adam" else {}
+        for k, m in maps.items():
+            if name not in m or tuple(m[name].shape) != tuple(p.shape):
+                raise ValueError(
+                    f"parameter {name} {tuple(p.shape)}: the checkpoint's "
+                    f"optax state has "
+                    f"{tuple(m[name].shape) if name in m else 'no leaf'}")
+            entry[k] = m[name]
+        if entry:
+            sd["state"][i] = entry
+    return sd, int(count)
+
+
 def resume(path: str, model: RCNN, step, metric: str = "val mAP") -> float:
     """Resume from ``path`` (JAX's mimic_runner.py:88-96,
     coco_runner.py:75-87, ext_runner.py:206-214): the model's weights, and
-    the optimizer state and schedule step when the port wrote the file (a
-    JAX checkpoint's optax state is not read: a fresh optimizer state).
-    Returns the best value of ``metric`` so far."""
+    the optimizer state and schedule step, the port's own or a JAX
+    checkpoint's optax state mapped (``opt_state_from_jax``).  Returns the
+    best value of ``metric`` so far."""
     payload = ckpt_util.load_ckpt(path)
     load_weights(model, payload["params"], payload.get("state"))
+    step.step = int(payload.get("lr_step") or 0)
     if payload.get("torch_opt_state") is not None:
         step.optimizer.load_state_dict(_torch_tree(payload["torch_opt_state"]))
+    elif payload.get("opt_state") is not None:
+        sd, step.step = opt_state_from_jax(payload["opt_state"],
+                                           payload.get("state"), model,
+                                           step.optimizer)
+        step.optimizer.load_state_dict(sd)
     else:
-        print(f"{path} holds no optimizer state of this package: a fresh "
-              "optimizer state", flush=True)
-    step.step = int(payload.get("lr_step") or 0)
+        print(f"{path} holds no optimizer state: a fresh optimizer state",
+              flush=True)
     best = float(payload.get("best_value", 0.0))
     print(f"resumed from {path} (best {metric} {best:.4f}, step {step.step})",
           flush=True)
@@ -317,6 +402,11 @@ class Timed:
         self.iterable = iterable
         self.seconds = 0.0
         self.items = 0
+
+    def __len__(self) -> int:
+        """The wrapped iterable's length (a TypeError where it has none),
+        for ``MetricLogger.log_every``'s progress."""
+        return len(self.iterable)
 
     def __iter__(self):
         it = iter(self.iterable)

@@ -346,7 +346,6 @@ def analyze_split_model_inference(model: RCNN, loader, quant_bits: int,
 def run(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
     """``main`` after the config is loaded.  Returns each analysis' result
     by its flag's name."""
-    common.check_unported_args(args)
     model_cfg = config.get("student_model", config.get("model"))
     model = get_model(model_cfg, seed=args.seed, device=args.device).eval()
     loaders = dict(zip(("train", "val", "test"),

@@ -48,6 +48,8 @@ from hnd_ghnd_tpu_torch.runners import common
 from hnd_ghnd_tpu_torch.runners.common import (StepMetrics,
                                                configure_precision, to_device)
 from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
+from hnd_ghnd_tpu_torch.utils.logging import MetricLogger
+from hnd_ghnd_tpu_torch.utils.profiling import StepTrace
 
 EXT_PREFIX = "backbone.body.layer1.encoder.ext_classifier."
 
@@ -59,9 +61,10 @@ def get_argparser() -> argparse.ArgumentParser:
     parser.add_argument("-test_only", action="store_true")
     parser.add_argument("--min_recall", type=float, default=0.98)
     parser.add_argument("--profile_dir", default=None,
-                        help="not ported (ROADMAP A18): raises")
+                        help="write a torch.profiler trace of training "
+                             "steps 3-6 here")
     parser.add_argument("--tb_dir", default=None,
-                        help="not ported (ROADMAP A18): raises")
+                        help="write TensorBoard scalars here (rank 0)")
     return parser
 
 
@@ -206,7 +209,11 @@ def train_ext(model: RCNN, config: Dict[str, Any], args: argparse.Namespace,
     loss, {}, ms)], "epochs": [{"val": (acc, recall, specificity, auc),
     "saved", "train" and "eval": {"seconds", "loader_s", "batches"}}]}
     (the train times the ranks' mean).  At N ranks an epoch is
-    ``len(train_loader)`` steps on every rank (``common.epoch_batches``)."""
+    ``len(train_loader)`` steps on every rank (``common.epoch_batches``).
+    Every ``log_freq`` steps a ``MetricLogger`` line (``log_every``) and
+    ``train/loss`` to ``--tb_dir``; ``val/accuracy``, ``val/recall`` and
+    ``val/roc_auc`` each epoch (ext_runner.py:217-270); ``--profile_dir``
+    traces steps 3-6."""
     train_cfg = config["train"]
     device = next(model.parameters()).device
     cuda = device.type == "cuda"
@@ -217,40 +224,66 @@ def train_ext(model: RCNN, config: Dict[str, Any], args: argparse.Namespace,
     if ckpt_util.check_if_exists(ckpt_path):
         best = common.resume(ckpt_path, model, step, metric="ROC-AUC")
     history: Dict[str, List] = {"steps": [], "epochs": []}
-    for epoch in range(int(train_cfg["num_epochs"])):
-        train_loader.set_epoch(epoch)
-        model.train()
-        metrics = StepMetrics()
-        t0 = time.perf_counter()
-        batches = common.Timed(common.epoch_batches(train_loader))
-        for batch, _, host in batches:
-            labels = torch.tensor([host_target_to_ext_label(t, keypoint_task)
-                                   for t in host], device=device)
-            images = to_device({"images": batch["images"]}, device)["images"]
-            start = None
-            if cuda:
-                start = torch.cuda.Event(enable_timing=True)
-                start.record()
-            loss = step(images, labels)
-            history["steps"] += metrics.push(step.step - 1, loss, {}, start)
-        history["steps"] += metrics.drain()
-        train = common.mean_over_ranks({
-            "seconds": time.perf_counter() - t0, "loader_s": batches.seconds,
-            "batches": batches.items})
-        t0 = time.perf_counter()
-        val = common.Timed(val_loader)
-        probs, labels = collect_probs(model, val, keypoint_task)
-        scores = summarize_cls(probs, labels)
-        ev = {"seconds": time.perf_counter() - t0, "loader_s": val.seconds,
-              "batches": val.items}
-        saved = bool(scores[3] > best and ckpt_path)
-        if saved:
-            best = scores[3]
-            multihost.save_on_master(common.save_checkpoint, ckpt_path,
-                                     model, step, best, config, args)
-            print(f"saved best ckpt (val ROC-AUC {best:.4f})", flush=True)
-        history["epochs"].append({"val": scores, "saved": saved,
-                                  "train": train, "eval": ev})
+    log_freq = int(train_cfg.get("log_freq", 1000))
+    tb = common.summary_writer(args)
+    trace = StepTrace(getattr(args, "profile_dir", None))
+
+    def record(meters, entries):
+        for entry in entries:
+            history["steps"].append(entry)
+            meters.update(loss=entry[1])
+            common.log_train_scalars(tb, entry, log_freq)
+
+    try:
+        for epoch in range(int(train_cfg["num_epochs"])):
+            train_loader.set_epoch(epoch)
+            model.train()
+            metrics = StepMetrics()
+            meters = MetricLogger()
+            t0 = time.perf_counter()
+            batches = common.Timed(common.epoch_batches(train_loader))
+            for batch, _, host in meters.log_every(batches, log_freq,
+                                                   f"Epoch: [{epoch}]"):
+                labels = torch.tensor(
+                    [host_target_to_ext_label(t, keypoint_task)
+                     for t in host], device=device)
+                images = to_device({"images": batch["images"]},
+                                   device)["images"]
+                trace.before()
+                start = None
+                if cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                loss = step(images, labels)
+                record(meters, metrics.push(step.step - 1, loss, {}, start))
+                trace.after()
+            record(meters, metrics.drain())
+            train = common.mean_over_ranks({
+                "seconds": time.perf_counter() - t0,
+                "loader_s": batches.seconds, "batches": batches.items})
+            t0 = time.perf_counter()
+            val = common.Timed(val_loader)
+            probs, labels = collect_probs(model, val, keypoint_task)
+            scores = summarize_cls(probs, labels)
+            tb.add_scalar("val/accuracy", scores[0], epoch)
+            tb.add_scalar("val/recall", scores[1], epoch)
+            if scores[3] == scores[3]:  # NaN on a single-class val shard
+                tb.add_scalar("val/roc_auc", scores[3], epoch)
+            tb.flush()
+            ev = {"seconds": time.perf_counter() - t0,
+                  "loader_s": val.seconds, "batches": val.items}
+            saved = bool(scores[3] > best and ckpt_path)
+            if saved:
+                best = scores[3]
+                multihost.save_on_master(common.save_checkpoint, ckpt_path,
+                                         model, step, best, config, args)
+                print(f"saved best ckpt (val ROC-AUC {best:.4f})",
+                      flush=True)
+            history["epochs"].append({"val": scores, "saved": saved,
+                                      "train": train, "eval": ev})
+    finally:
+        trace.close()
+        tb.close()
     return history
 
 
@@ -260,7 +293,6 @@ def run(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
     specificity, auc), "table": the threshold rows, "n": images,
     "batches"}}.  As N ranks (``common.distributed``), each on its shard;
     the scores are the gathered arrays'."""
-    common.check_unported_args(args)
     common.check_ckpt_backend(config)
     with common.distributed(args) as device:
         return _run(config, args, device)

@@ -21,7 +21,10 @@ seeded from ``--seed``.
 
 ``distill`` is the batch-level loop over given batches (dicts of arrays),
 whose evals return raw detections; ``distill_coco`` is the runner's loop
-over the loaders.  TensorBoard and the profiler (A18) raise.
+over the loaders.  ``--tb_dir`` writes ``train/loss`` and
+``train/{term}`` every ``log_freq`` steps and ``val/map`` each epoch (rank
+0; utils/tensorboard.py), ``--profile_dir`` a ``torch.profiler`` trace of
+loop iterations 3-6 (utils/profiling.StepTrace), as JAX's runner does.
 
 N ranks (``torchrun --nproc_per_node N -m
 hnd_ghnd_tpu_torch.runners.mimic_runner ...``, or ``--dist_url env://``
@@ -35,7 +38,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict, Iterable, List
+from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 
@@ -53,6 +56,8 @@ from hnd_ghnd_tpu_torch.runners.common import (StepMetrics,
                                                to_device)
 from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
 from hnd_ghnd_tpu_torch.utils.logging import MetricLogger
+from hnd_ghnd_tpu_torch.utils.profiling import StepTrace
+from hnd_ghnd_tpu_torch.utils.tensorboard import SummaryWriter
 
 
 def get_argparser() -> argparse.ArgumentParser:
@@ -66,9 +71,10 @@ def get_argparser() -> argparse.ArgumentParser:
                         help="quantize/dequantize the bottleneck at eval")
     parser.add_argument("-skip_teacher_eval", action="store_true")
     parser.add_argument("--profile_dir", default=None,
-                        help="not ported (ROADMAP A18): raises")
+                        help="write a torch.profiler trace of loop "
+                             "iterations 3-6 here")
     parser.add_argument("--tb_dir", default=None,
-                        help="not ported (ROADMAP A18): raises")
+                        help="write TensorBoard scalars here (rank 0)")
     return parser
 
 
@@ -94,12 +100,16 @@ def make_step(teacher: RCNN, student: RCNN, config: Dict[str, Any],
 
 
 def train_epoch(step: DistillStep, batches: Iterable, log_freq: int = 0,
-                header: str = "") -> Dict[str, Any]:
+                header: str = "", tb: Optional[SummaryWriter] = None,
+                trace: Optional[StepTrace] = None) -> Dict[str, Any]:
     """One epoch of ``step`` over ``batches`` (dicts with ``images``, or the
     loader's (batch, targets, host_targets)), the student in train mode.
     With the org term the batches carry their targets ((batch, targets) or
     the loader's triple), and the batch and targets go to the device as
-    ``coco_runner.train_epoch`` moves them.
+    ``coco_runner.train_epoch`` moves them.  With ``log_freq``, a
+    ``MetricLogger`` line every ``log_freq`` batches (``log_every``, JAX's
+    mimic_runner.py:148) and the scalars to ``tb`` every ``log_freq``
+    steps, both from the lag-1 reads; ``trace`` brackets each iteration.
 
     Returns {"steps": [(step, loss, {term: value}, ms)], "seconds": the
     epoch's wall time, "loader_s": the time spent waiting on ``batches``};
@@ -116,13 +126,17 @@ def train_epoch(step: DistillStep, batches: Iterable, log_freq: int = 0,
         for entry in entries:
             out["steps"].append(entry)
             meters.update(loss=entry[1], **entry[2])
-            if log_freq and entry[0] % log_freq == 0:
-                print(f"{header} [step {entry[0]}] {meters}", flush=True)
+            if tb is not None:
+                common.log_train_scalars(tb, entry, log_freq)
 
     t_start = time.perf_counter()
     batches = common.Timed(batches)
     org = step.box.use_org_loss
-    for item in batches:
+    items = meters.log_every(batches, log_freq, header) if log_freq \
+        else batches
+    for item in items:
+        if trace is not None:
+            trace.before()
         batch = item[0] if isinstance(item, tuple) else item
         if org:
             if not isinstance(item, tuple):
@@ -137,6 +151,8 @@ def train_epoch(step: DistillStep, batches: Iterable, log_freq: int = 0,
             start.record()
         loss, terms = step(*args)
         record(metrics.push(step.step - 1, loss, terms, start))
+        if trace is not None:
+            trace.after()
     record(metrics.drain())
     out["seconds"] = time.perf_counter() - t_start
     out["loader_s"] = batches.seconds
@@ -181,7 +197,8 @@ def distill_coco(teacher: RCNN, student: RCNN, config: Dict[str, Any],
     """The runner's distillation (mimic_runner.py:52-206): epochs over
     ``train_loader`` (``set_epoch`` each), the val bbox mAP after each,
     the best checkpoint at ``student_model.ckpt`` when it rises, resuming
-    from that file when it exists.
+    from that file when it exists; ``--tb_dir``'s scalars and
+    ``--profile_dir``'s trace.
 
     Returns {"steps": [(step, loss, {term: value}, ms)], "epochs": [{
     "val_map", "saved", "train" (seconds, loader_s: the ranks' mean),
@@ -197,26 +214,35 @@ def distill_coco(teacher: RCNN, student: RCNN, config: Dict[str, Any],
         best = common.resume(ckpt_path, student, step)
     log_freq = int(train_cfg.get("log_freq", 1000))
     history: Dict[str, List] = {"steps": [], "epochs": []}
-    for epoch in range(int(train_cfg["num_epochs"])):
-        train_loader.set_epoch(epoch)
-        done = train_epoch(step, common.epoch_batches(train_loader),
-                           log_freq, f"Epoch: [{epoch}]")
-        history["steps"] += done.pop("steps")
-        common.mean_over_ranks(done)
-        evaluator, times = common.coco_evaluate(
-            student.eval(), val_loader,
-            use_bottleneck_transformer=args.transform_bottleneck)
-        student.train()
-        val_map = float(evaluator.stats["bbox"][0])
-        saved = bool(val_map > best and ckpt_path)
-        if saved:
-            best = val_map
-            multihost.save_on_master(common.save_checkpoint, ckpt_path,
-                                     student, step, best, config, args)
-            print(f"saved best ckpt (val mAP {val_map:.4f})", flush=True)
-        history["epochs"].append({
-            "val_map": val_map, "saved": saved, "train": done, "eval": times,
-            "stats": {k: v.tolist() for k, v in evaluator.stats.items()}})
+    tb = common.summary_writer(args)
+    trace = StepTrace(getattr(args, "profile_dir", None))
+    try:
+        for epoch in range(int(train_cfg["num_epochs"])):
+            train_loader.set_epoch(epoch)
+            done = train_epoch(step, common.epoch_batches(train_loader),
+                               log_freq, f"Epoch: [{epoch}]", tb, trace)
+            history["steps"] += done.pop("steps")
+            common.mean_over_ranks(done)
+            evaluator, times = common.coco_evaluate(
+                student.eval(), val_loader,
+                use_bottleneck_transformer=args.transform_bottleneck)
+            student.train()
+            val_map = float(evaluator.stats["bbox"][0])
+            tb.add_scalar("val/map", val_map, epoch)
+            tb.flush()
+            saved = bool(val_map > best and ckpt_path)
+            if saved:
+                best = val_map
+                multihost.save_on_master(common.save_checkpoint, ckpt_path,
+                                         student, step, best, config, args)
+                print(f"saved best ckpt (val mAP {val_map:.4f})", flush=True)
+            history["epochs"].append({
+                "val_map": val_map, "saved": saved, "train": done,
+                "eval": times,
+                "stats": {k: v.tolist() for k, v in evaluator.stats.items()}})
+    finally:
+        trace.close()
+        tb.close()
     return history
 
 
@@ -229,7 +255,6 @@ def run(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
 
     Returns {"distill": the history of ``distill_coco`` (with -distill),
     "teacher" and "student": {"stats", "eval"} of the test evals}."""
-    common.check_unported_args(args)
     with common.distributed(args) as device:
         return _run(config, args, device)
 

@@ -89,7 +89,6 @@ def run(config: Dict[str, Any], args: argparse.Namespace) -> List[str]:
     import cv2
     from PIL import Image
 
-    common.check_unported_args(args)
     common.configure_precision(torch.float32)
     model_cfg = config.get("student_model", config.get("model"))
     model = get_model(model_cfg, seed=args.seed, device=args.device).eval()

@@ -12,9 +12,11 @@ multi-process run rank 0 writes, through ``multihost.save_on_master``).
 The port writes ``opt_state: None`` and keeps its own optimizer state, as
 numpy arrays, under ``torch_opt_state``.  A JAX payload's ``opt_state``
 pickles optax classes: ``load_ckpt`` reads it with an unpickler that turns
-every ``optax``, ``jax`` and ``jaxlib`` class into an inert stub, so that
-neither is imported; the port never uses that state (reading it is ROADMAP
-A17).  The orbax backend is ROADMAP A16.
+every ``optax``, ``jax`` and ``jaxlib`` class into an inert stub that keeps
+the fields it was rebuilt from (``args``), so that neither is imported;
+``runners/common.opt_state_from_jax`` maps those fields into the port's
+optimizer on resume.  The orbax backend is ROADMAP A16: ``orbax.checkpoint``
+imports JAX, which the port never imports.
 """
 from __future__ import annotations
 

@@ -1,17 +1,22 @@
-"""Training-loop observability: windowed metric smoothing.
+"""Training-loop observability: windowed metric smoothing, per-step lines.
 
 Counterpart of hnd_ghnd_tpu/utils/logging.py (reference
 src/utils/misc_util.py SmoothedValue :10-69 and MetricLogger :142-229):
 median/avg over a sliding window and global averages of the logged
-scalars.  The runners time their loops themselves (the loader's wait,
-CUDA events around the steps), so the reference's ``log_every`` has no
-counterpart, and one process runs the loop, so neither has its
-cross-rank all_reduce of the meters.
+scalars, and ``MetricLogger.log_every``, the line every ``print_freq``
+iterations (JAX's logging.py:77-109) that ``coco_runner.train_epoch`` and
+``ext_runner``'s loop print.  The values it prints are whatever the loop
+has given ``update``: the runners give it the lag-1 scalars of
+``runners/common.StepMetrics``, so a logged step waits for nothing on the
+device.  Neither keeps the reference's cross-rank all_reduce of the meters
+(each rank logs its own, and only rank 0 prints).
 """
 from __future__ import annotations
 
+import datetime
+import time
 from collections import defaultdict, deque
-from typing import Dict
+from typing import Dict, Iterable
 
 
 class SmoothedValue:
@@ -64,3 +69,39 @@ class MetricLogger:
 
     def __str__(self) -> str:
         return self.delimiter.join(f"{n}: {m}" for n, m in self.meters.items())
+
+    def log_every(self, iterable: Iterable, print_freq: int,
+                  header: str = "") -> Iterable:
+        """Yield from ``iterable``; every ``print_freq`` items print the
+        meters with the iteration and data times and an ETA, and at the end
+        the total time."""
+        i = 0
+        start = time.time()
+        end = time.time()
+        iter_time = SmoothedValue(fmt="{avg:.4f}")
+        data_time = SmoothedValue(fmt="{avg:.4f}")
+        try:
+            total = len(iterable)
+        except TypeError:
+            total = None
+        space = len(str(total)) if total else 6
+        for obj in iterable:
+            data_time.update(time.time() - end)
+            yield obj
+            iter_time.update(time.time() - end)
+            if print_freq and i % print_freq == 0:
+                if total:
+                    eta = iter_time.global_avg * (total - i)
+                    eta_s = str(datetime.timedelta(seconds=int(eta)))
+                    print(f"{header} [{i:>{space}}/{total}] eta: {eta_s} "
+                          f"{self} time: {iter_time} data: {data_time}",
+                          flush=True)
+                else:
+                    print(f"{header} [{i}] {self} time: {iter_time}",
+                          flush=True)
+            i += 1
+            end = time.time()
+        elapsed = time.time() - start
+        print(f"{header} Total time: "
+              f"{str(datetime.timedelta(seconds=int(elapsed)))} "
+              f"({elapsed / max(i, 1):.4f} s / it)", flush=True)

@@ -11,8 +11,9 @@
     JAX package's ``get_model`` gives the port's detections within the
     tolerance of tests/test_torch_port_slice.py;
   * a JAX pickle checkpoint with an optax Adam state loads into the port
-    (``get_model``, ``common.resume``: a fresh optimizer state) in a fresh
-    interpreter in which jax and optax never enter ``sys.modules``.
+    (``get_model``, ``common.resume``: the Adam state mapped, here JAX's
+    initial one, count 0 and zero moments) in a fresh interpreter in which
+    jax and optax never enter ``sys.modules``.
 """
 import argparse
 import os
@@ -160,7 +161,13 @@ params = [p for p in model.parameters() if p.requires_grad]
 step = type("Step", (), {})()
 step.optimizer, step.step = torch.optim.Adam(params), 7
 assert common.resume(path, model, step) == 0.25 and step.step == 0
-assert not step.optimizer.state_dict()["state"]
+# JAX's freshly initialised Adam (count 0, zero moments), mapped
+state = step.optimizer.state_dict()["state"]
+assert sorted(state) == list(range(len(params))), len(state)
+for p, s in zip(params, (state[i] for i in range(len(params)))):
+    assert float(s["step"]) == 0.0
+    for k in ("exp_avg", "exp_avg_sq"):
+        assert s[k].shape == p.shape and not s[k].any()
 banned = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
                                                         "optax")]
 assert not banned, banned
@@ -183,7 +190,7 @@ def test_jax_checkpoint_with_optax_state_loads_without_jax(tmp_path):
                          cwd=REPO, env=env, capture_output=True, text=True,
                          timeout=300)
     assert run.returncode == 0, run.stderr
-    assert "fresh optimizer state" in run.stdout
+    assert f"resumed from {path} (best val mAP 0.2500, step 0)" in run.stdout
     assert run.stdout.strip().endswith("clean")
     got = torch.load(out)
     want = state_dict_from_jax(params, state)

@@ -607,6 +607,7 @@ def test_roi_align_kernel_rejects_what_it_does_not_take(cuda):
 # forward, B x OH x OW-term sums for dW
 STEM_FWD_TOL = 1e-5    # x max |plain output|
 STEM_DW_TOL = 1e-4     # x max |plain dW|
+STEM_BF16_DIFF_FRAC = 1e-4  # bf16 forwards: share of elements that differ
 
 
 def _stem_inputs(cuda, b, h, w, seed=0):
@@ -631,8 +632,8 @@ def test_stem_kernels_vs_plain(cuda, shape):
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
     torch.backends.cudnn.allow_tf32 = False
     x, weight, scale, bias = _stem_inputs(cuda, *shape)
-    counts = (SK.stem_fwd.launches, SK.stem_fwd_res.launches,
-              SK.stem_dw.launches)
+    counts = (SK.stem_fwd.launches[x.dtype], SK.stem_fwd_res.launches[x.dtype],
+              SK.stem_dw.launches[x.dtype])
     want, conv = ts.stem_forward(x, weight, scale, bias, with_conv=True)
     got = SK.stem_fwd(x, weight, scale, bias)
     got_res, got_conv = SK.stem_fwd_res(x, weight, scale, bias)
@@ -648,9 +649,48 @@ def test_stem_kernels_vs_plain(cuda, shape):
     assert float((dw - want_dw).abs().max()) <= \
         STEM_DW_TOL * float(want_dw.abs().max())
     assert torch.equal(SK.stem_dw(x, g), dw)  # no atomics: same bits
-    assert (SK.stem_fwd.launches, SK.stem_fwd_res.launches,
-            SK.stem_dw.launches) == (counts[0] + 1, counts[1] + 1,
-                                     counts[2] + 2)
+    assert (SK.stem_fwd.launches[x.dtype], SK.stem_fwd_res.launches[x.dtype],
+            SK.stem_dw.launches[x.dtype]) == (counts[0] + 1, counts[1] + 1,
+                                              counts[2] + 2)
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
+# bfloat16 activations (R12): the products of bf16 operands are exact in
+# float32, so output and residual stay within one bf16 ulp of the plain
+# version's largest value (they differ only where the float32 sums, in
+# another order, round to other neighbours) and dW within STEM_DW_TOL
+@pytest.mark.parametrize("shape", [(2, 66, 100), (1, 16, 34), (3, 130, 1346),
+                                   (4, 832, 1344)])
+def test_stem_kernels_bf16_vs_plain(cuda, shape):
+    from hnd_ghnd_tpu_torch.ops import stem as ts
+    from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
+    torch.backends.cudnn.allow_tf32 = False
+    x, weight, scale, bias = _stem_inputs(cuda, *shape)
+    x = x.bfloat16()
+    before = SK.stem_fwd.launches[torch.bfloat16]
+    want, conv = ts.stem_forward(x, weight, scale, bias, with_conv=True)
+    got = SK.stem_fwd(x, weight, scale, bias)
+    got_res, got_conv = SK.stem_fwd_res(x, weight, scale, bias)
+    g = torch.randn(conv.shape, device=cuda).bfloat16()
+    dw = SK.stem_dw(x, g)
+    torch.cuda.synchronize()
+    assert got.dtype == got_conv.dtype == torch.bfloat16
+    assert dw.dtype == torch.float32
+    for a, b in ((got, want), (got_res, want), (got_conv, conv)):
+        assert float((a.float() - b.float()).abs().max()) <= \
+            _bf16_ulp(float(b.float().abs().max()))
+        assert int((a != b).sum()) <= STEM_BF16_DIFF_FRAC * b.numel()
+    want_dw = ts.stem_weight_grad(x, g)
+    assert float((dw - want_dw).abs().max()) <= \
+        STEM_DW_TOL * float(want_dw.abs().max())
+    assert SK.stem_fwd.launches[torch.bfloat16] == before + 1
+    with pytest.raises(TypeError):
+        SK.stem_fwd(x.half(), weight, scale, bias)
+    with pytest.raises(TypeError):
+        SK.stem_dw(x, g.float())
 
 
 def test_stem_function_grads_vs_plain(cuda):

@@ -11,11 +11,12 @@ JAX package's, on the CPU.
     pixel dtypes.
 
 Exact equality everywhere: the port's host modules are copies of the JAX
-package's pure-Python path.  This host builds the JAX package's native
-prep library, whose libjpeg decode and fused resize give other pixels;
-the JAX side is held to its PIL/cv2 path by patching
-``native_prep.available`` and ``decode_jpeg`` here (the JAX package is
-unchanged)."""
+package's pure-Python path.  This host builds both packages' native prep
+libraries, whose libjpeg decode and fused resize give other pixels; both
+sides are held to their PIL/cv2 path here (``HND_TPU_NATIVE_PREP=0``, and
+the JAX package's ``native_prep.available`` and ``decode_jpeg`` patched;
+the JAX package is unchanged).  The native paths are held to each other
+in tests/test_torch_port_native.py."""
 import copy
 import glob
 import json
@@ -36,6 +37,16 @@ from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 
 CONFIGS = sorted(glob.glob("config/**/*.yaml", recursive=True))
 BUCKETS = ((96, 128), (128, 96))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def pure_host_prep():
+    """Both packages on their pure host path (PIL decode, cv2 resize),
+    the port by the switch they share: the native one is held in
+    tests/test_torch_port_native.py."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HND_TPU_NATIVE_PREP", "0")
+        yield
 
 
 @pytest.fixture(autouse=True)

@@ -453,8 +453,11 @@ def test_coco_runner_stops_on_a_non_finite_loss():
 
 def test_distillation_in_bf16_raises():
     """Distillation in bfloat16 (the config's default, as in JAX) runs its
-    trunks in bfloat16; what still raises is the fused stem's switch, whose
-    kernels take float32 only."""
+    trunks in bfloat16, with the fused stem's switch too: the stem's
+    Function runs on bfloat16 activations (ROADMAP R12; the switch raised
+    before), for the teacher and the student; a float16 input to the
+    kernels still raises (tests/test_torch_port_stem_bf16.py)."""
+    from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
     student = get_model(STUDENT_MODEL, seed=0, device="cpu")
     teacher = get_model(ORG_MODEL, seed=1, device="cpu")
     seen = []
@@ -474,8 +477,15 @@ def test_distillation_in_bf16_raises():
         assert seen == [torch.bfloat16, torch.bfloat16]
         with pytest.MonkeyPatch.context() as mp:
             mp.setenv("HND_TPU_PALLAS_STEM", "1")
-            with pytest.raises(TypeError, match="bfloat16"):
-                distill(teacher, student, config, train, [], 1)
+            stems, fused = [], SK.stem_conv_bn_relu
+            mp.setattr(SK, "stem_conv_bn_relu",
+                       lambda x, *a: stems.append(x.dtype) or fused(x, *a))
+            seen.clear()
+            hist = distill(teacher, student, config, train, [], 1)
+            (_, loss, _, _), = hist["steps"]
+            assert np.isfinite(loss)
+            assert stems == [torch.bfloat16] * 2
+            assert seen == [torch.bfloat16, torch.bfloat16]
 
 
 def _dets_equal(a, b):

@@ -313,23 +313,9 @@ def test_step_running_stats_match_jax(steps):
     assert n == 2 * 8  # the 3 BNs of the encoder and the 5 of the decoder
 
 
-@pytest.mark.parametrize("optimizer", [
-    TRAIN["optimizer"],
-    {"type": "SGD", "params": {"lr": 0.01, "momentum": 0.9,
-                               "weight_decay": 1e-4}}], ids=["adam", "sgd"])
-def test_optimizer_matches_jax_across_warmup(weights, optimizer):
-    """Three updates with warmup 2 (steps 0 and 1 in the warmup, step 2
-    after it), both sides fed the same gradients."""
-    _, _, _, _, sp, _ = weights
-    _, ps = port_models(weights)
-    names = updatable_param_names(ps)
-    params = dict(ps.named_parameters())
-    rng = np.random.RandomState(5)
-    grads = [{n: rng.randn(*params[n].shape).astype(np.float32) * 1e-2
-              for n in names} for _ in range(3)]
-
-    tx, _ = jax_build_optimizer(optimizer, TRAIN["scheduler"], 1000, 2)
-    mask = trainable_mask(sp, FROZEN)
+def _jax_updates(tx, sp, mask, grads, names):
+    """JAX's (params, opt_state) after each update, one per gradient
+    dict."""
     jp = jax.tree_util.tree_map(jnp.asarray, sp)
     opt_state = tx.init(jp)
 
@@ -338,6 +324,7 @@ def test_optimizer_matches_jax_across_warmup(weights, optimizer):
         updates, opt_state = tx.update(apply_grad_mask(g, mask), opt_state, p)
         return optax.apply_updates(p, updates), opt_state
 
+    out = []
     for g in grads:
         jg = jax.tree_util.tree_map(jnp.zeros_like, jp)
         for n in names:
@@ -345,7 +332,46 @@ def test_optimizer_matches_jax_across_warmup(weights, optimizer):
             _get(jg, path[:-1])[path[-1]] = jnp.asarray(
                 to_jax_layout(torch.from_numpy(g[n]), layout))
         jp, opt_state = update(jg, opt_state, jp)
+        out.append((jp, opt_state))
+    return out
 
+
+OPTIMIZERS = [TRAIN["optimizer"],
+              {"type": "SGD", "params": {"lr": 0.01, "momentum": 0.9,
+                                         "weight_decay": 1e-4}}]
+
+
+@pytest.fixture(scope="module", params=OPTIMIZERS, ids=["adam", "sgd"])
+def jax_updates(request, weights):
+    """(optimizer, names, gradients, JAX's (params, opt_state) after each
+    of three updates with warmup 2: steps 0 and 1 in the warmup, step 2
+    after it)."""
+    _, _, _, _, sp, _ = weights
+    _, ps = port_models(weights)
+    names = updatable_param_names(ps)
+    params = dict(ps.named_parameters())
+    rng = np.random.RandomState(5)
+    grads = [{n: rng.randn(*params[n].shape).astype(np.float32) * 1e-2
+              for n in names} for _ in range(3)]
+    tx, _ = jax_build_optimizer(request.param, TRAIN["scheduler"], 1000, 2)
+    return request.param, names, grads, _jax_updates(
+        tx, sp, trainable_mask(sp, FROZEN), grads, names)
+
+
+def _assert_params_match(params, names, jp):
+    for n in names:
+        _, path, layout = jax_leaf(n)
+        ref = np.asarray(_get(jp, path))
+        got = to_jax_layout(params[n], layout)
+        err = np.abs(got - ref).max()
+        assert err <= PARAM_TOL * np.abs(ref).max(), f"{n}: {err}"
+
+
+def test_optimizer_matches_jax_across_warmup(weights, jax_updates):
+    """Three updates with warmup 2, both sides fed the same gradients."""
+    optimizer, names, grads, updates = jax_updates
+    _, ps = port_models(weights)
+    params = dict(ps.named_parameters())
     box = DistillationBox(build_model(TEACHER_MODEL), ps, TRAIN["criterion"])
     step = make_distill_train_step(box, optimizer, TRAIN["scheduler"], 1000, 2)
     for g in grads:
@@ -353,12 +379,57 @@ def test_optimizer_matches_jax_across_warmup(weights, optimizer):
             params[n].grad = torch.from_numpy(g[n])
         step.apply_update()
     assert step.step == 3
+    _assert_params_match(params, names, updates[-1][0])
+
+
+def test_resume_from_jax_optimizer_state_continues_jax(weights, jax_updates,
+                                                       tmp_path):
+    """JAX's checkpoint after two updates, with its optax state; the port
+    resumes from the file (weights, Adam's moments or SGD's trace, the
+    schedule's count) and takes the third update, as JAX takes its third:
+    the parameters agree at PARAM_TOL."""
+    from hnd_ghnd_tpu.utils import ckpt as jax_ckpt
+    from hnd_ghnd_tpu_torch.runners import common
+    optimizer, names, grads, updates = jax_updates
+    _, ps = port_models(weights)
+    params = dict(ps.named_parameters())
+    path = str(tmp_path / "jax.pt")
+    jp, opt_state = updates[1]
+    jax_ckpt.save_ckpt(path, params=jp, state=weights[5],
+                       opt_state=opt_state)
+    box = DistillationBox(build_model(TEACHER_MODEL), ps, TRAIN["criterion"])
+    step = make_distill_train_step(box, optimizer, TRAIN["scheduler"], 1000, 2)
+    common.resume(path, ps, step)
+    assert step.step == 2
     for n in names:
-        _, path, layout = jax_leaf(n)
-        ref = np.asarray(_get(jp, path))
-        got = to_jax_layout(params[n], layout)
-        err = np.abs(got - ref).max()
-        assert err <= PARAM_TOL * np.abs(ref).max(), f"{n}: {err}"
+        params[n].grad = torch.from_numpy(grads[2][n])
+    step.apply_update()
+    _assert_params_match(params, names, updates[2][0])
+
+
+def test_jax_optimizer_state_mismatches_raise(weights):
+    """Another optimizer type, or a parameter without its state, raises
+    and names it; nothing falls back to a fresh state."""
+    from hnd_ghnd_tpu_torch.runners import common
+    from hnd_ghnd_tpu_torch.utils.ckpt import _Unpickler
+    import io
+    import pickle
+    _, _, _, _, sp, sstate = weights
+    _, ps = port_models(weights)
+    adam, _ = jax_build_optimizer({"type": "Adam", "params": {"lr": 1e-3}})
+    state = _np(adam.init(jax.tree_util.tree_map(jnp.asarray, sp)))
+
+    def stubbed(tree):
+        return _Unpickler(io.BytesIO(pickle.dumps(tree))).load()
+
+    trainable = [p for p in ps.parameters() if p.requires_grad]
+    sgd = torch.optim.SGD(trainable, lr=0.1, momentum=0.9)
+    with pytest.raises(ValueError, match="SGD.*ScaleByAdamState"):
+        common.opt_state_from_jax(stubbed(state), sstate, ps, sgd)
+    adam_t = torch.optim.Adam(trainable, lr=1e-3)
+    del state[0].mu["backbone"]["body"]["layer1"]["encoder"]
+    with pytest.raises(ValueError, match="backbone.body.layer1.encoder"):
+        common.opt_state_from_jax(stubbed(state), sstate, ps, adam_t)
 
 
 def test_port_step_freezes_and_moves(weights):

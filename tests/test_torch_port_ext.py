@@ -30,6 +30,7 @@ import contextlib
 import copy
 import io
 import json
+import os
 import re
 import warnings
 
@@ -67,6 +68,16 @@ SHAPE = (96, 128)
 TOL = 1e-5
 TINY_TPU = {"buckets": [[96, 96]], "min_sizes": [64], "max_size": 96,
             "compute_dtype": "bfloat16", "eval_batch_size": 4}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def pure_host_prep():
+    """Both packages on their pure host path (PIL decode, cv2 resize),
+    the port by the switch they share: the native one is held in
+    tests/test_torch_port_native.py."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HND_TPU_NATIVE_PREP", "0")
+        yield
 
 
 def _model_config(**params):
@@ -441,6 +452,28 @@ def test_threshold_table_rows_match_jax(case, min_recall):
                                rtol=1e-5, atol=5e-7)
 
 
+def _check_logs(root, steps, val, text):
+    """``--tb_dir``: train/loss every log_freq steps (step 0 at the
+    config's 10000), then val/accuracy, val/recall and val/roc_auc of the
+    epoch (JAX's ext_runner.py:217-270); the MetricLogger lines of
+    ``log_every``; ``--profile_dir``: a trace of steps 3-6."""
+    from hnd_ghnd_tpu_torch.utils.profiling import trace_files
+    from hnd_ghnd_tpu_torch.utils.tensorboard import read_scalars
+    (events,) = os.listdir(root / "tb")
+    log_freq = EXT_TRAIN["log_freq"]
+    want = [("train/loss", np.float32(s[1]), s[0]) for s in steps
+            if s[0] % log_freq == 0]
+    acc, recall, _, auc = val
+    want += [("val/accuracy", np.float32(acc), 0),
+             ("val/recall", np.float32(recall), 0),
+             ("val/roc_auc", np.float32(auc), 0)]
+    assert read_scalars(str(root / "tb" / events)) == want
+    assert "Epoch: [0] [0/8]" in text and "Epoch: [0] Total time" in text
+    (trace,) = trace_files(str(root / "prof"))
+    assert os.path.getsize(trace) > 0
+    assert "profiler trace of iterations 3-6 written to" in text
+
+
 def test_ext_runner_trains_resumes_and_tests(fixture):
     root, img_dir, ann = fixture
     cfg = _model_config()
@@ -449,13 +482,16 @@ def test_ext_runner_trains_resumes_and_tests(fixture):
     with open(path, "w") as f:
         yaml.safe_dump(_config(img_dir, ann, cfg), f)
     argv = ["--config", path, "--device", "cpu"]
-    first, text = port_main(ext_runner, argv + ["-train"])
+    first, text = port_main(ext_runner, argv + [
+        "-train", "--tb_dir", str(root / "tb"),
+        "--profile_dir", str(root / "prof")])
     steps = first["train"]["steps"]
     assert [s[0] for s in steps] == list(range(8))
     assert all(np.isfinite(s[1]) for s in steps)
     (epoch,) = first["train"]["epochs"]
     auc = epoch["val"][3]
     assert 0 < auc <= 1 and epoch["saved"]
+    _check_logs(root, steps, epoch["val"], text)
     payload = jax_ckpt.load_ckpt(str(root / "ext.pt"))
     assert payload["best_value"] == auc and payload["lr_step"] == 8
     assert payload["torch_opt_state"]["state"]

@@ -11,10 +11,12 @@ and the int8 server tail on the same wire; the kernels' custom ops and the
 export module imported), then jax, the JAX package, PIL, cv2, yaml, sklearn and pandas
 must be absent from ``sys.modules`` (they are not promised on the GPU
 host).  The host modules of the runners (config, data, evals with the ROC
-metrics, checkpoints, logging, the cost analyzer and the visualizer with
+metrics, checkpoints, logging, the TensorBoard writer, the profiler, the
+native host libraries' bindings, the cost analyzer and the visualizer with
 its drawing and the JPEG codec) import none of them either: PIL, cv2 and
 yaml are imported by the functions that decode, resize, draw and load a
-config."""
+config.  The slice also runs the native prep and cocomask (built with g++
+where they build), writes TensorBoard scalars and a profiler trace."""
 import os
 import shutil
 import subprocess
@@ -90,6 +92,22 @@ step = ext_runner.make_ext_train_step(gated.train(), {"type": "SGD",
     "params": {"lr": 0.001, "momentum": 0.9, "weight_decay": 1e-4}})
 step(torch.zeros(2, 64, 64, 3), torch.tensor([0, 1]))
 assert roc.roc_auc_score([0, 1, 1], [0.2, 0.4, 0.9]) == 1.0
+import tempfile
+from hnd_ghnd_tpu_torch.data import native_prep
+from hnd_ghnd_tpu_torch.utils import profiling, tensorboard
+slot = np.empty((8, 8, 3), np.float32)
+if native_prep.available():
+    native_prep.prep_into(np.full((4, 4, 3), 255, np.uint8), 4, 4, True, slot)
+    assert slot[:4, :4].min() == 1.0 and not slot[4:].any()
+assert mask_rle.area(mask_rle.encode(np.ones((3, 5), np.uint8))) == 15
+with tempfile.TemporaryDirectory() as d:
+    with tensorboard.SummaryWriter(d) as w:
+        w.add_scalar("train/loss", 1.0, 0)
+    assert tensorboard.read_scalars(w.path) == [("train/loss", 1.0, 0)]
+    with profiling.trace(d):
+        with profiling.annotate("span"):
+            torch.ones(2).sum()
+    assert profiling.trace_files(d)
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "hnd_ghnd_tpu", "PIL",
                                  "cv2", "yaml", "sklearn", "pandas")]
@@ -101,9 +119,9 @@ print("clean")
 HOST = r"""
 import sys
 from hnd_ghnd_tpu_torch.core import config
-from hnd_ghnd_tpu_torch.data import coco, loader, transforms
+from hnd_ghnd_tpu_torch.data import coco, loader, native_prep, transforms
 from hnd_ghnd_tpu_torch.evals import coco_eval, mask_rle, postprocess, roc
-from hnd_ghnd_tpu_torch.utils import ckpt, logging
+from hnd_ghnd_tpu_torch.utils import ckpt, logging, profiling, tensorboard
 from hnd_ghnd_tpu_torch.runners import (coco_runner, common, cost_analyzer,
     ext_runner, mimic_runner, visualizer)
 from hnd_ghnd_tpu_torch.codec import datalogger, jpeg

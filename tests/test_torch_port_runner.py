@@ -56,6 +56,9 @@ from tests.test_torch_port_multiprocess import xdist_threads  # noqa: F401
 NUM_CLASSES = 5
 # loss and terms of a step: the tolerance of tests/test_torch_port_distill.py
 LOSS_TOL = 1e-5
+# JAX's logged loss and terms are its float32 sums, ~2e-5 of a term off the
+# float64 sums the port is held to at LOSS_TOL (see jax_exact_terms)
+TB_TOL = 1e-4
 # COCOeval stats of the same weights on the same batches: the detections
 # agree to float noise, which moves a stat only where a box crosses an IoU
 # threshold or two scores swap
@@ -65,6 +68,16 @@ TINY_TPU = {"buckets": [[96, 96]], "min_sizes": [64], "max_size": 96,
 EVAL_BATCH = 4                 # test.batch_size: one eval program in JAX
 # val and test hold the fixture's first EVAL_BATCH images: one batch each
 # (a CPU eval forward of this model takes ~1 s an image)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def pure_host_prep():
+    """Both packages on their pure host path (PIL decode, cv2 resize),
+    the port by the switch they share: the native one is held in
+    tests/test_torch_port_native.py."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HND_TPU_NATIVE_PREP", "0")
+        yield
 
 
 def model_configs():
@@ -254,7 +267,8 @@ def jax_distill(case):
                         str(root / "jax_student.pt"))
     with jax_runner(root) as seen:
         jax_mimic.main(jax_mimic.get_argparser().parse_args(
-            ["--config", path] + DISTILL_FLAGS[:2]))
+            ["--config", path, "--tb_dir", str(root / "jax_tb")]
+            + DISTILL_FLAGS[:2]))
     seen["exact"] = jax_exact_terms(seen["box"], seen["calls"])
     seen["config"] = path
     return seen
@@ -266,9 +280,35 @@ def port_distill(case):
     ckpt = str(root / "port_student.pt")
     path = write_config(root, config, "port_distill", ckpt)
     result, stdout = port_main(mimic_runner,
-                               ["--config", path, "--device", "cpu"]
+                               ["--config", path, "--device", "cpu",
+                                "--tb_dir", str(root / "port_tb")]
                                + DISTILL_FLAGS)
     return result, stdout, path, ckpt
+
+
+def test_distill_tensorboard_scalars_match_jax(case, jax_distill,
+                                               port_distill):
+    """``--tb_dir``: the same tags in the same order as JAX's run (train/loss
+    and the four terms each step at log_freq 1, then val/map), the losses
+    within TB_TOL of JAX's (each package's first step is its own 0 or 1)
+    and val/map the epoch's."""
+    from hnd_ghnd_tpu.utils.tensorboard import read_scalars as jax_read
+    from hnd_ghnd_tpu_torch.utils.tensorboard import read_scalars
+    root = case[0]
+
+    def scalars(name, read):
+        (path,) = [os.path.join(root, name, f)
+                   for f in os.listdir(root / name)]
+        return read(path)
+
+    got = scalars("port_tb", read_scalars)
+    want = scalars("jax_tb", jax_read)
+    assert [t for t, _, _ in got] == [t for t, _, _ in want]
+    assert [t for t, _, _ in got][-1] == "val/map"
+    for (tag, v, step), (_, w, _) in zip(got[:-1], want[:-1]):
+        assert abs(v - w) <= TB_TOL * abs(w), (tag, step, v, w)
+    (epoch,) = port_distill[0]["distill"]["epochs"]
+    assert got[-1][1:] == (np.float32(epoch["val_map"]), 0)
 
 
 def test_distill_losses_match_jax(jax_distill, port_distill):
@@ -413,16 +453,6 @@ def test_distill_with_the_org_term_in_bf16_from_the_yaml(case):
     assert seen == [torch.bfloat16] * 4  # teacher and student, two steps
     assert result["student"]["eval"]["batches"] == 1
     assert np.isfinite(result["student"]["stats"]["bbox"]).all()
-
-
-def test_unported_flags_raise(case):
-    root, config = case
-    path = write_config(root, config, "flags")
-    for extra in (["--tb_dir", str(root / "tb")],
-                  ["--profile_dir", str(root / "prof")]):
-        with pytest.raises(NotImplementedError):
-            port_main(mimic_runner, ["--config", path, "--device", "cpu"]
-                      + extra)
 
 
 def test_runners_default_to_the_card():
