@@ -26,6 +26,17 @@ at the main path's shapes:
   * the stem's ``stem_fwd``, ``stem_fwd_res`` and ``stem_dw`` on a batch-4
     input of each bucket (the distill step's), [4, 3, 832, 1344] and
     [4, 3, 1344, 832];
+  * the stem's three wrappers again on bfloat16 activations (R12), held
+    to the plain version with chip_smoke's count rule
+    (STEM_BF16_DIFF_FRAC) and to the other checkout within one bf16 ulp;
+  * NMS on the problems of a batch-8 832x1344 served forward (recorded by
+    the first turn): the box head's [8, 4096] through ``nms_keep``, and
+    the RPN's five levels through ``nms_keep_levels`` where the checkout
+    has it (one entry), else one ``nms_keep`` a level; keep masks equal
+    to the plain fixpoint's and across the checkouts, and in each
+    checkout the device ms of each of its kernels (and memsets) by name,
+    from a ``torch.profiler`` trace of whole calls
+    (``chip_smoke.kernel_device_ms``);
   * the int8 server tail's trunk (``Int8SplitTail``, its 46 convolutions
     on csrc/int8_conv.cu, B6) at batch 8 on a served batch of each bucket,
     from the dequantized wire to the NCHW float32 features the FPN reads;
@@ -55,7 +66,7 @@ pair, the launch floors (an empty cooperative kernel with one grid barrier
 on quantize's grid, an empty kernel on dequantize's) and ``torch.aminmax``.
 
 ``--groups`` runs only some of them (pair, roi, levels, backward, stem,
-int8).
+int8, nms).
 Writes the turns and, per case, old and new (each the mean of its two
 turns) and their ratio, with the card's name and power limit, to FILE as
 JSON; each turn's own record goes beside it.  Without a GPU it exits
@@ -77,16 +88,17 @@ import numpy as np
 import torch
 
 from chip_smoke import (BUCKETS, EVAL_BATCH, INT8_CALIB_IMAGES, ORG_BATCH,
-                        ROI_TOL, SEED, STEM_DW_TOL, STEM_FWD_TOL, TRAIN_BATCH,
-                        TRAIN_ROIS, bf16_ulp, box_mix, gpu_name_and_power,
-                        log, quant_input, serving_batches, serving_model,
+                        ROI_TOL, SEED, STEM_BF16_DIFF_FRAC, STEM_DW_TOL,
+                        STEM_FWD_TOL, TRAIN_BATCH, TRAIN_ROIS, bf16_ulp,
+                        box_mix, gpu_name_and_power, kernel_device_ms, log,
+                        quant_input, serving_batches, serving_model,
                         stem_inputs, time_ms, timings)
 
 HERE = Path(__file__).resolve().parent
 TURNS = ("old", "new", "new", "old")
 # the bottleneck pair, the RoIAlign forwards, the level quantizer, the
-# RoIAlign backward, the stem, the int8 tail's trunk
-GROUPS = ("pair", "roi", "levels", "backward", "stem", "int8")
+# RoIAlign backward, the stem, the int8 tail's trunk, NMS
+GROUPS = ("pair", "roi", "levels", "backward", "stem", "int8", "nms")
 
 
 def digest(t: torch.Tensor) -> str:
@@ -181,58 +193,178 @@ def backward_cases(dev: torch.device):
 
 def stem_cases(tree: Path, dev: torch.device, saved: Path):
     """The stem wrappers of the checkout at ``tree`` on seeded batch-4
-    inputs of both buckets: each held to its plain version, dW repeated,
-    the forwards saved to ``saved`` when the other checkout's are not
-    there yet and held to them when they are.  Yields the records."""
+    inputs of both buckets, float32 and bfloat16 activations: each held to
+    its plain version (float32 within STEM_FWD_TOL; the bf16 forwards
+    within one bf16 ulp of the largest output with at most
+    STEM_BF16_DIFF_FRAC of the elements differing; dW within STEM_DW_TOL),
+    dW repeated, the forwards saved to ``saved`` when the other checkout's
+    are not there yet and held to them when they are (float32 within
+    STEM_FWD_TOL, bf16 within one bf16 ulp).  Yields the records."""
     from hnd_ghnd_tpu_torch.ops import stem as ts
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
-    for bucket in BUCKETS:
-        shape = (TRAIN_BATCH, 3) + bucket
-        gen = torch.Generator(device=dev).manual_seed(SEED + 13)
-        x, w, scale, bias = stem_inputs(gen, shape, dev)
-        want, conv = ts.stem_forward(x, w, scale, bias, with_conv=True)
-        g = torch.randn(conv.shape, generator=gen, device=dev)
-        want_dw = ts.stem_weight_grad(x, g)
-        got = SK.stem_fwd(x, w, scale, bias)
-        got_res, got_conv = SK.stem_fwd_res(x, w, scale, bias)
-        dw = SK.stem_dw(x, g)
-        if not torch.equal(SK.stem_dw(x, g), dw):
-            raise AssertionError(f"stem_dw {shape} is not repeatable")
-        outs = {"stem_fwd": (got, want, STEM_FWD_TOL),
-                "stem_fwd_res": (got_res, want, STEM_FWD_TOL),
-                "stem_fwd_res conv": (got_conv, conv, STEM_FWD_TOL),
-                "stem_dw": (dw, want_dw, STEM_DW_TOL)}
-        errs = {}
-        for name, (a, b, tol) in outs.items():
-            errs[name] = float((a - b).abs().max())
-            if errs[name] > tol * float(b.abs().max()):
-                raise AssertionError(f"{name} {shape}: {errs[name]} from the "
-                                     "plain version")
-        file = saved / f"stem_{bucket[0]}x{bucket[1]}.pt"
-        if file.is_file():
-            other = torch.load(file, map_location=dev)
-            for name in ("stem_fwd", "stem_fwd_res conv"):
-                gap = float((outs[name][0] - other[name]).abs().max())
-                if gap > STEM_FWD_TOL * float(outs[name][1].abs().max()):
-                    raise AssertionError(f"{name} {shape}: the checkouts "
-                                         f"differ by {gap}")
-                errs[f"{name} vs other checkout"] = gap
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        bf16 = dtype == torch.bfloat16
+        for bucket in BUCKETS:
+            shape = (TRAIN_BATCH, 3) + bucket
+            gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+            x, w, scale, bias = stem_inputs(gen, shape, dev)
+            x = x.to(dtype)
+            want, conv = ts.stem_forward(x, w, scale, bias, with_conv=True)
+            g = torch.randn(conv.shape, generator=gen, device=dev).to(dtype)
+            want_dw = ts.stem_weight_grad(x, g)
+            got = SK.stem_fwd(x, w, scale, bias)
+            got_res, got_conv = SK.stem_fwd_res(x, w, scale, bias)
+            dw = SK.stem_dw(x, g)
+            if not torch.equal(SK.stem_dw(x, g), dw):
+                raise AssertionError(f"stem_dw{suffix} {shape} is not "
+                                     "repeatable")
+
+            def bound(t):
+                m = float(t.float().abs().max())
+                return bf16_ulp(m) if bf16 else STEM_FWD_TOL * m
+
+            outs = {"stem_fwd": (got, want, bound(want)),
+                    "stem_fwd_res": (got_res, want, bound(want)),
+                    "stem_fwd_res conv": (got_conv, conv, bound(conv)),
+                    "stem_dw": (dw, want_dw,
+                                STEM_DW_TOL * float(want_dw.abs().max()))}
+            errs = {}
+            for name, (a, b, tol) in outs.items():
+                errs[name] = float((a.float() - b.float()).abs().max())
+                if errs[name] > tol:
+                    raise AssertionError(f"{name}{suffix} {shape}: "
+                                         f"{errs[name]} from the plain "
+                                         "version")
+                if bf16 and name != "stem_dw":
+                    n = int((a != b).sum())
+                    errs[f"{name} differing"] = n
+                    if n > STEM_BF16_DIFF_FRAC * b.numel():
+                        raise AssertionError(f"{name}{suffix} {shape}: {n} "
+                                             "elements differ")
+            file = saved / f"stem{suffix}_{bucket[0]}x{bucket[1]}.pt"
+            if file.is_file():
+                other = torch.load(file, map_location=dev)
+                for name in ("stem_fwd", "stem_fwd_res conv"):
+                    gap = float((outs[name][0].float()
+                                 - other[name].float()).abs().max())
+                    if gap > outs[name][2]:
+                        raise AssertionError(f"{name}{suffix} {shape}: the "
+                                             f"checkouts differ by {gap}")
+                    errs[f"{name} vs other checkout"] = gap
+            else:
+                torch.save({"stem_fwd": got, "stem_fwd_res conv": got_conv},
+                           file)
+            del want, conv, got_res, got_conv, want_dw
+            calls = {"stem_fwd": lambda: SK.stem_fwd(x, w, scale, bias),
+                     "stem_fwd_res": lambda: SK.stem_fwd_res(x, w, scale,
+                                                             bias),
+                     "stem_dw": lambda: SK.stem_dw(x, g)}
+            for name, call in calls.items():
+                rec = dict(name=f"{name}{suffix} {bucket[0]}x{bucket[1]}",
+                           shape=list(shape), errs=errs, **timings(call))
+                log(f"[ab {tree.name}] {rec['name']}: {rec['ms']:.4f} ms "
+                    f"({rec['device_ms']:.4f} on the card)")
+                yield rec
+            log(f"[ab {tree.name}] stem{suffix} {shape} max abs errors: "
+                f"{errs}")
+            del x, g, got, dw
+            torch.cuda.empty_cache()
+
+
+def nms_problems(dev: torch.device, saved: Path) -> dict:
+    """The NMS problems of a batch-8 832x1344 served forward of
+    chip_smoke's serving student, recorded by the first turn to ``saved``
+    (from its own checkout's forward: the RPN's levels through
+    ``nms_keep_levels`` or one ``nms_keep`` a level, the box head's
+    through ``nms_keep``) and loaded by the others: {"box_head": (boxes,
+    scores, valid, categories, threshold), "levels": ([(boxes, scores,
+    valid) per level], threshold)}."""
+    from hnd_ghnd_tpu_torch.ops import nms as NMS
+    from hnd_ghnd_tpu_torch.runners.common import eval_forward
+    file = saved / "nms_problems.pt"
+    if not file.is_file():
+        seen = {"keep": [], "levels": []}
+        op, levels_op = NMS.nms_keep_op, getattr(NMS, "nms_keep_levels_op",
+                                                 None)
+
+        def record(boxes, scores, valid, categories, thr):
+            seen["keep"].append((boxes.clone(), scores.clone(), valid.clone(),
+                                 categories, thr))
+            return op(boxes, scores, valid, categories, thr)
+
+        def record_levels(boxes, scores, valid, sizes, thr):
+            seen["levels"].append((boxes, scores, valid, list(sizes), thr))
+            return levels_op(boxes, scores, valid, sizes, thr)
+
+        NMS.nms_keep_op = record
+        if levels_op is not None:
+            NMS.nms_keep_levels_op = record_levels
+        try:
+            model = serving_model(dev)
+            batch = serving_batches(np.random.RandomState(SEED + 1))[0]
+            with torch.no_grad():
+                eval_forward(model, {k: torch.from_numpy(v).to(dev)
+                                     for k, v in batch.items()}, True)
+        finally:
+            NMS.nms_keep_op = op
+            if levels_op is not None:
+                NMS.nms_keep_levels_op = levels_op
+        box = [p for p in seen["keep"] if p[3] is not None]
+        if seen["levels"]:
+            b, sc, v, sizes, thr = seen["levels"][0]
+            levels = list(zip(b.split(sizes, 1), sc.split(sizes, 1),
+                              v.split(sizes, 1)))
         else:
-            torch.save({"stem_fwd": got, "stem_fwd_res conv": got_conv},
-                       file)
-        del want, conv, got_res, got_conv, want_dw
-        calls = {"stem_fwd": lambda: SK.stem_fwd(x, w, scale, bias),
-                 "stem_fwd_res": lambda: SK.stem_fwd_res(x, w, scale, bias),
-                 "stem_dw": lambda: SK.stem_dw(x, g)}
-        for name, call in calls.items():
-            rec = dict(name=f"{name} {bucket[0]}x{bucket[1]}",
-                       shape=list(shape), errs=errs, **timings(call))
-            log(f"[ab {tree.name}] {rec['name']}: {rec['ms']:.4f} ms "
-                f"({rec['device_ms']:.4f} on the card)")
-            yield rec
-        log(f"[ab {tree.name}] stem {shape} max abs errors: {errs}")
-        del x, g, got, dw
+            levels = [p[:3] for p in seen["keep"] if p[3] is None]
+            thr = seen["keep"][0][4]
+        torch.save({"box_head": box[0], "levels": (levels, thr)}, file)
+        del model
         torch.cuda.empty_cache()
+    return torch.load(file, map_location=dev)
+
+
+def nms_cases(tree: Path, dev: torch.device, saved: Path):
+    """The NMS of the checkout at ``tree`` on a served forward's problems
+    (``nms_problems``): the box head's [8, 4096] through ``nms_keep``, and
+    the RPN's five levels through ``nms_keep_levels`` where the checkout
+    has it, else one ``nms_keep`` a level; keep masks held to the plain
+    fixpoint and, by digest, to the other checkout's; each record also
+    has the device ms of each kernel a call launches, by name.  Yields the
+    records."""
+    from hnd_ghnd_tpu_torch.ops import nms as NMS
+    problems = nms_problems(dev, saved)
+    bx, sc, va, ca, thr = problems["box_head"]
+    levels, lthr = problems["levels"]
+    sizes = [p[0].shape[1] for p in levels]
+    lb, ls, lv = (torch.cat([p[i] for p in levels], 1).contiguous()
+                  for i in range(3))
+    if hasattr(NMS, "nms_keep_levels"):
+        def rpn():
+            return NMS.nms_keep_levels(lb, ls, lthr, lv, sizes)
+    else:
+        def rpn():
+            return torch.cat([NMS.nms_keep(b, s, lthr, v)
+                              for b, s, v in levels], 1)
+    for name, call, plain in (
+            (f"nms box head {list(bx.shape[:2])}",
+             lambda: NMS.nms_keep(bx, sc, thr, va, ca),
+             lambda: NMS.nms_plain(bx, sc, va, ca, thr)),
+            (f"nms rpn levels {sizes} x {lb.shape[0]}", rpn,
+             lambda: torch.cat([NMS.nms_plain(b, s, v, None, lthr)
+                                for b, s, v in levels], 1))):
+        keep = call()
+        if not torch.equal(keep, plain()):
+            raise AssertionError(f"{name}: keep mask differs from the plain "
+                                 "fixpoint's")
+        rec = dict(name=name, shape=list(keep.shape), kept=int(keep.sum()),
+                   digest=digest(keep), **timings(call),
+                   passes_device_ms=kernel_device_ms(call))
+        log(f"[ab {tree.name}] {name}: {rec['ms']:.4f} ms "
+            f"({rec['device_ms']:.4f} on the card), {rec['kept']} kept; its "
+            f"kernels in a profiler trace: " + (", ".join(
+                f"{k} {v:.4f}" for k, v in rec["passes_device_ms"].items())
+                or "not measured (no device events)"))
+        yield rec
 
 
 def int8_trunk_cases(tree: Path, dev: torch.device):
@@ -479,6 +611,7 @@ def turn(tree: Path, out: Path, sweep: bool, saved: Path, groups) -> int:
         torch.cuda.empty_cache()
     cases += list(stem_cases(tree, dev, saved) if "stem" in groups else ())
     cases += list(int8_trunk_cases(tree, dev) if "int8" in groups else ())
+    cases += list(nms_cases(tree, dev, saved) if "nms" in groups else ())
     out.write_text(json.dumps({"tree": str(tree), "cases": cases}, indent=1))
     return 0
 

@@ -139,6 +139,7 @@ import importlib.util
 import itertools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -510,6 +511,37 @@ def timings(fn) -> dict:
     return {"ms": time_ms(fn), "device_ms": time_ms(fn, spin=True)}
 
 
+def _kernel_name(name: str) -> str:
+    """A profiler's device event name without its return type, namespace,
+    template arguments and parameters ("Memset (Device)" -> "Memset")."""
+    name = name.replace("(anonymous namespace)::", "")
+    m = re.search(r"([A-Za-z_][\w:]*?)\s*[<(]", name)
+    return (m.group(1) if m else name).rsplit("::", 1)[-1]
+
+
+def kernel_device_ms(fn) -> dict:
+    """The card's ms a call of ``fn`` spends in each kernel (and memset),
+    by name (``_kernel_name``): the device events of a ``torch.profiler``
+    trace of REPS calls after a warm-up, summed by name and divided by
+    REPS.  Empty where the profiler records no device event."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = _kernel_name(e.name)
+            out[k] = out.get(k, 0.0) + (e.time_range.end
+                                        - e.time_range.start) / 1e3 / REPS
+    return out
+
+
 def box_mix(rng: np.random.RandomState, b: int, n: int, h: int, w: int):
     """Square, tall, wide, sub-pixel and partly off-image boxes, [b, n, 4]
     float32: the mix of tests/test_pallas_roi.py, whose sizes are for a
@@ -816,85 +848,223 @@ def nms_problem(rng: np.random.RandomState, b: int, n: int, n_cats: int,
             torch.from_numpy(valid), cats)
 
 
+# float operations of one pair's suppression test (csrc/nms.cu iou_above):
+# the intersection's width and height (two minima, two maxima, two
+# differences, two clamps) and their product; where that is not zero, the
+# union (a sum and a difference), the IoU and its compare with the
+# threshold
+NMS_OPS_DISJOINT = 9
+NMS_OPS_OVERLAP = 13
+
+
+def nms_pair_ops(boxes, scores, valid, categories=None) -> float:
+    """The float operations the suppression tests of one problem set need
+    on this data: a test of each pair of valid boxes of one category
+    whose scores are not NaN (a NaN score is ranked against nothing),
+    NMS_OPS_DISJOINT where the pair's intersection is zero and
+    NMS_OPS_OVERLAP where it is not (the intersection computed as the
+    kernel computes it, in the boxes' dtype).  Pairs of two categories,
+    the sort into the scan's order and the scan itself are not counted,
+    so a bound from this count is a lower one."""
+    ops = 0.0
+    for b in range(valid.shape[0]):
+        rows = (valid[b] & ~scores[b].isnan()).nonzero()[:, 0]
+        x = boxes[b, rows]
+        w = (torch.minimum(x[:, None, 2], x[None, :, 2])
+             - torch.maximum(x[:, None, 0], x[None, :, 0])).clamp(min=0)
+        h = (torch.minimum(x[:, None, 3], x[None, :, 3])
+             - torch.maximum(x[:, None, 1], x[None, :, 1])).clamp(min=0)
+        pair = torch.ones_like(w, dtype=torch.bool).triu(1)
+        if categories is not None:
+            c = categories[b, rows]
+            pair &= c[:, None] == c[None, :]
+        overlap = int((pair & (w * h != 0)).sum())
+        ops += (NMS_OPS_DISJOINT * (int(pair.sum()) - overlap)
+                + NMS_OPS_OVERLAP * overlap)
+    return ops
+
+
 def nms_bound(boxes, scores, valid, categories, keep) -> dict:
     """The NMS kernel's bound: each input read once and the keep mask
-    written once; the IoU and its test (13 float operations) of each pair
-    of valid boxes of one category, and one compare of each other pair of
-    valid boxes (its categories differ), the pairs this run's data needs.
-    Integer compares are counted at the float32 rate (the guide's table
-    has no integer rate outside the tensor cores)."""
-    def pairs(n: torch.Tensor) -> float:
-        n = n.double()
-        return float((n * (n - 1) / 2).sum())
+    written once; the suppression tests this run's data needs
+    (``nms_pair_ops``)."""
+    return bound(nbytes(boxes, scores, valid, keep, *(
+        () if categories is None else (categories,))),
+        nms_pair_ops(boxes, scores, valid, categories))
 
-    every = pairs(valid.sum(dim=1))
+
+def nms_levels_bound(boxes, scores, valid, sizes, keep) -> dict:
+    """``nms_keep_levels``' bound: its inputs read once and the mask
+    written once; the suppression tests of each level (``nms_pair_ops``;
+    levels never meet, so no pair of two levels needs one)."""
+    ops = sum(nms_pair_ops(b, s, v) for b, s, v in zip(
+        boxes.split(sizes, 1), scores.split(sizes, 1), valid.split(sizes, 1)))
+    return bound(nbytes(boxes, scores, valid, keep), ops)
+
+
+def nms_longest(valid, categories=None, sizes=None) -> int:
+    """The most valid boxes one segment of the scan holds (a category, or
+    a level, of one problem): its ceil(n / 64) tiles are the kernel's
+    longest dependent chain."""
+    if sizes is not None:
+        return max(int(v.sum(dim=1).max()) for v in valid.split(sizes, 1))
     if categories is None:
-        return bound(nbytes(boxes, scores, valid, keep), 13.0 * every)
-    same = sum(pairs(torch.unique(categories[b][valid[b]],
-                                  return_counts=True)[1])
+        return int(valid.sum(dim=1).max())
+    return max(int(torch.unique(categories[b][valid[b]],
+                                return_counts=True)[1].max())
+               if bool(valid[b].any()) else 0
                for b in range(valid.shape[0]))
-    return bound(nbytes(boxes, scores, valid, keep, categories),
-                 13.0 * same + (every - same))
+
+
+# the adversarial NMS problems: N boxes, (categories, non-finite, dtype,
+# threshold) kinds; N = 16384 (MAX_BOXES) takes the first and the last
+NMS_SIZES = (1, 63, 64, 65, 1000, 4096, 16384)
+NMS_KINDS = ((0, False, torch.float32, 0.7), (3, False, torch.float32, 0.5),
+             (90, True, torch.float32, 0.5), (0, True, torch.float32, 0.7),
+             (3, True, torch.bfloat16, 0.3007))
+# the RPN's level sizes at eval (P6 of 832x1344 holds 819 anchors), in
+# training, and levels that end on and across 64-box tiles
+NMS_LEVELS = ((1000, 1000, 1000, 1000, 819), (2000, 2000, 2000, 2000, 819),
+              (64, 65, 1, 127, 128))
+
+
+def nms_extra_problems(rng: np.random.RandomState):
+    """Problems beside ``nms_problem``'s: one category of 4096 valid
+    boxes; categories whose valid boxes end on and across 64-box tiles;
+    every box invalid; every score NaN; scores sorted and unsorted.  ->
+    [(name, (boxes, scores, valid, categories, threshold))] on the CPU."""
+    out = []
+    bx, sc, _, _ = nms_problem(rng, 2, 4096, 0, False)
+    every = torch.ones(2, 4096, dtype=torch.bool)
+    out.append(("one category of 4096 valid boxes",
+                (bx, sc, every, torch.zeros(2, 4096, dtype=torch.int64),
+                 0.5)))
+    runs = (64, 128, 65, 63, 1, 127, 129, 192)
+    cats = torch.cat([torch.full((n,), k) for k, n in enumerate(runs)])
+    n = cats.numel()
+    cats = torch.stack([cats[torch.from_numpy(rng.permutation(n))]
+                        for _ in range(2)])
+    bx, sc, _, _ = nms_problem(rng, 2, n, 0, False)
+    out.append((f"categories of {runs} valid boxes",
+                (bx, sc, torch.ones(2, n, dtype=torch.bool), cats, 0.5)))
+    bx, sc, va, ca = nms_problem(rng, 2, 1000, 3, True)
+    out.append(("every box invalid",
+                (bx, sc, torch.zeros_like(va), ca, 0.5)))
+    out.append(("every score NaN",
+                (bx, torch.full_like(sc, float("nan")), va, ca, 0.5)))
+    for n_cats in (0, 3):
+        bx, sc, va, ca = nms_problem(rng, 2, 4096, n_cats, False)
+        order = torch.sort(sc, dim=1, descending=True, stable=True)[1]
+        out.append((f"sorted scores, cats={n_cats}",
+                    (torch.gather(bx, 1, order[..., None].expand(-1, -1, 4)),
+                     torch.gather(sc, 1, order), torch.gather(va, 1, order),
+                     None if ca is None else torch.gather(ca, 1, order),
+                     0.5)))
+    return out
 
 
 def nms_kernels_phase(dev: torch.device, kernels: dict, model,
                       batches: list) -> None:
-    """``nms_keep`` (csrc/nms.cu) against its plain version, the fixpoint,
-    on the card and on the CPU, keep masks equal: on the problems of the
-    served batches' forwards (the RPN's five levels, the box head's
-    category-aware problem; batch 8 at both buckets and 1) and on
-    adversarial problems; its time at the batch-8 box head's shape beside
-    the plain version's, the RPN's levels too."""
+    """The NMS kernel (csrc/nms.cu) through both ops against its plain
+    version, the fixpoint, on the card and on the CPU, keep masks equal:
+    ``nms_keep`` on the served batches' box-head problems and on
+    adversarial ones (NMS_SIZES x NMS_KINDS, ``nms_extra_problems``);
+    ``nms_keep_levels`` on the served forwards' RPN levels and on
+    adversarial levels (NMS_LEVELS), also against one ``nms_keep`` a level
+    and against the fixpoint of the concatenated problem with the level as
+    the category.  Then its times at the batch-8 forward's shapes beside
+    the plain version's: the box head, the RPN's levels in one entry and
+    in five (the layout before the levels op), and each pass alone."""
     from hnd_ghnd_tpu_torch.ops import nms as NMS
     from hnd_ghnd_tpu_torch.runners.common import eval_forward
-    seen = []
-    op = NMS.nms_keep_op
+    seen, seen_levels = [], []
+    ops = NMS.nms_keep_op, NMS.nms_keep_levels_op
 
     def record(boxes, scores, valid, categories, iou_threshold):
         seen.append((boxes.clone(), scores.clone(), valid.clone(),
                      None if categories is None else categories.clone(),
                      iou_threshold))
-        return op(boxes, scores, valid, categories, iou_threshold)
+        return ops[0](boxes, scores, valid, categories, iou_threshold)
 
-    NMS.nms_keep_op = record
+    def record_levels(boxes, scores, valid, sizes, iou_threshold):
+        seen_levels.append((boxes.clone(), scores.clone(), valid.clone(),
+                            list(sizes), iou_threshold))
+        return ops[1](boxes, scores, valid, sizes, iou_threshold)
+
+    NMS.nms_keep_op, NMS.nms_keep_levels_op = record, record_levels
     try:
         for batch in batches:
             eval_forward(model, {k: torch.from_numpy(v).to(dev)
                                  for k, v in batch.items()}, True)
     finally:
-        NMS.nms_keep_op = op
+        NMS.nms_keep_op, NMS.nms_keep_levels_op = ops
+    check(len(seen) == len(seen_levels) == len(batches)
+          and all(p[3] is not None for p in seen),
+          "a forward's NMS: one levels entry (the RPN), one with categories "
+          "(the box head)")
     rng = np.random.RandomState(SEED + 16)
-    cases = [(f"served {tuple(p[0].shape[:2])} iou {p[4]}"
-              + ("" if p[3] is None else " categories"), p) for p in seen]
-    for n in (1, 63, 64, 65, 1000, 4096):
-        for n_cats, nonfinite, dtype, thr in (
-                (0, False, torch.float32, 0.7), (3, False, torch.float32, 0.5),
-                (90, True, torch.float32, 0.5), (0, True, torch.float32, 0.7),
-                (3, True, torch.bfloat16, 0.3007)):
+    cases = [(f"served box head {tuple(p[0].shape[:2])} iou {p[4]}", p)
+             for p in seen]
+    for n in NMS_SIZES:
+        kinds = NMS_KINDS if n < NMS.MAX_BOXES else NMS_KINDS[::4]
+        for n_cats, nonfinite, dtype, thr in kinds:
             bx, sc, va, ca = nms_problem(rng, 2, n, n_cats, nonfinite, dtype)
             cases.append((f"adversarial N={n} cats={n_cats} "
                           f"nonfinite={nonfinite} {dtype} iou {thr}",
-                          (bx.to(dev), sc.to(dev), va.to(dev),
-                           None if ca is None else ca.to(dev), thr)))
+                          (bx, sc, va, ca, thr)))
+    cases += nms_extra_problems(rng)
     for name, (bx, sc, va, ca, thr) in cases:
+        args = [None if t is None else t.to(dev) for t in (bx, sc, va, ca)]
         before = NMS.nms_keep.launches
-        got = NMS.nms_keep(bx, sc, thr, va, ca)
+        got = NMS.nms_keep(args[0], args[1], thr, args[2], args[3])
         check(NMS.nms_keep.launches == before + 1, f"nms_keep launch ({name})")
-        want = NMS.nms_plain(bx, sc, va, ca, thr)
-        cpu = NMS.nms_plain(bx.cpu(), sc.cpu(), va.cpu(),
-                            None if ca is None else ca.cpu(), thr)
-        check(torch.equal(got, want), f"nms_keep vs plain on the card ({name})")
-        check(torch.equal(got.cpu(), cpu), f"nms_keep vs plain on the CPU "
-              f"({name})")
+        check(torch.equal(got, NMS.nms_plain(*args, thr)),
+              f"nms_keep vs plain on the card ({name})")
+        if bx.shape[1] <= 4096:
+            cpu = [None if t is None else t.cpu() for t in (bx, sc, va, ca)]
+            check(torch.equal(got.cpu(), NMS.nms_plain(*cpu, thr)),
+                  f"nms_keep vs plain on the CPU ({name})")
+    level_cases = [(f"served RPN levels {p[3]} x {p[0].shape[0]}", p)
+                   for p in seen_levels]
+    for sizes in NMS_LEVELS:
+        for nonfinite, dtype in ((False, torch.float32),
+                                 (True, torch.bfloat16)):
+            parts = [nms_problem(rng, 2, n, 0, nonfinite, dtype)
+                     for n in sizes]
+            level_cases.append((
+                f"adversarial levels {sizes} nonfinite={nonfinite} {dtype}",
+                tuple(torch.cat([q[i] for q in parts], 1).to(dev)
+                      for i in range(3)) + (list(sizes), 0.7)))
+    for name, (bx, sc, va, sizes, thr) in level_cases:
+        before = NMS.nms_keep.launches, NMS.nms_keep_levels.launches
+        got = NMS.nms_keep_levels(bx, sc, thr, va, sizes)
+        check((NMS.nms_keep.launches, NMS.nms_keep_levels.launches)
+              == (before[0] + 1, before[1] + 1),
+              f"nms_keep_levels launch ({name})")
+        check(torch.equal(got, NMS.nms_levels_plain(bx, sc, va, sizes, thr)),
+              f"nms_keep_levels vs plain on the card ({name})")
+        check(torch.equal(got.cpu(), NMS.nms_levels_plain(
+            bx.cpu(), sc.cpu(), va.cpu(), sizes, thr)),
+            f"nms_keep_levels vs plain on the CPU ({name})")
+        each = torch.cat([NMS.nms_keep(b, s, thr, v) for b, s, v in zip(
+            bx.split(sizes, 1), sc.split(sizes, 1), va.split(sizes, 1))], 1)
+        check(torch.equal(got, each),
+              f"nms_keep_levels vs one nms_keep a level ({name})")
+        level = torch.cat([torch.full((bx.shape[0], n), i, device=dev)
+                           for i, n in enumerate(sizes)], 1)
+        check(torch.equal(got, NMS.nms_plain(bx, sc, va, level, thr)),
+              f"nms_keep_levels vs the fixpoint with the level as the "
+              f"category ({name})")
     log(f"[kernels] nms_keep: keep masks equal to the plain fixpoint's (card "
-        f"and CPU) on {len(seen)} served problems and {len(cases) - len(seen)}"
-        f" adversarial ones")
+        f"and CPU) on {len(seen)} served box-head problems and "
+        f"{len(cases) - len(seen)} adversarial ones; nms_keep_levels on "
+        f"{len(seen_levels)} served RPN forwards and "
+        f"{len(level_cases) - len(seen_levels)} adversarial level sets, also "
+        f"equal to one nms_keep a level and to the fixpoint with the level as "
+        f"the category")
     # the first forward's: batch 8 at 832x1344
-    bx, sc, va, ca, thr = seen[5]
+    bx, sc, va, ca, thr = seen[0]
     keep = NMS.nms_keep(bx, sc, thr, va, ca)
-    rpn = seen[:5]
-    check(ca is not None and all(p[3] is None for p in rpn),
-          "the first forward's NMS problems: five RPN levels, the box head")
     kernels["nms_keep"] = dict(
         source="hnd_ghnd_tpu_torch/csrc/nms.cu",
         replaces="hnd_ghnd_tpu/ops/nms.py:94", max_abs_err=0.0,
@@ -903,20 +1073,44 @@ def nms_kernels_phase(dev: torch.device, kernels: dict, model,
         **timings(lambda: NMS.nms_keep(bx, sc, thr, va, ca)),
         plain_ms=time_ms(lambda: NMS.nms_plain(bx, sc, va, ca, thr)),
         library_ms=None, **nms_bound(bx, sc, va, ca, keep),
-        rpn_shapes=[list(p[0].shape[:2]) for p in rpn],
-        rpn_ms=time_ms(lambda: [NMS.nms_keep(p[0], p[1], p[4], p[2])
-                                for p in rpn]),
-        rpn_device_ms=time_ms(lambda: [NMS.nms_keep(p[0], p[1], p[4], p[2])
-                                       for p in rpn], spin=True),
-        rpn_plain_ms=time_ms(lambda: [NMS.nms_plain(p[0], p[1], p[2], None,
-                                                    p[4]) for p in rpn]))
-    k = kernels["nms_keep"]
-    log(f"[kernels] nms_keep {k['shape']}: {k['ms']:.4f} ms "
-        f"({k['device_ms']:.4f} on the card), plain {k['plain_ms']:.4f} ms, "
-        f"bound {k['bound_ms']:.5f} ms by {k['bound_by']}; the RPN's "
-        f"{len(rpn)} levels {k['rpn_shapes']}: {k['rpn_ms']:.4f} ms "
-        f"({k['rpn_device_ms']:.4f} on the card), plain "
-        f"{k['rpn_plain_ms']:.4f} ms")
+        longest_segment=nms_longest(va, ca),
+        passes_device_ms=kernel_device_ms(
+            lambda: NMS.nms_keep(bx, sc, thr, va, ca)))
+    lb, ls, lv, sizes, lthr = seen_levels[0]
+    keep = NMS.nms_keep_levels(lb, ls, lthr, lv, sizes)
+    parts = list(zip(lb.split(sizes, 1), ls.split(sizes, 1),
+                     lv.split(sizes, 1)))
+
+    def five():
+        return [NMS.nms_keep(b, s, lthr, v) for b, s, v in parts]
+
+    kernels["nms_keep_levels"] = dict(
+        source="hnd_ghnd_tpu_torch/csrc/nms.cu",
+        replaces="hnd_ghnd_tpu/ops/nms.py:33 (hnd_ghnd_tpu/models/rpn.py:143)",
+        max_abs_err=0.0,
+        shape=f"RPN levels {sizes} x {lb.shape[0]}, {int(lv.sum())} valid",
+        **timings(lambda: NMS.nms_keep_levels(lb, ls, lthr, lv, sizes)),
+        plain_ms=time_ms(lambda: NMS.nms_levels_plain(lb, ls, lv, sizes,
+                                                      lthr)),
+        library_ms=None, **nms_levels_bound(lb, ls, lv, sizes, keep),
+        longest_segment=nms_longest(lv, sizes=sizes),
+        passes_device_ms=kernel_device_ms(
+            lambda: NMS.nms_keep_levels(lb, ls, lthr, lv, sizes)),
+        five_entries=timings(five))
+    for name in ("nms_keep", "nms_keep_levels"):
+        k = kernels[name]
+        p = k["passes_device_ms"]
+        log(f"[kernels] {name} {k['shape']}: {k['ms']:.4f} ms "
+            f"({k['device_ms']:.4f} on the card; its kernels in a profiler "
+            f"trace: " + (", ".join(f"{n} {v:.4f}" for n, v in p.items())
+                          or "not measured (no device events)") + "), "
+            f"plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms by "
+            f"{k['bound_by']}; longest segment {k['longest_segment']} valid "
+            f"boxes ({-(-k['longest_segment'] // 64)} tiles)"
+            + ("" if "five_entries" not in k else
+               f"; as five nms_keep entries (one a level) "
+               f"{k['five_entries']['ms']:.4f} ms "
+               f"({k['five_entries']['device_ms']:.4f} on the card)"))
     NMS.fixpoint.iterations = 0
 
 
@@ -1229,12 +1423,13 @@ def distill_org_phase(dev: torch.device):
         check(all(b == a + n for a, b in zip(tracked, bn_tracked(student)))
               and len(tracked) == 8, f"{tag}: the bottleneck's BNs did not "
               "advance once a step")
+        # the RPN's five levels: one NMS entry a step
         want = {"f32_org": {"stem_fwd": n, "stem_fwd_res": n, "stem_dw": n,
                             "roi_align": n, "roi_align_bwd_f32": n,
-                            "nms_keep": 5 * n},
+                            "nms_keep": n, "nms_keep_levels": n},
                 "bf16": {},
                 "bf16_org": {"roi_align_bf16": n, "roi_align_bwd": n,
-                             "nms_keep": 5 * n},
+                             "nms_keep": n, "nms_keep_levels": n},
                 "bf16_stem": {"stem_fwd_bf16": n, "stem_fwd_res_bf16": n,
                               "stem_dw_bf16": n}}[tag]
         check(counts == want, f"{tag}: launches {counts}, want {want}")
@@ -1251,7 +1446,7 @@ def distill_org_phase(dev: torch.device):
         launches[tag] = counts
     log(f"[distill-org] the bottleneck's 8 BNs advanced once a step in each "
         "run; every kernel of the org term launched once a step, the RPN's "
-        "NMS five times")
+        "NMS too (one entry for its five levels)")
     for bucket in BUCKETS:
         log(f"[distill-org] bfloat16 step, bucket {bucket}: stem switch on "
             f"{medians['bf16_stem', bucket]:.3f} ms (the bf16 stem kernels), "
@@ -2249,7 +2444,8 @@ def train_phase(dev: torch.device, eval_batch: dict) -> dict:
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in kernel_counts().items()
                 if k in ("roi_align", "roi_align_bf16", "roi_align_bwd",
-                         "nms_keep", "stem_fwd", "stem_fwd_bf16")}
+                         "nms_keep", "nms_keep_levels", "stem_fwd",
+                         "stem_fwd_bf16")}
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"[train] {n} bf16 steps + 1 float32 eval batch in {wall:.3f} s; "
         f"launches {launches}; peak memory {peak:.2f} GiB")
@@ -2391,9 +2587,10 @@ def heads_train_phase(dev: torch.device) -> dict:
                 f"{loss:.6e}, " + " ".join(f"{k} {v:.6e}"
                                           for k, v in terms.items()))
         check(len(hist["steps"]) == n, "a step's scalars are missing")
-        # the RPN's five levels: five NMS problems a step
+        # the RPN's five levels: one NMS entry a step
         want = {"roi_align_bf16": n, "roi_align_bf16_p14": n,
-                "roi_align_bwd": n, "roi_align_bwd_p14": n, "nms_keep": 5 * n}
+                "roi_align_bwd": n, "roi_align_bwd_p14": n, "nms_keep": n,
+                "nms_keep_levels": n}
         check(counts == want, f"{kind}: launches {counts}, want {want}")
         for bi, bucket in enumerate(BUCKETS):
             first = bi * STEPS_PER_BUCKET
@@ -2567,7 +2764,10 @@ def kernel_counts() -> dict:
             # B6's main loops, over both of its entries
             "int8_conv_wgmma": IC.template_launches["wgmma"],
             "int8_conv_mma_sync": IC.template_launches["mma_sync"],
-            "nms_keep": NMS.nms_keep.launches}
+            # entries of the NMS kernel through either op, and those of
+            # the levels op (the RPN's, one a forward)
+            "nms_keep": NMS.nms_keep.launches,
+            "nms_keep_levels": NMS.nms_keep_levels.launches}
 
 
 def zero_kernel_counts() -> None:
@@ -2577,7 +2777,7 @@ def zero_kernel_counts() -> None:
     from hnd_ghnd_tpu_torch.ops import roi_align_kernels as RK
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
     for fn in (QK.quantize, QK.dequantize, RK.quantize_levels, IC.int8_conv,
-               IC.int8_conv_requant, NMS.nms_keep):
+               IC.int8_conv_requant, NMS.nms_keep, NMS.nms_keep_levels):
         fn.launches = 0
     for fn in (SK.stem_fwd, SK.stem_fwd_res, SK.stem_dw):
         fn.launches.clear()
@@ -3114,10 +3314,13 @@ def runner_phase(dev: torch.device, root: str) -> dict:
                        if k.startswith("org_")))
     check(n_steps == RUNNER_IMAGES["train"] // TRAIN_BATCH,
           f"org runner: {n_steps} steps")
+    # NMS: the RPN's levels in one entry a step or forward, and the box
+    # head's entry in each eval forward
     want = {"roi_align_bf16": n_steps, "roi_align_bwd": n_steps,
-            "quantize": n_eval, "dequantize": n_eval, "roi_align": n_eval}
-    check(all(mimic_org[k] == v for k, v in want.items())
-          and mimic_org["nms_keep"] >= 5 * n_steps,
+            "quantize": n_eval, "dequantize": n_eval, "roi_align": n_eval,
+            "nms_keep_levels": n_steps + n_eval,
+            "nms_keep": n_steps + 2 * n_eval}
+    check(all(mimic_org[k] == v for k, v in want.items()),
           f"org runner launches {mimic_org}, want {want}")
     epoch_report("runner org", epoch, hist["steps"])
     tb_and_trace_checks(tb_dir, prof_dir, hist, epoch,
@@ -3885,7 +4088,7 @@ def export_phase(dev: torch.device, root: str, card: str) -> dict:
                       f"export {name} {bucket}: tail {k} differs from the "
                       "eager tail")
             want = ({"quantize": 1, "dequantize": 1, "stem_fwd": 1,
-                     "nms_keep": 6}
+                     "nms_keep": 2, "nms_keep_levels": 1}
                     | ({"quantize_levels": 1, "roi_align_int8": 2}
                        if name.startswith("keypoint") else {"roi_align": 1}))
             for k, n in want.items():
@@ -3948,7 +4151,8 @@ def export_phase(dev: torch.device, root: str, card: str) -> dict:
     except ValueError as e:
         refused = "exported for 2 devices" in str(e)
     check(refused, "the sharded tail took one device for two shards")
-    check(shard_launches.get("nms_keep") == 12
+    check(shard_launches.get("nms_keep") == 4
+          and shard_launches.get("nms_keep_levels") == 2
           and shard_launches.get("dequantize") == 2,
           f"sharded tail launches {shard_launches}")
     log(f"[export] sharded tail, 2 shards of 1 image on {dev} (scales "
@@ -4850,13 +5054,14 @@ def main() -> int:
     wall = time.perf_counter() - t0
     # kernel_counts checks that no NMS ran the fixpoint's host loop
     launches = {k: v for k, v in kernel_counts().items()
-                if k in ("quantize", "dequantize", "roi_align", "nms_keep")}
+                if k in ("quantize", "dequantize", "roi_align", "nms_keep",
+                         "nms_keep_levels")}
     log(f"[slice] {len(served)} batches in {wall:.3f} s; launches {launches}; "
         f"NMS fixpoint syncs 0; peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     for name, n in launches.items():
-        # the RPN's five levels and the box head: six NMS problems a forward
-        want = len(served) * (6 if name == "nms_keep" else 1)
+        # NMS: one entry for the RPN's five levels, one for the box head
+        want = len(served) * (2 if name == "nms_keep" else 1)
         check(n == want, f"{name} launched {n} times for {len(served)} "
               f"forwards")
     for i, (batch, rec) in enumerate(zip(served, records)):
@@ -5021,7 +5226,8 @@ def main() -> int:
     # launches: the runners' (the main path) where they run the kernel, else
     # the heads phase's (the int8 tables); every path's beside
     paths = {"serving": {k: launches[k] for k in ("quantize", "dequantize",
-                                                 "roi_align", "nms_keep")},
+                                                 "roi_align", "nms_keep",
+                                                 "nms_keep_levels")},
              "heads": {k: launches[k] for k in ("roi_align_int8",
                                                "quantize_levels")},
              "distill": {k: stem_launches[k] for k in
@@ -5030,7 +5236,7 @@ def main() -> int:
                 for run, counts in org_launches.items() if counts},
              "train": {k: train_launches[k] for k in
                        ("roi_align_bf16", "roi_align_bwd", "nms_keep",
-                        "stem_fwd_bf16")},
+                        "nms_keep_levels", "stem_fwd_bf16")},
              **{f"train_{kind}": counts
                 for kind, counts in heads_train.items()},
              **{f"{run}_runner": {k: v for k, v in runner[key].items() if v}
@@ -5040,13 +5246,14 @@ def main() -> int:
                                  ("coco_keypoint", "keypoint_rcnn"))},
              "ext_runner": {"stem_fwd": runner["ext_runner"]["stem_fwd"]},
              "coco_ext": {k: runner["coco_ext"][k] for k in
-                          ("roi_align", "quantize", "dequantize", "nms_keep")},
+                          ("roi_align", "quantize", "dequantize", "nms_keep",
+                           "nms_keep_levels")},
              "split": {k: split_launches[k] for k in
                        ("quantize", "dequantize", "roi_align", "stem_fwd",
-                        "nms_keep")},
+                        "nms_keep", "nms_keep_levels")},
              "export": {k: export_launches.get(k, 0) for k in
                         ("quantize", "dequantize", "roi_align", "stem_fwd",
-                         "nms_keep")},
+                         "nms_keep", "nms_keep_levels")},
              **{path: {k: v for k, v in int8_launches[path].items() if v}
                 for path in ("int8_tail", "cost_analyzer_int8")},
              **{f"multiprocess_{run}": {k: v for k, v in counts.items() if v}
@@ -5061,12 +5268,14 @@ def main() -> int:
     for k in out:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     # every path that runs a detector's eval or training forward runs NMS
-    # on the card (kernel_counts checked that none ran the fixpoint)
+    # on the card, the RPN's through the levels op (kernel_counts checked
+    # that none ran the fixpoint)
     for path, counts in paths.items():
         if path not in ("heads", "distill", "distill_bf16_stem",
                         "ext_runner"):
-            check(counts.get("nms_keep", 0) > 0,
-                  f"the {path} path never launched nms_keep")
+            for name in ("nms_keep", "nms_keep_levels"):
+                check(counts.get(name, 0) > 0,
+                      f"the {path} path never launched {name}")
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

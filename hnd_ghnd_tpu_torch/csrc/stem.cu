@@ -66,7 +66,12 @@
 //     differ.  Bound at batch 4, 832x1344: bytes, 0.051 ms forward and dW,
 //     0.093 ms with the bf16 residual; 21.0 GFLOP at the bf16 tensor-core
 //     rate is 0.021 ms, but this loop runs on the float32 FMA units (0.31
-//     ms), so it stays far from the bound until a tensor-core design.
+//     ms), so it stays far from the bound.  A tensor-core version ran
+//     twice as fast, but more than STEM_BF16_DIFF_FRAC of its outputs on
+//     a small input landed on the other bf16 neighbour of the plain
+//     version's (its summation order and rounding both differ from this
+//     loop's K-sequential float32 sum; which of the two moves them is not
+//     measured), so this loop stays.
 //
 // Sums run in another order than cuDNN's or the CPU's: the forward agrees
 // with its plain version to ~1e-6 of the largest output, dW to ~1e-5 of

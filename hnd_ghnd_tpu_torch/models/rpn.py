@@ -111,11 +111,13 @@ class RPN(nn.Module):
             boxes.append(bx)
             scores.append(top_s)
             valid.append(box_ops.small_box_mask(bx, MIN_SIZE))
-        # per-level NMS is exactly the level-categorized batched NMS
-        keep = torch.cat(nms_ops.nms_keep_masks(boxes, scores, NMS_THRESH,
-                                                valid), dim=1)
+        # per-level NMS, all levels in one call: levels never suppress
+        # each other
+        sizes = [bx.shape[1] for bx in boxes]
         boxes = torch.cat(boxes, dim=1)
         scores = torch.cat(scores, dim=1)
+        keep = nms_ops.nms_keep_levels(boxes, scores, NMS_THRESH,
+                                       torch.cat(valid, dim=1), sizes)
         neg_inf = torch.finfo(scores.dtype).min
         masked = torch.where(keep, scores, torch.full_like(scores, neg_inf))
         top_s, top_idx = nms_ops.stable_topk(masked, post_nms)

@@ -11,7 +11,7 @@ here, against ~20 us through ``torch.library.custom_op``'s wrapper):
   * ``roi_align`` on float32, bfloat16 and int8 tables, ``quantize_levels``
     (ops/roi_align_kernels.py);
   * ``stem_fwd`` (ops/stem_kernels.py);
-  * ``nms_keep`` (ops/nms.py).
+  * ``nms_keep``, ``nms_keep_levels`` (ops/nms.py).
 
 Each op has:
 
@@ -28,9 +28,10 @@ Each op has:
 
 The public wrappers (``quant_kernels.quantize`` / ``dequantize``,
 ``roi_align_kernels.roi_align`` / ``quantize_levels``,
-``stem_kernels.stem_fwd``, ``nms.nms_keep``) raise ValueError for a tensor
-neither on the CPU nor on CUDA (``_oplib.check_device``; on meta tensors
-the ops themselves give shapes, as under tracing) and call the ops.  An
+``stem_kernels.stem_fwd``, ``nms.nms_keep``, ``nms.nms_keep_levels``)
+raise ValueError for a tensor neither on the CPU nor on CUDA
+(``_oplib.check_device``; on meta tensors the ops themselves give shapes,
+as under tracing) and call the ops.  An
 op's outputs alias neither its inputs nor each other: ``quantize`` returns
 the scale and zero point as one [2] tensor, and ``quantize_levels`` one
 tensor per level's codes.  The training paths (``RoIAlignFunction``,

@@ -1,4 +1,4 @@
-"""Exact NMS, batched over images: the CUDA kernel of csrc/nms.cu on the
+"""Exact NMS, batched over images: the CUDA kernels of csrc/nms.cu on the
 card, a fixpoint of masked matrix products on the CPU.
 
 Counterpart of hnd_ghnd_tpu/ops/nms.py.  Box j is suppressed iff a kept box
@@ -7,16 +7,29 @@ the same category, both valid, overlaps it by more than the threshold.
 The relation is a DAG, so its fixpoint is unique: it is greedy NMS in
 descending-score order with index tie-break.
 
-``nms_keep`` calls the ``hnd_ghnd::nms_keep`` op (ops/library.py).  On a
-CUDA tensor it launches the kernel (``launch_nms_keep``): a bitmask of the
-relation and a greedy scan in a stable order, on the device, with no host
-round trip; ``nms_keep.launches`` counts it.  On a CPU tensor it runs the
-plain version, the port of JAX's ``lax.while_loop``: ``fixpoint``, a Python
-loop run to the exact fixpoint, with no cap on the iterations (each check
-of convergence reads the device, and ``fixpoint.iterations`` counts them).
+Two ops (ops/library.py), each an entry of the kernel on a CUDA tensor and
+the plain version on a CPU one:
+
+  * ``nms_keep`` (``hnd_ghnd::nms_keep``): B problems of N boxes with
+    optional categories, the box head's;
+  * ``nms_keep_levels`` (``hnd_ghnd::nms_keep_levels``): the RPN's levels
+    concatenated along dim 1 and their sizes, one entry for all of them:
+    each level a chunk of the kernel's problem (levels never suppress each
+    other), equal to ``nms_keep`` on each level.
+
+An entry (``_launch``) is three kernels on the device with no host round
+trip: the valid boxes sorted into the scan's order, the suppression bits
+of same-segment pairs above the diagonal, a blocked greedy scan a segment
+a warp.  ``nms_keep.launches`` counts the entries of either op,
+``nms_keep_levels.launches`` those of the levels op.  On a CPU tensor the
+plain version runs, the port of JAX's ``lax.while_loop``: ``fixpoint``, a
+Python loop run to the exact fixpoint, with no cap on the iterations (each
+check of convergence reads the device, and ``fixpoint.iterations`` counts
+them).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -25,10 +38,11 @@ from hnd_ghnd_tpu_torch import _build
 from hnd_ghnd_tpu_torch.ops._oplib import check_device, define
 from hnd_ghnd_tpu_torch.ops.boxes import pairwise_iou
 
-# csrc/nms.cu kMaxBoxes: boxes per problem the kernel takes
+# csrc/nms.cu kMaxBoxes: boxes per problem (a level's, for the levels op)
+# the kernel takes
 MAX_BOXES = 16384
-# csrc/nms.cu kWordBits: boxes per word of the mask
-WORD_BITS = 64
+# csrc/nms.cu kMaxChunks: levels one entry takes
+MAX_LEVELS = 8
 
 
 _INT_OF = {2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -102,12 +116,12 @@ def nms_plain(boxes: torch.Tensor, scores: torch.Tensor,
     return keep
 
 
-def launch_nms_keep(boxes: torch.Tensor, scores: torch.Tensor,
-                    valid: torch.Tensor, categories: Optional[torch.Tensor],
-                    iou_threshold: float) -> torch.Tensor:
-    """The keep mask [B, N] from the kernel: boxes [B, N, 4] float32 or
+def _checked(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+             categories: Optional[torch.Tensor]):
+    """The kernel's operands, checked: boxes [B, N, 4] float32 or
     bfloat16, scores [B, N] float32 or bfloat16, valid [B, N] bool,
-    categories [B, N] integers or None, all on one CUDA device."""
+    categories [B, N] integers (made int64) or None, all on one CUDA
+    device and contiguous."""
     dev = boxes.device
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"nms: boxes must be [B, N, 4], got "
@@ -126,35 +140,63 @@ def launch_nms_keep(boxes: torch.Tensor, scores: torch.Tensor,
         if t.device != dev or tuple(t.shape) != (b, n):
             raise ValueError(f"nms: scores, valid and categories must be "
                              f"[{b}, {n}] on {dev}")
-    if categories is not None and (categories.dtype.is_floating_point
-                                   or categories.dtype == torch.bool):
-        raise TypeError(f"nms: categories must be integers, got "
-                        f"{categories.dtype}")
+    if categories is not None:
+        if categories.dtype.is_floating_point or \
+                categories.dtype == torch.bool:
+            raise TypeError(f"nms: categories must be integers, got "
+                            f"{categories.dtype}")
+        # an exact conversion
+        categories = categories.to(torch.int64).contiguous()
+    return (boxes.contiguous(), scores.contiguous(), valid.contiguous(),
+            categories)
+
+
+def _threshold(iou_threshold: float, dtype: torch.dtype) -> float:
+    """The plain version compares the IoU with the threshold cast to the
+    IoU's (the boxes') dtype."""
+    return float(torch.tensor(float(iou_threshold), dtype=dtype))
+
+
+def _launch(boxes, scores, valid, categories, sizes: Sequence[int],
+            thr: float) -> torch.Tensor:
+    """One entry of csrc/nms.cu on checked operands whose boxes are cut
+    into chunks of ``sizes``; -> keep [B, M] bool."""
+    lib = _build.load()
+    dev = boxes.device
+    b, m = boxes.shape[:2]
+    c_sizes = (ctypes.c_int * len(sizes))(*sizes)
+    nbytes = ctypes.c_longlong()
+    _build.check(lib.hnd_nms_work_bytes(b, len(sizes), c_sizes,
+                                        ctypes.addressof(nbytes)),
+                 "hnd_nms_work_bytes")
+    work = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+    keep = torch.empty((b, m), dtype=torch.bool, device=dev)
+    _build.check(lib.hnd_nms_keep(
+        boxes.data_ptr(), int(boxes.dtype == torch.bfloat16),
+        scores.data_ptr(), int(scores.dtype == torch.bfloat16),
+        valid.data_ptr(),
+        None if categories is None else categories.data_ptr(), b,
+        len(sizes), c_sizes, thr, work.data_ptr(), keep.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "hnd_nms_keep")
+    return keep
+
+
+def launch_nms_keep(boxes: torch.Tensor, scores: torch.Tensor,
+                    valid: torch.Tensor, categories: Optional[torch.Tensor],
+                    iou_threshold: float) -> torch.Tensor:
+    """The keep mask [B, N] from the kernel: boxes [B, N, 4] float32 or
+    bfloat16, scores [B, N] float32 or bfloat16, valid [B, N] bool,
+    categories [B, N] integers or None, all on one CUDA device."""
+    boxes, scores, valid, categories = _checked(boxes, scores, valid,
+                                                categories)
+    b, n = boxes.shape[:2]
     if n > MAX_BOXES:
         raise ValueError(f"nms kernel takes at most {MAX_BOXES} boxes a "
                          f"problem, got {n}")
-    keep = torch.empty((b, n), dtype=torch.bool, device=dev)
     if b == 0 or n == 0:
-        return keep
-    # exact conversions: bfloat16 scores to float32, integers to int64
-    boxes = boxes.contiguous()
-    scores = scores.to(torch.float32).contiguous()
-    valid = valid.contiguous()
-    if categories is not None:
-        categories = categories.to(torch.int64).contiguous()
-    # the plain version compares the IoU with the threshold cast to the
-    # IoU's (the boxes') dtype
-    thr = float(torch.tensor(float(iou_threshold), dtype=boxes.dtype))
-    words = -(-n // WORD_BITS)
-    mask = torch.empty(b * n * words, dtype=torch.int64, device=dev)
-    rank = torch.empty(b * n, dtype=torch.int32, device=dev)
-    _build.check(_build.load().hnd_nms_keep(
-        boxes.data_ptr(), int(boxes.dtype == torch.bfloat16),
-        scores.data_ptr(), valid.data_ptr(),
-        None if categories is None else categories.data_ptr(), b, n, thr,
-        mask.data_ptr(), rank.data_ptr(),
-        keep.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
-        "hnd_nms_keep")
+        return torch.empty((b, n), dtype=torch.bool, device=boxes.device)
+    keep = _launch(boxes, scores, valid, categories, [n],
+                   _threshold(iou_threshold, boxes.dtype))
     nms_keep.launches += 1
     return keep
 
@@ -169,6 +211,7 @@ def nms_keep(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     return nms_keep_op(boxes, scores, valid, categories, float(iou_threshold))
 
 
+# entries of csrc/nms.cu, through either op
 nms_keep.launches = 0
 
 
@@ -183,13 +226,75 @@ nms_keep_op = define(
     nms_plain, launch_nms_keep, _nms_keep_fake)
 
 
-def nms_keep_masks(boxes: Sequence[torch.Tensor], scores: Sequence[torch.Tensor],
-                   iou_threshold: float,
-                   valid: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Exact NMS keep masks for several independent [B, N_k] problems (the
-    RPN's per-level NMS), one ``nms_keep`` each."""
-    return [nms_keep(b, s, iou_threshold, v)
-            for b, s, v in zip(boxes, scores, valid)]
+def _check_levels(m: int, level_sizes: Sequence[int]) -> None:
+    if not 0 < len(level_sizes) <= MAX_LEVELS:
+        raise ValueError(f"nms_keep_levels takes 1 to {MAX_LEVELS} levels, "
+                         f"got {len(level_sizes)}")
+    if sum(level_sizes) != m or min(level_sizes) < 0:
+        raise ValueError(f"nms_keep_levels: level sizes {list(level_sizes)} "
+                         f"do not cut {m} boxes")
+
+
+def nms_levels_plain(boxes: torch.Tensor, scores: torch.Tensor,
+                     valid: torch.Tensor, level_sizes: Sequence[int],
+                     iou_threshold: float) -> torch.Tensor:
+    """The plain version of ``nms_keep_levels``: the fixpoint of each level
+    alone (``nms_plain``), the masks concatenated."""
+    _check_levels(boxes.shape[1], level_sizes)
+    return torch.cat([nms_plain(b, s, v, None, iou_threshold)
+                      for b, s, v in zip(boxes.split(level_sizes, 1),
+                                         scores.split(level_sizes, 1),
+                                         valid.split(level_sizes, 1))], 1)
+
+
+def launch_nms_keep_levels(boxes: torch.Tensor, scores: torch.Tensor,
+                           valid: torch.Tensor, level_sizes: Sequence[int],
+                           iou_threshold: float) -> torch.Tensor:
+    """The keep mask [B, M] of the levels from one entry of the kernel:
+    each level a chunk of the problem, so levels never suppress each
+    other and keep their own index order."""
+    boxes, scores, valid, _ = _checked(boxes, scores, valid, None)
+    b, m = boxes.shape[:2]
+    _check_levels(m, level_sizes)
+    if max(level_sizes) > MAX_BOXES:
+        raise ValueError(f"nms kernel takes at most {MAX_BOXES} boxes a "
+                         f"level, got {max(level_sizes)}")
+    if b == 0 or m == 0:
+        return torch.empty((b, m), dtype=torch.bool, device=boxes.device)
+    keep = _launch(boxes, scores, valid, None, list(level_sizes),
+                   _threshold(iou_threshold, boxes.dtype))
+    nms_keep.launches += 1
+    nms_keep_levels.launches += 1
+    return keep
+
+
+def nms_keep_levels(boxes: torch.Tensor, scores: torch.Tensor,
+                    iou_threshold: float, valid: torch.Tensor,
+                    level_sizes: Sequence[int]) -> torch.Tensor:
+    """Exact NMS keep mask [B, M] of the RPN's levels in one call: boxes
+    [B, M, 4], scores [B, M] and valid [B, M] are the levels' [B, N_l]
+    problems concatenated along dim 1, ``level_sizes`` their N_l.  Equal
+    to ``nms_keep`` on each level, concatenated (JAX's per-level
+    ``nms_keep_mask``, hnd_ghnd_tpu/models/rpn.py:143)."""
+    check_device(boxes, "nms_keep_levels")
+    return nms_keep_levels_op(boxes, scores, valid,
+                              [int(n) for n in level_sizes],
+                              float(iou_threshold))
+
+
+# entries through the levels op (each also counts on nms_keep.launches)
+nms_keep_levels.launches = 0
+
+
+def _nms_keep_levels_fake(boxes, scores, valid, level_sizes, iou_threshold):
+    return valid.new_empty(valid.shape, dtype=torch.bool)
+
+
+# exact NMS keep mask [B, M] bool of levels concatenated along dim 1
+nms_keep_levels_op = define(
+    "nms_keep_levels(Tensor boxes, Tensor scores, Tensor valid, "
+    "int[] level_sizes, float iou_threshold) -> Tensor",
+    nms_levels_plain, launch_nms_keep_levels, _nms_keep_levels_fake)
 
 
 def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,

@@ -11,8 +11,9 @@ import pytest
 import torch
 
 from chip_smoke import (BUCKETS, EVAL_BATCH, INT8_CONV_ODD,
-                        INT8_EPILOGUE_CASES, int8_epilogue,
-                        int8_outputs_equal, int8_trunk_convs, nms_problem)
+                        INT8_EPILOGUE_CASES, NMS_LEVELS, int8_epilogue,
+                        int8_outputs_equal, int8_trunk_convs,
+                        nms_extra_problems, nms_problem)
 from chip_smoke import box_mix as _boxes
 from chip_smoke import quant_input as _x
 from hnd_ghnd_tpu_torch.codec import quantizer as tq
@@ -903,6 +904,84 @@ def test_nms_kernel_vs_plain(cuda, n, n_cats, nonfinite, dtype, thr):
     assert torch.equal(got, NMS.nms_plain(*args, thr))
     assert torch.equal(got.cpu(), NMS.nms_plain(boxes, scores, valid, cats,
                                                 thr))
+
+
+def _nms_equal_plain(cuda, boxes, scores, valid, cats, thr):
+    """The kernel's keep mask equals the plain fixpoint's on the card, and
+    on the CPU up to 4096 boxes (the CPU's fixpoint of 16384 is slow)."""
+    args = [t.to(cuda) if t is not None else None
+            for t in (boxes, scores, valid, cats)]
+    before = NMS.nms_keep.launches
+    got = NMS.nms_keep(args[0], args[1], thr, args[2], args[3])
+    assert NMS.nms_keep.launches == before + 1
+    assert torch.equal(got, NMS.nms_plain(*args, thr))
+    if boxes.shape[1] <= 4096:
+        assert torch.equal(got.cpu(), NMS.nms_plain(boxes, scores, valid,
+                                                    cats, thr))
+
+
+# the sorted, blocked scan: problems of one 64-box tile and less, tiles
+# and one box more or less, the box head's 4096, MAX_BOXES; one, three
+# and 90 categories (segments of the scan), none, bfloat16 boxes
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 4096, 16384])
+@pytest.mark.parametrize("n_cats,nonfinite,dtype,thr", [
+    (1, False, torch.float32, 0.5), (3, True, torch.float32, 0.5),
+    (90, True, torch.float32, 0.5), (0, True, torch.bfloat16, 0.3007)])
+def test_nms_kernel_sizes_and_categories_vs_plain(cuda, n, n_cats, nonfinite,
+                                                  dtype, thr):
+    rng = np.random.RandomState(7 * n + n_cats)
+    _nms_equal_plain(cuda, *nms_problem(rng, 2, n, n_cats, nonfinite, dtype),
+                     thr)
+
+
+# one category of 4096 valid boxes (64 tiles in one segment); categories
+# whose valid boxes end on and across 64-box tiles; every box invalid;
+# every score NaN; scores sorted (as the scan's order) and unsorted
+@pytest.mark.parametrize("case", range(6))
+def test_nms_kernel_segments_and_orders_vs_plain(cuda, case):
+    name, (boxes, scores, valid, cats, thr) = nms_extra_problems(
+        np.random.RandomState(19))[case]
+    _nms_equal_plain(cuda, boxes, scores, valid, cats, thr)
+
+
+# the RPN's levels in one entry: eval and training sizes, levels that end
+# on and across tiles
+@pytest.mark.parametrize("sizes", NMS_LEVELS)
+@pytest.mark.parametrize("nonfinite,dtype", [(False, torch.float32),
+                                             (True, torch.bfloat16)])
+def test_nms_keep_levels_vs_one_nms_keep_a_level(cuda, sizes, nonfinite,
+                                                 dtype):
+    rng = np.random.RandomState(sum(sizes))
+    parts = [nms_problem(rng, 3, n, 0, nonfinite, dtype) for n in sizes]
+    boxes, scores, valid = (torch.cat([p[i] for p in parts], 1).to(cuda)
+                            for i in range(3))
+    before = NMS.nms_keep.launches, NMS.nms_keep_levels.launches
+    got = NMS.nms_keep_levels(boxes, scores, 0.7, valid, sizes)
+    assert (NMS.nms_keep.launches, NMS.nms_keep_levels.launches) == (
+        before[0] + 1, before[1] + 1)
+    each = [NMS.nms_keep(b, s, 0.7, v) for b, s, v in zip(
+        boxes.split(sizes, 1), scores.split(sizes, 1), valid.split(sizes, 1))]
+    assert torch.equal(got, torch.cat(each, 1))
+    assert torch.equal(got.cpu(), NMS.nms_levels_plain(
+        boxes.cpu(), scores.cpu(), valid.cpu(), sizes, 0.7))
+
+
+def test_nms_keep_levels_rejects_what_it_does_not_take(cuda):
+    boxes = torch.zeros(2, 10, 4, device=cuda)
+    scores = torch.zeros(2, 10, device=cuda)
+    valid = torch.ones(2, 10, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        NMS.nms_keep_levels(boxes, scores, 0.7, valid, [4, 5])
+    with pytest.raises(ValueError):
+        NMS.nms_keep_levels(boxes, scores, 0.7, valid, [1] * 10)
+    with pytest.raises(TypeError):
+        NMS.nms_keep_levels(boxes, scores, 0.7, valid.float(), [5, 5])
+    big = NMS.MAX_BOXES + 1
+    with pytest.raises(ValueError):
+        NMS.nms_keep_levels(torch.zeros(1, big + 1, 4, device=cuda),
+                            torch.zeros(1, big + 1, device=cuda), 0.7,
+                            torch.ones(1, big + 1, dtype=torch.bool,
+                                       device=cuda), [big, 1])
 
 
 def test_nms_kernel_rejects_what_it_does_not_take(cuda):

@@ -208,6 +208,7 @@ def test_artifact_calls_the_ops_and_names_its_device(exported):
     # the stem switch is off: no stem_fwd; no int8 tables
     assert exported["ops"] == ["hnd_ghnd.dequantize.default",
                                "hnd_ghnd.nms_keep.default",
+                               "hnd_ghnd.nms_keep_levels.default",
                                "hnd_ghnd.quantize.default",
                                "hnd_ghnd.roi_align.default"]
     # each half holds its own weights: the head's stem and encoder are a

@@ -1,9 +1,11 @@
 """The port's NMS against the JAX package's, on the CPU.
 
-``nms_keep_masks`` (the RPN's per-level problems) and ``batched_nms`` (the
-box head's category-aware problem) go through the ``hnd_ghnd::nms_keep``
-op of ops/library.py, whose CPU implementation is the plain fixpoint on
-each problem's valid boxes.  Their keep masks equal those of JAX's
+``nms_keep`` (a problem without categories, as each RPN level is one),
+``batched_nms`` (the box head's category-aware problem) and
+``nms_keep_levels`` (the RPN's five levels in one call) go through the
+``hnd_ghnd::nms_keep`` and ``hnd_ghnd::nms_keep_levels`` ops of
+ops/library.py, whose CPU implementations are the plain fixpoint on each
+problem's (each level's) valid boxes.  Their keep masks equal those of JAX's
 ``nms_keep_mask`` / ``batched_nms_mask`` exactly, and ``batched_nms``'s
 survivors JAX's ``batched_nms``, on seeded problems
 (``chip_smoke.nms_problem``): tied scores (-0.0 and 0.0 among them),
@@ -11,8 +13,13 @@ duplicate boxes, zero-area boxes, invalid rows, no categories, one and
 many, N of 1, 63, 64, 65 and 1000 (the kernel's word of 64 boxes and its
 edges); ``stable_topk`` orders as ``jax.lax.top_k`` (XLA's total order of
 floats).  The plain version on each problem's valid boxes equals the
-fixpoint of the whole [B, N, N] relation.  chip_smoke.py holds the CUDA
-kernel against the plain version on the card, NaN and +-inf included.
+fixpoint of the whole [B, N, N] relation.  ``nms_keep_levels`` equals
+JAX's ``nms_keep_mask`` on each level (hnd_ghnd_tpu/models/rpn.py:143's
+use) on seeded five-level problems of up to 64 boxes a level, and the
+fixpoint of the concatenated problem with the level as the category (the
+identity the kernel's one entry for all levels relies on); the tolerance
+is none: equal masks.  chip_smoke.py holds the CUDA kernel against the
+plain version on the card, NaN and +-inf included.
 
 The port's torch work runs in a spawned process on two threads
 (tests/test_torch_port_multiprocess.py's ``Ranks``), leaving this
@@ -30,6 +37,18 @@ SIZES = (1, 63, 64, 65, 1000)
 # 0.7 without categories, the box head's 0.5 with them
 KINDS = ((0, 0.7), (1, 0.5), (90, 0.5), (3, 0.5))
 MAX_OUTPUTS = 100
+# the RPN's levels at a test's size: ends of a 64-box tile, one box
+LEVEL_SIZES = ((64, 40, 1, 63, 17), (33, 64, 5, 2, 50))
+
+
+def _level_problems():
+    rng = np.random.RandomState(18)
+    out = []
+    for sizes in LEVEL_SIZES:
+        parts = [nms_problem(rng, BATCH, n, 0, False) for n in sizes]
+        out.append([(b.numpy(), s.numpy(), v.numpy()) for b, s, v, _ in
+                     parts])
+    return out
 
 
 def _problems():
@@ -70,9 +89,9 @@ def task_port_topk(x, bf16_bits, k):
 
 
 def task_port_nms(problems):
-    """The port's keep masks (``nms_keep_masks`` without categories,
-    ``nms_keep`` with them), the whole-relation fixpoint's, and
-    ``batched_nms``'s survivors."""
+    """The port's keep masks (``nms_keep``, without categories and with
+    them), the whole-relation fixpoint's, and ``batched_nms``'s
+    survivors."""
     import torch
     from hnd_ghnd_tpu_torch.ops import nms
     out = []
@@ -80,7 +99,7 @@ def task_port_nms(problems):
         b, s, v = (torch.from_numpy(a) for a in (boxes, scores, valid))
         c = None if cats is None else torch.from_numpy(cats)
         if c is None:
-            (keep,) = nms.nms_keep_masks([b], [s], thr, [v])
+            keep = nms.nms_keep(b, s, thr, v)
             survivors = None
         else:
             keep = nms.nms_keep(b, s, thr, v, c)
@@ -91,7 +110,28 @@ def task_port_nms(problems):
     return out
 
 
+def task_port_levels(problems, thr):
+    """``nms_keep_levels`` of each set of levels (concatenated along dim
+    1), and the fixpoint of the concatenation with the level as the
+    category."""
+    import torch
+    from hnd_ghnd_tpu_torch.ops import nms
+    out = []
+    for levels in problems:
+        sizes = [b.shape[1] for b, _, _ in levels]
+        b, s, v = (torch.cat([torch.from_numpy(p[i]) for p in levels], 1)
+                   for i in range(3))
+        keep = nms.nms_keep_levels(b, s, thr, v, sizes)
+        level = torch.cat([torch.full((b.shape[0], n), i)
+                           for i, n in enumerate(sizes)], 1)
+        (whole,) = nms.fixpoint([nms._suppression(b, s, thr, v, level)], [v])
+        out.append((keep.numpy(), whole.numpy()))
+    return out
+
+
 TOP_K = 23
+# the RPN's NMS threshold (models/rpn.py NMS_THRESH)
+RPN_THRESH = 0.7
 
 
 @pytest.fixture(scope="module")
@@ -104,9 +144,12 @@ def port():
         topk_in = _topk_inputs()
         (topk,) = pool.run("task_port_topk", x=topk_in[0],
                            bf16_bits=topk_in[1], k=TOP_K)
+        levels_in = _level_problems()
+        (levels,) = pool.run("task_port_levels", problems=levels_in,
+                             thr=RPN_THRESH)
     finally:
         pool.close()
-    return problems, result, topk_in, topk
+    return problems, result, topk_in, topk, levels_in, levels
 
 
 def test_stable_topk_is_lax_top_k_order(port):
@@ -116,7 +159,7 @@ def test_stable_topk_is_lax_top_k_order(port):
     import jax
     import jax.numpy as jnp
 
-    _, _, (x, bits), topk = port
+    _, _, (x, bits), topk = port[:4]
     for got, arr in zip(topk, (jnp.asarray(x),
                                jnp.asarray(bits).view(jnp.bfloat16))):
         vals, idx = jax.lax.top_k(arr, TOP_K)
@@ -181,3 +224,35 @@ def test_batched_nms_survivors_equal_jax(port):
                                           err_msg=name)
             checked += k
     assert checked > 0
+
+
+def test_levels_keep_equals_jax_per_level(port):
+    """The RPN's five levels in one ``nms_keep_levels`` call: equal to
+    JAX's ``nms_keep_mask`` on each level, as JAX's RPN runs it, and to the
+    fixpoint of the concatenated problem with the level as the
+    category."""
+    import jax
+    import jax.numpy as jnp
+    from hnd_ghnd_tpu.ops import nms as jnms
+
+    levels_in, levels = port[4:]
+    plain = jax.jit(jax.vmap(
+        lambda b, s, v: jnms.nms_keep_mask(b, s, RPN_THRESH, v)))
+
+    def padded(a, n):
+        """A level padded to 64 boxes with invalid ones (one compiled
+        shape): they neither suppress nor are kept, and the level's boxes
+        keep their indices."""
+        return jnp.asarray(np.pad(a, [(0, 0), (0, 64 - n)]
+                                  + [(0, 0)] * (a.ndim - 2)))
+
+    kept = 0
+    for sizes, problem, (keep, whole) in zip(LEVEL_SIZES, levels_in, levels):
+        want = np.concatenate([np.asarray(plain(
+            padded(b, n), padded(s, n), padded(v, n)))[:, :n]
+            for (b, s, v), n in zip(problem, sizes)], 1)
+        np.testing.assert_array_equal(keep, want, err_msg=str(sizes))
+        np.testing.assert_array_equal(whole, keep, err_msg=str(sizes))
+        kept += int(keep.sum())
+    n_valid = sum(int(v.sum()) for problem in levels_in for _, _, v in problem)
+    assert 0 < kept < n_valid
