@@ -25,8 +25,9 @@ Then the GHND distill step of chip_smoke.py (teacher and student, batch 4
 at 832x1344, the fused stem switched on): its stages between device syncs
 (teacher forward, student forward and loss, backward, Adam update), the
 same unprofiled-latency / profiler breakdown per step with the stem
-kernels' device time and their share of the step's kernel time, and the
-step with the stem switch on against off, interleaved (on, off, off, on).
+kernels' device time and their share of the step's kernel time, the
+same breakdown with the switch off (cuDNN's stem), and the step with the
+stem switch on against off, interleaved (on, off, off, on).
 
 Last, the supervised bfloat16 step of the org Faster R-CNN (chip_smoke.py's
 training phase, batch 2 at 832x1344): its stages between device syncs
@@ -44,6 +45,14 @@ the border-map add, the dequantized features and the NCHW copies from the
 other elementwise passes).  It needs only ``Int8SplitTail.trunk`` (and
 ``trunk_nchw`` where the package has it), so the same script profiles an
 older checkout when run from that checkout's root.
+
+    python3 chip_profile.py --distill-bf16 [--out ...]
+
+profiles only the distill step above computed in bfloat16, where the
+stem switch runs the stem kernels on bf16 activations (the bf16 dW on the
+tensor cores): its stages, the profiler breakdown with the switch on (each
+stem kernel's device ms, the idle share) and off, and the switch A/B in
+turns.
 
 Prints one line per result and, last, one JSON object holding them all.
 Needs one CUDA device; imports nothing of JAX.
@@ -282,8 +291,9 @@ def log_profile(prof, unit: str) -> None:
         log(f"[profile] top {k['ms']:.3f} ms x{k['calls']:.0f} {k['name']}")
 
 
-def distill_profile(dev):
-    """Stages, profile and stem-switch A/B of one distill step."""
+def distill_profile(dev, dtype: torch.dtype = torch.float32):
+    """Stages, profiles (stem switch on, then off) and stem-switch A/B of
+    one distill step computed in ``dtype``."""
     from hnd_ghnd_tpu_torch.distill.box import DistillationBox
     from hnd_ghnd_tpu_torch.parallel.train_step import make_distill_train_step
     os.environ["HND_TPU_PALLAS_STEM"] = "1"
@@ -292,12 +302,12 @@ def distill_profile(dev):
     student.train()
     box = DistillationBox(teacher, student, TRAIN["criterion"])
     step = make_distill_train_step(box, TRAIN["optimizer"], TRAIN["scheduler"],
-                                   1000, 999, compute_dtype=torch.float32)
+                                   1000, 999, compute_dtype=dtype)
     batch = distill_batches(np.random.RandomState(SEED + 2), dev)[0]
     images = batch["images"]
     for _ in range(2):  # cuDNN's first calls at this shape
         step(batch)
-    out = {"batch": tuple(images.shape)}
+    out = {"batch": tuple(images.shape), "dtype": str(dtype)}
 
     def teacher_forward():
         with torch.no_grad():
@@ -318,6 +328,9 @@ def distill_profile(dev):
     _, t["whole step"] = synced_ms(lambda: step(batch))
     out["stages_ms"] = t
     out["profile"] = device_profile(lambda: step(batch), "step")
+    os.environ["HND_TPU_PALLAS_STEM"] = "0"
+    step(batch)  # cuDNN's first calls at this shape
+    out["profile_off"] = device_profile(lambda: step(batch), "step")
     runs = {"on": [], "off": []}
     for tag in ("on", "off", "off", "on"):
         os.environ["HND_TPU_PALLAS_STEM"] = "1" if tag == "on" else "0"
@@ -515,6 +528,8 @@ def main() -> int:
     ap.add_argument("--out", help="also write the JSON result to this file")
     ap.add_argument("--int8", action="store_true",
                     help="profile only the int8 tail's trunk")
+    ap.add_argument("--distill-bf16", action="store_true",
+                    help="profile only the bfloat16 distill step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -537,12 +552,7 @@ def main() -> int:
         for o in r["aten_ops"][:TOP_KERNELS * 3]:
             log(f"[int8] op {o['ms']:.3f} ms x{o['calls']:.0f} {o['op']} "
                 f"{o['shapes'][:100]}")
-        line = json.dumps(result)
-        if args.out:
-            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-            Path(args.out).write_text(line + "\n")
-        print(line, flush=True)
-        return 0
+        return emit(result, args.out)
     from hnd_ghnd_tpu_torch.runners.common import (configure_precision,
                                                    eval_forward)
 
@@ -551,6 +561,11 @@ def main() -> int:
     log(f"[setup] card: {card}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     configure_precision(torch.float32)
+    if args.distill_bf16:
+        result = {"card": card,
+                  "distill": distill_profile(dev, torch.bfloat16)}
+        log_distill(result["distill"])
+        return emit(result, args.out)
     model = serving_model(dev)
     all_batches = serving_batches(np.random.RandomState(SEED + 1))
     b8 = on_device(all_batches[0], dev)
@@ -586,20 +601,8 @@ def main() -> int:
     del model, b8, b1
     torch.cuda.empty_cache()
 
-    d = result["distill"] = distill_profile(dev)
-    for name, ms in d["stages_ms"].items():
-        log(f"[distill] {name}: {ms:.3f} ms")
-    log_profile(d["profile"], "step")
-    stem = d["profile"].get("stem_kernels_ms", {})
-    if stem:
-        total = sum(stem.values())
-        log(f"[distill] stem kernels {total:.4f} ms per step, "
-            f"{total / d['profile']['kernel_ms_per_step']:.4%} of the kernel "
-            "time: " + ", ".join(f"{k[:60]} {v:.4f}" for k, v in stem.items()))
-    log("[distill] stem switch: " + ", ".join(
-        f"{k} {v['median_ms']:.3f} ms ({v['min_ms']:.3f}-{v['max_ms']:.3f})"
-        for k, v in d["stem_switch_ab"].items()))
-    del d
+    result["distill"] = distill_profile(dev)
+    log_distill(result["distill"])
     torch.cuda.empty_cache()
 
     tr = result["train"] = train_profile(dev)
@@ -607,10 +610,33 @@ def main() -> int:
         log(f"[train] {name}: {ms:.3f} ms")
     log(f"[train] {tr['host_syncs_per_step']} synchronizing calls per step")
     log_profile(tr["profile"], "step")
+    return emit(result, args.out)
+
+
+def log_distill(d) -> None:
+    for name, ms in d["stages_ms"].items():
+        log(f"[distill] {name}: {ms:.3f} ms")
+    for key, switch in (("profile", "on"), ("profile_off", "off")):
+        log(f"[distill] {d['dtype']} step, stem switch {switch}:")
+        log_profile(d[key], "step")
+        stem = d[key].get("stem_kernels_ms", {})
+        if stem:
+            total = sum(stem.values())
+            log(f"[distill] stem kernels {total:.4f} ms per step, "
+                f"{total / d[key]['kernel_ms_per_step']:.4%} of the kernel "
+                "time: " + ", ".join(f"{k[:60]} {v:.4f}"
+                                     for k, v in stem.items()))
+    log("[distill] stem switch: " + ", ".join(
+        f"{k} {v['median_ms']:.3f} ms ({v['min_ms']:.3f}-{v['max_ms']:.3f})"
+        for k, v in d["stem_switch_ab"].items()))
+
+
+def emit(result: dict, out) -> int:
+    """Prints ``result`` as the last line, and writes it to ``out``."""
     line = json.dumps(result)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(line + "\n")
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(line + "\n")
     print(line, flush=True)
     return 0
 

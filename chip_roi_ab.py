@@ -28,7 +28,8 @@ at the main path's shapes:
     [4, 3, 1344, 832];
   * the stem's three wrappers again on bfloat16 activations (R12), held
     to the plain version with chip_smoke's count rule
-    (STEM_BF16_DIFF_FRAC) and to the other checkout within one bf16 ulp;
+    (STEM_BF16_DIFF_FRAC); dW's error against the plain version is
+    printed in each turn;
   * NMS on the problems of a batch-8 832x1344 served forward (recorded by
     the first turn): the box head's [8, 4096] through ``nms_keep``, and
     the RPN's five levels through ``nms_keep_levels`` where the checkout
@@ -53,9 +54,10 @@ the RoIAlign forwards' bits, the level quantizer's codes and scales, and
 the bottleneck pair's codes, scale, zero point and dequantized floats must
 also agree between the checkouts.  The
 stem outputs are held to their plain versions with chip_smoke's
-STEM_FWD_TOL and STEM_DW_TOL, dW must repeat bit for bit, and the new
-checkout's forwards must agree with the old one's (saved by the first
-turn to a temporary directory) within STEM_FWD_TOL.  In the last
+STEM_FWD_TOL and STEM_DW_TOL, dW must repeat bit for bit, and the
+forwards (float32 and bfloat16, output and residual) and the float32 dW
+must equal the first turn's (saved to a temporary directory) bit for bit
+in every later turn.  In the last
 turn of the new checkout, if its wrapper picks a channel width
 (``vector_width``), each case is timed again at every width its kernel
 takes, and the passes are timed apart: the backward's zeroing of its
@@ -91,8 +93,8 @@ from chip_smoke import (BUCKETS, EVAL_BATCH, INT8_CALIB_IMAGES, ORG_BATCH,
                         ROI_TOL, SEED, STEM_BF16_DIFF_FRAC, STEM_DW_TOL,
                         STEM_FWD_TOL, TRAIN_BATCH, TRAIN_ROIS, bf16_ulp,
                         box_mix, gpu_name_and_power, kernel_device_ms, log,
-                        quant_input, serving_batches, serving_model,
-                        stem_inputs, time_ms, timings)
+                        quant_input, sass_hmma, serving_batches,
+                        serving_model, stem_inputs, time_ms, timings)
 
 HERE = Path(__file__).resolve().parent
 TURNS = ("old", "new", "new", "old")
@@ -197,11 +199,24 @@ def stem_cases(tree: Path, dev: torch.device, saved: Path):
     its plain version (float32 within STEM_FWD_TOL; the bf16 forwards
     within one bf16 ulp of the largest output with at most
     STEM_BF16_DIFF_FRAC of the elements differing; dW within STEM_DW_TOL),
-    dW repeated, the forwards saved to ``saved`` when the other checkout's
-    are not there yet and held to them when they are (float32 within
-    STEM_FWD_TOL, bf16 within one bf16 ulp).  Yields the records."""
+    dW repeated, the forwards and the float32 dW saved to ``saved`` by the
+    first turn and held to them bit for bit by the later ones.  Yields the
+    records."""
+    from hnd_ghnd_tpu_torch import _build
     from hnd_ghnd_tpu_torch.ops import stem as ts
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
+    _build.load()
+    # ptxas's registers and spills of the stem kernels (where this turn
+    # built the library) and their tensor-core instructions
+    kernel = ""
+    for line in _build.build_info["log"].splitlines():
+        if "entry function" in line:
+            kernel = line
+        elif "stem" in kernel and ("registers" in line or "spill" in line):
+            log(f"[ab {tree.name}] {kernel.strip()}: {line.strip()}")
+    for name, n in (sass_hmma(_build.build_info["path"]) or {}).items():
+        if "stem" in name:
+            log(f"[ab {tree.name}] {n} HMMA in {name}")
     for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         bf16 = dtype == torch.bfloat16
         for bucket in BUCKETS:
@@ -241,19 +256,23 @@ def stem_cases(tree: Path, dev: torch.device, saved: Path):
                     if n > STEM_BF16_DIFF_FRAC * b.numel():
                         raise AssertionError(f"{name}{suffix} {shape}: {n} "
                                              "elements differ")
+            # across the checkouts the forwards (both dtypes) and the
+            # float32 dW must be the same bits; bf16 dW is held to the plain
+            # version only (its kernel may differ between the checkouts)
             file = saved / f"stem{suffix}_{bucket[0]}x{bucket[1]}.pt"
+            same = ("stem_fwd", "stem_fwd_res", "stem_fwd_res conv") \
+                + (() if bf16 else ("stem_dw",))
             if file.is_file():
                 other = torch.load(file, map_location=dev)
-                for name in ("stem_fwd", "stem_fwd_res conv"):
-                    gap = float((outs[name][0].float()
-                                 - other[name].float()).abs().max())
-                    if gap > outs[name][2]:
+                for name in same:
+                    if not torch.equal(outs[name][0], other[name]):
+                        gap = float((outs[name][0].float()
+                                     - other[name].float()).abs().max())
                         raise AssertionError(f"{name}{suffix} {shape}: the "
                                              f"checkouts differ by {gap}")
-                    errs[f"{name} vs other checkout"] = gap
+                    errs[f"{name} vs other checkout"] = "bits equal"
             else:
-                torch.save({"stem_fwd": got, "stem_fwd_res conv": got_conv},
-                           file)
+                torch.save({name: outs[name][0] for name in same}, file)
             del want, conv, got_res, got_conv, want_dw
             calls = {"stem_fwd": lambda: SK.stem_fwd(x, w, scale, bias),
                      "stem_fwd_res": lambda: SK.stem_fwd_res(x, w, scale,
@@ -266,7 +285,8 @@ def stem_cases(tree: Path, dev: torch.device, saved: Path):
                     f"({rec['device_ms']:.4f} on the card)")
                 yield rec
             log(f"[ab {tree.name}] stem{suffix} {shape} max abs errors: "
-                f"{errs}")
+                f"{errs}; dW from the plain version {errs['stem_dw']:.3e} "
+                f"(bound {outs['stem_dw'][2]:.3e})")
             del x, g, got, dw
             torch.cuda.empty_cache()
 

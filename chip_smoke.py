@@ -310,6 +310,11 @@ STEM_DW_TOL = 1e-4             # x max |plain dW|
 # the plain version's (0 measured on all four shapes; a weight left
 # unrounded flips about a fifth of them, and stays within one ulp)
 STEM_BF16_DIFF_FRAC = 1e-4
+# the cancelling stem input (x mean, x spread, cotangent spread): x like a
+# normalised image with a large positive mean and a small zero-mean
+# cotangent, so that the sums of |x g| behind each dW element are ~1e3
+# times |dW| (where the tensor cores' accumulation error shows)
+STEM_CANCEL = (2.0, 0.5, 1e-3)
 REPS = 25                      # timed runs per kernel; the median is kept
 # ~5 ms of the card's clock: longer than the host takes to enqueue any
 # kernel's call with its wrapper's checks (time_ms's device reading)
@@ -479,6 +484,25 @@ def gpu_name_and_power() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_hmma(library: str):
+    """Tensor-core instructions (HMMA) in the SASS of each kernel of
+    ``library`` that has any, by kernel name, counted by ``cuobjdump
+    -sass`` beside nvcc; None where cuobjdump is missing."""
+    from hnd_ghnd_tpu_torch import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+        elif name is not None and "HMMA" in line:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
 
 
 def time_ms(fn, spin: bool = False) -> float:
@@ -690,12 +714,31 @@ def stem_inputs(gen: torch.Generator, shape, device: torch.device):
     return x, w, scale, bias
 
 
+def stem_dw_errors(x, g, dw, shape) -> None:
+    """Logs, for bfloat16 x and g, the largest error of the tensor-core dW
+    (``dw``) and of the float32 FMA loop on the same widened operands (the
+    bf16 dW before the tensor cores), as shares of the largest float64
+    gradient."""
+    from hnd_ghnd_tpu_torch.ops import stem as ts
+    from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
+    exact = ts.stem_weight_grad(x.double(), g.double())
+    top = float(exact.abs().max())
+
+    def share(d):
+        return float((d.double() - exact).abs().max()) / top
+
+    fma = SK.stem_dw(x.float(), g.float())
+    log(f"[stem] stem_dw_bf16 {shape}: error from float64, tensor cores "
+        f"{share(dw):.3e}, FMA loop {share(fma):.3e} of max |dW|")
+
+
 def stem_kernels_phase(dev: torch.device, kernels: dict) -> None:
     """The three stem kernels against their plain versions at the distill
     step's shapes (batch 4 on both buckets), on a ragged shape (33 x 50
-    outputs: a partial tile in each direction) and on one with W/2 odd
-    whose tiles no persistent grid divides (65 x 673 outputs, 594 tiles),
-    timed at both buckets; in float32, then with bfloat16 activations (R12:
+    outputs: a partial tile in each direction), on one with W/2 odd whose
+    tiles no persistent grid divides (65 x 673 outputs, 594 tiles) and on
+    the cancelling input (STEM_CANCEL) at batch 4 on 832x1344, timed at
+    both buckets; in float32, then with bfloat16 activations (R12:
     rows ``*_bf16``, the forwards within one bf16 ulp of the plain
     version's largest value and at most STEM_BF16_DIFF_FRAC of their
     elements differing from it, dW within STEM_DW_TOL; the library calls
@@ -705,21 +748,31 @@ def stem_kernels_phase(dev: torch.device, kernels: dict) -> None:
     import torch.nn.functional as F
     from hnd_ghnd_tpu_torch.ops import stem as ts
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
+    # (shape, cancelling): the last case is STEM_CANCEL's input at the
+    # distill step's shape
     shapes = [(TRAIN_BATCH, 3) + BUCKETS[0], (TRAIN_BATCH, 3) + BUCKETS[1],
               (2, 3, 66, 100), (3, 3, 130, 1346)]
     for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         gen = torch.Generator(device=dev).manual_seed(SEED)
         bf16 = dtype == torch.bfloat16
-        for shape in shapes:
+        for shape, cancel in [(s, False) for s in shapes] + [(shapes[0],
+                                                              True)]:
             x, w, scale, bias = stem_inputs(gen, shape, dev)
+            if cancel:
+                x = STEM_CANCEL[0] + STEM_CANCEL[1] * x
             x = x.to(dtype)
             want, conv = ts.stem_forward(x, w, scale, bias, with_conv=True)
             got = SK.stem_fwd(x, w, scale, bias)
             got_res, got_conv = SK.stem_fwd_res(x, w, scale, bias)
-            g = torch.randn(conv.shape, generator=gen, device=dev).to(dtype)
+            g = torch.randn(conv.shape, generator=gen, device=dev)
+            g = (g * STEM_CANCEL[2] if cancel else g).to(dtype)
             dw = SK.stem_dw(x, g)
             want_dw = ts.stem_weight_grad(x, g)
             torch.cuda.synchronize()
+            if cancel:
+                shape = f"{shape} cancelling"
+            if bf16:
+                stem_dw_errors(x, g, dw, shape)
 
             def err(a, b):
                 return float((a.float() - b.float()).abs().max())
@@ -773,7 +826,7 @@ def stem_kernels_phase(dev: torch.device, kernels: dict) -> None:
                         f"{e:.3e} (bound {b:.3e})")
                     check(e <= b, f"{name}{suffix} {shape}: {e} > {b}")
                 errs[name] = (max(e for e, _ in pairs),)
-            if shape not in shapes[:2]:
+            if cancel or shape not in shapes[:2]:
                 continue
             times = {
                 "stem_fwd": (timings(lambda: SK.stem_fwd(x, w, scale, bias)),
@@ -4914,6 +4967,15 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
     check(lib is not None, "kernel library did not load")
+    # the bf16 stem dW runs on the tensor cores: its SASS has HMMA
+    hmma = sass_hmma(_build.build_info["path"])
+    if hmma is None:
+        log("[build] cuobjdump not found: HMMA not counted")
+    else:
+        for name, n in hmma.items():
+            log(f"[build] {n} HMMA in {name}")
+        check(any("stem_dw_mma_kernel" in k for k in hmma),
+              "no HMMA in stem_dw_mma_kernel's SASS")
 
     # ---------------------------------------------------------- 3. kernels
     # float32 with TF32 off everywhere, the plain versions included

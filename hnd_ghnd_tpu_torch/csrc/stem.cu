@@ -6,7 +6,7 @@
 // also writes the pre-affine conv for the backward) and _stem_dw_kernel
 // (the weight gradient, pallas_call at :204).
 //
-// Bound on the H100 at batch 4, 832x1344 (the GHND distill bucket):
+// Bound on the H100 at batch 4, 832x1344 (the GHND distill bucket), float32:
 // operations.  Each of the three computes 4 * 416 * 672 * 64 * 147 =
 // 10.5 G multiply-adds (21.0 GFLOP), 0.31 ms at the 67 TFLOP/s of fp32
 // outside the tensor cores.  The bytes take less: the forward reads 54 MB
@@ -55,27 +55,45 @@
 //     [64, 147] partial; a second pass adds the partials in block order.
 //     No float atomics: repeated steps give the same bits.
 //
-//   bfloat16 (R12): JAX's Pallas stem runs in the input's dtype.  With bf16
-//     x the weights are rounded to bf16 as they are staged (JAX's
-//     .astype(x.dtype)), the output and the pre-affine conv are stored in
-//     bf16, and dW takes bf16 x and cotangent; scale, bias and dW stay
-//     float32.  A bf16 x bf16 product is exact in float32, so the same
-//     float32 FMA main loop computes JAX's function: only the staging
-//     (a load and a widening, since cp.async moves 4 bytes at least: each
-//     thread loads all of its elements, then stores them) and the stores
-//     differ.  Bound at batch 4, 832x1344: bytes, 0.051 ms forward and dW,
-//     0.093 ms with the bf16 residual; 21.0 GFLOP at the bf16 tensor-core
-//     rate is 0.021 ms, but this loop runs on the float32 FMA units (0.31
-//     ms), so it stays far from the bound.  A tensor-core version ran
-//     twice as fast, but more than STEM_BF16_DIFF_FRAC of its outputs on
-//     a small input landed on the other bf16 neighbour of the plain
-//     version's (its summation order and rounding both differ from this
-//     loop's K-sequential float32 sum; which of the two moves them is not
-//     measured), so this loop stays.
-//
-// Sums run in another order than cuDNN's or the CPU's: the forward agrees
-// with its plain version to ~1e-6 of the largest output, dW to ~1e-5 of
-// the largest gradient.  Build without --use_fast_math.
+//   bfloat16 (R12, R13): JAX's Pallas stem runs in the input's dtype.  With
+//     bf16 x the weights are rounded to bf16 (JAX's .astype(x.dtype)), the
+//     output and the pre-affine conv are stored in bf16, and dW takes bf16
+//     x and cotangent; scale, bias and dW stay float32.  Bounds at batch 4,
+//     832x1344: bytes, 0.0507 ms forward and dW, 0.0935 ms with the bf16
+//     residual; 21.0 GFLOP at the bf16 tensor-core rate is 0.021 ms.
+//   bf16 forward: the float32 FMA loop above (a bf16 x bf16 product is
+//     exact in float32; the bf16 is widened as it is staged, by loads into
+//     registers since cp.async moves 4 bytes at least), bit-equal to the
+//     plain version on every tested shape: 0.56 / 0.57 ms on the card, 9%
+//     / 16% of the bound.  It stays because its bits are the contract.  A
+//     tensor-core forward with an exact repair was measured and not kept
+//     (ROADMAP R13): it equalled this loop bit for bit, but recomputed
+//     1.1% of the outputs (3.4% with the residual) on the FMA units and
+//     took 0.62 / 0.77 ms.
+//   bf16 dW (stem_dw_mma_kernel): a GEMM on the tensor cores, mma.sync
+//     m16n8k16 bf16 -> float32 with M = 64 channels (A: the cotangent), N =
+//     the 21 (c, ky) rows of the filter as n8 tiles of 8 taps (kx 0..6 and
+//     a discarded one; B: the input), K = the pixels.  Bound by bytes: it
+//     streams g (143 MB) and x (27 MB).  One block per SM walks tiles of
+//     8 x 32 outputs; 4 load warps copy each tile's cotangent by 16-byte
+//     cp.async (a ring of three, chunks XOR-swizzled for conflict-free
+//     ldmatrix) and its input columns as they are, then build the window's
+//     two parity planes of 4-byte pixel pairs (every tap's B fragment one
+//     aligned 32-bit load); 7 MMA warps (3 filter rows x 64 channels each)
+//     run the 16 k steps of a tile back to back, handed each tile through
+//     named barriers.  The sums are promoted into float32 registers
+//     (__fadd_rn) every 8 k steps: promoting at all took the error on the
+//     cancelling case from ~8e-6 to ~5e-7 of the largest gradient, more
+//     often than every 8 steps did not lower it further (PERF.md; the
+//     interval is kMmaPromote).  The per-block partials and the reduce
+//     are the float32 kernel's, so repeated calls give the same bits.
+//     0.11 ms on the card, 46% of the bound (0.64 ms for the FMA loop it
+//     replaced; chip_roi_ab.py in turns, H100 80GB HBM3 at 700 W).
+
+// Sums run in another order than cuDNN's or the CPU's: the float32
+// forward agrees with its plain version to ~1e-6 of the largest output, dW
+// (float32 and bf16) to ~1e-5 of the largest gradient.  Build without
+// --use_fast_math.
 
 #include <atomic>
 #include <cstdint>
@@ -404,11 +422,9 @@ stem_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
 // cotangent as [pixel][64], chunk k (channels 4k .. 4k+3) of pixel p at
 // 4 * (k ^ (p & 7)); warp k copies chunk k, 8 pixels x 4 channels at a
 // time, so the 32 words land in 32 banks.  Then the input window
-// (window_async, 69 columns a row).  bfloat16 is loaded and widened as
-// window_async does it.
-template <typename T>
-__device__ __forceinline__ void dw_tile_async(const T* __restrict__ x,
-                                              const T* __restrict__ g,
+// (window_async, 69 columns a row).
+__device__ __forceinline__ void dw_tile_async(const float* __restrict__ x,
+                                              const float* __restrict__ g,
                                               int H, int W, Tile t,
                                               float* stage) {
   const int OH = H / 2;
@@ -417,45 +433,27 @@ __device__ __forceinline__ void dw_tile_async(const T* __restrict__ x,
   const int lane = threadIdx.x & 31;
   const int chunk = threadIdx.x >> 5;
   const int px8 = lane >> 2;                   // p & 7
-  const T* gb = g + (size_t)t.b * kCout * plane;
-  const T* go = gb + (4 * chunk + (lane & 3)) * plane;
+  const float* gb = g + (size_t)t.b * kCout * plane;
+  const float* go = gb + (4 * chunk + (lane & 3)) * plane;
   float* dst = stage + px8 * kCout + 4 * (chunk ^ px8) + (lane & 3);
-  if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-    for (int row = 0; row < kDwTR; ++row) {
-      const int oy = t.oy0 + row;
+  for (int row = 0; row < kDwTR; ++row) {
+    const int oy = t.oy0 + row;
 #pragma unroll
-      for (int px = 0; px < kTC; px += 8) {
-        const int ox = t.ox0 + px + px8;
-        const bool in = oy < OH && ox < OW;
-        cp_async_f32(dst + (row * kTC + px) * kCout,
-                     in ? go + (size_t)oy * OW + ox : gb, in);
-      }
+    for (int px = 0; px < kTC; px += 8) {
+      const int ox = t.ox0 + px + px8;
+      const bool in = oy < OH && ox < OW;
+      cp_async_f32(dst + (row * kTC + px) * kCout,
+                   in ? go + (size_t)oy * OW + ox : gb, in);
     }
-  } else {
-    __nv_bfloat16 v[kDwTR][kTC / 8];
-#pragma unroll
-    for (int row = 0; row < kDwTR; ++row) {
-      const int oy = t.oy0 + row;
-#pragma unroll
-      for (int px = 0; px < kTC; px += 8) {
-        const int ox = t.ox0 + px + px8;
-        v[row][px / 8] = oy < OH && ox < OW ? go[(size_t)oy * OW + ox]
-                                            : __float2bfloat16_rn(0.0f);
-      }
-    }
-#pragma unroll
-    for (int row = 0; row < kDwTR; ++row)
-#pragma unroll
-      for (int px = 0; px < kTC; px += 8)
-        dst[(row * kTC + px) * kCout] = __bfloat162float(v[row][px / 8]);
   }
   window_async<kDwWR, kDwCols, false, kDwThreads>(x, H, W, t, stage + kGTile);
 }
 
-template <typename T>
+// float32 dW on the FMA units.
 __global__ void __launch_bounds__(kDwThreads, 1)
-stem_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
+stem_dw_partial_kernel(const float* __restrict__ x,
+                       const float* __restrict__ g,
                        float* __restrict__ partials, int B, int H, int W) {
   extern __shared__ float4 smem4[];
   float* stages = reinterpret_cast<float*>(smem4);  // two of kDwStage
@@ -557,6 +555,367 @@ stem_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+// bf16 dW on the tensor cores: dW[co][tap] = sum over pixels of
+// g[co][p] * patch[p][tap], a GEMM with M = 64 channels, N = the 21 (c, ky)
+// rows of the filter, each an n8 tile (kx 0..6 and a discarded eighth tap),
+// and K = the pixels, 16 a k step of mma.sync m16n8k16 (bf16 in, float32
+// out).  A tile is kMmaTR output rows x kTC columns (kMmaSteps k steps).
+constexpr int kMmaTR = 8;                      // output rows per tile
+constexpr int kMmaPix = kMmaTR * kTC;          // 256 pixels a tile
+constexpr int kMmaSteps = kMmaPix / 16;        // 16 k steps a tile
+constexpr int kMmaWR = 2 * kMmaTR + kK - 2;    // 21 window rows a channel
+constexpr int kMmaMT = kCout / 16;             // 4 m tiles, all in a warp
+constexpr int kMmaWarps = 7;                   // the MMA warps
+constexpr int kMmaRows = kTapRows / kMmaWarps; // 3 filter rows (n tiles) each
+constexpr int kMmaLoadWarps = 4;               // copy and build the planes
+constexpr int kMmaMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaLoadThreads = 32 * kMmaLoadWarps;
+constexpr int kMmaThreads = kMmaMmaThreads + kMmaLoadThreads;
+// the cotangent tile: [64 channels][256 pixels] bf16, a 512-byte row of 32
+// chunks of 8 pixels, chunk k of channel co at (k ^ (co & 7)): the 8 rows
+// an ldmatrix phase reads (8 channels, one chunk) fall in 8 bank groups
+constexpr int kMmaGBytes = kCout * kMmaPix * 2;          // 32768
+// the input window: per (c, window row) two planes of 36 words, the even
+// columns' at word 0 and the odd columns' at word 48 (16 banks apart: a
+// fragment load's lanes read words 0..9 of each, conflict-free); word i
+// of a plane holds its elements i and i + 1 (lower half first), so the
+// pair of pixels (p, p + 1) of tap kx is word p + (kx >> 1) of plane kx & 1,
+// 4-byte aligned for every tap
+constexpr int kMmaPlaneO = 48;                 // words
+constexpr int kMmaPlaneWords = 36;
+constexpr int kMmaPitch = kMmaPlaneO + kMmaPlaneWords;   // 84 words a row
+constexpr int kMmaWinRows = kCin * kMmaWR;               // 63
+constexpr int kMmaWinBytes = kMmaWinRows * kMmaPitch * 4;
+// the planes' source, copied asynchronously: per window row image columns
+// 2*ox0 - 8 .. 2*ox0 + 71 as they are (ten 16-byte chunks), so that word
+// m + 2 holds columns 2*ox0 - 4 + 2m and +1: odd-plane element m - 1 and
+// even-plane element m
+constexpr int kMmaRawWords = 40;
+constexpr int kMmaRawBytes = kMmaWinRows * kMmaRawWords * 4;
+constexpr int kMmaXWords = kMmaPlaneWords;               // m = 0..35
+// rings: three cotangent tiles (one read by the MMA warps while the next
+// two are copied), two planes (one read, one built), two sets of columns
+// (one built into planes while the next is copied)
+constexpr int kMmaGRing = 3;
+constexpr int kMmaWinRing = 2;
+constexpr int kMmaRawRing = 2;
+static_assert(kMmaGRing == 3 && kMmaWinRing == 2 && kMmaRawRing == 2,
+              "the load warps' waits assume these rings");
+constexpr int kMmaSmem = kMmaGRing * kMmaGBytes + kMmaWinRing * kMmaWinBytes +
+                         kMmaRawRing * kMmaRawBytes;
+// promote the tensor cores' sums into float32 registers (__fadd_rn) every
+// this many k steps (128 pixels)
+constexpr int kMmaPromote = 8;
+static_assert(kMmaRows * kMmaWarps == kTapRows, "3 filter rows a warp");
+static_assert(kMmaPix % 16 == 0 && kTC % 16 == 0, "k steps within a row");
+static_assert(kMmaTR >= kDwTR, "bad_shape counts the tiles of kDwTR rows");
+
+// 16 bytes from global to shared memory, asynchronously; zero when !in.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// The A fragments of an m16n8k16 product from shared memory: lane l gives
+// the address of row l & 7 of matrix l >> 3.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&a)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(s)
+      : "memory");
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, float32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// How a stage's input columns are copied: 16-byte chunks (W % 8 == 0 and
+// x 16-byte aligned), 4-byte words (x 4-byte aligned), or loaded and stored
+// by the threads.
+enum MmaCopy { kCopyWords = 0, kCopy4 = 1, kCopy16 = 2 };
+
+// Start copying the input columns of the window rows of tile t (kTileRows
+// output rows) into raw (kMmaRawWords a row) as `copy` says (zero outside
+// the image), with the kThreads threads from kFirst on.
+template <int kThreads, int kTileRows, int kFirst = 0>
+__device__ __forceinline__ void mma_x_async(
+    const __nv_bfloat16* __restrict__ x, int H, int W, Tile t, int copy,
+    unsigned char* raw) {
+  constexpr int kWR = 2 * kTileRows + kK - 2;
+  const int tid = threadIdx.x - kFirst;
+  constexpr int kRows = kCin * kWR;
+  const unsigned short* xb = reinterpret_cast<const unsigned short*>(x) +
+                             (size_t)t.b * kCin * H * W;
+  if (copy == kCopy16) {
+    constexpr int kRowCopies = kMmaRawWords / 4;
+    for (int i = tid; i < kRows * kRowCopies; i += kThreads) {
+      const int row = i / kRowCopies;
+      const int k = i % kRowCopies;
+      const int c = row / kWR;
+      const int gy = 2 * t.oy0 - 3 + row - c * kWR;
+      const int gx = 2 * t.ox0 - 8 + 8 * k;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      cp_async16(raw + (row * kMmaRawWords + 4 * k) * 4,
+                 in ? xb + ((size_t)c * H + gy) * W + gx : xb, in);
+    }
+  } else {
+    for (int i = tid; i < kRows * kMmaXWords; i += kThreads) {
+      const int row = i / kMmaXWords;
+      const int m = i % kMmaXWords;
+      const int c = row / kWR;
+      const int gy = 2 * t.oy0 - 3 + row - c * kWR;
+      const int gx = 2 * t.ox0 - 4 + 2 * m;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const unsigned short* p = xb + ((size_t)c * H + gy) * W + gx;
+      unsigned char* dst = raw + (row * kMmaRawWords + m + 2) * 4;
+      if (copy == kCopy4) {
+        cp_async_f32(reinterpret_cast<float*>(dst),
+                     reinterpret_cast<const float*>(in ? p : xb), in);
+      } else {
+        *reinterpret_cast<unsigned*>(dst) =
+            in ? p[0] | (unsigned)p[1] << 16 : 0u;
+      }
+    }
+  }
+}
+
+// Start copying tile t's cotangent into gs with the load warps: 64 x 32
+// chunks of 8 pixels, by cp.async when every row of g is 16-byte aligned
+// (vec), else loaded and stored (zero outside the image).  A load thread
+// keeps one chunk position and steps over the channels.
+__device__ __forceinline__ void mma_g_async(const __nv_bfloat16* __restrict__ g,
+                                            int H, int W, Tile t, bool vec,
+                                            unsigned char* gs) {
+  constexpr int kChunks = kMmaPix / 8;          // of a channel
+  constexpr int kStep = kMmaLoadThreads / kChunks;  // channels a pass
+  static_assert(kMmaLoadThreads % kChunks == 0, "whole channels a pass");
+  const int OH = H / 2;
+  const int OW = W / 2;
+  const size_t plane = (size_t)OH * OW;
+  const int lt = threadIdx.x - kMmaMmaThreads;
+  const int chunk = lt % kChunks;
+  const int oy = t.oy0 + chunk / (kTC / 8);
+  const int ox = t.ox0 + 8 * (chunk % (kTC / 8));
+  const __nv_bfloat16* gb = g + (size_t)t.b * kCout * plane;
+  const __nv_bfloat16* src = gb + (lt / kChunks) * plane + (size_t)oy * OW + ox;
+#pragma unroll 4
+  for (int co = lt / kChunks; co < kCout; co += kStep, src += kStep * plane) {
+    unsigned char* dst = gs + co * (kMmaPix * 2) + 16 * (chunk ^ (co & 7));
+    if (vec) {
+      const bool in = oy < OH && ox < OW;
+      cp_async16(dst, in ? src : gb, in);
+    } else {
+      unsigned short v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = oy < OH && ox + e < OW
+                   ? reinterpret_cast<const unsigned short*>(src)[e]
+                   : 0;
+      uint4 u;
+      u.x = v[0] | (unsigned)v[1] << 16;
+      u.y = v[2] | (unsigned)v[3] << 16;
+      u.z = v[4] | (unsigned)v[5] << 16;
+      u.w = v[6] | (unsigned)v[7] << 16;
+      *reinterpret_cast<uint4*>(dst) = u;
+    }
+  }
+}
+
+// Build the two planes per window row in ws from the copied columns in raw
+// with the load warps, two words of each plane an item: raw word m + 2
+// holds odd-plane element m - 1 (low half) and even-plane element m (high
+// half), so even word i is the high halves of raw words i + 2 and i + 3,
+// odd word i the low halves of raw words i + 3 and i + 4.
+__device__ __forceinline__ void mma_planes(const unsigned char* raw,
+                                           unsigned char* ws) {
+  constexpr int kItems = kMmaPlaneWords / 2;    // a row
+  for (int i = threadIdx.x - kMmaMmaThreads; i < kMmaWinRows * kItems;
+       i += kMmaLoadThreads) {
+    const int row = i / kItems;
+    const int m = 2 * (i % kItems);
+    const uint2* r = reinterpret_cast<const uint2*>(
+        raw + (row * kMmaRawWords + m + 2) * 4);
+    const uint2 v0 = r[0];                       // raw words m + 2, m + 3
+    const uint2 v1 = r[1];                       // m + 4, m + 5
+    unsigned* w = reinterpret_cast<unsigned*>(ws) + row * kMmaPitch + m;
+    *reinterpret_cast<uint2*>(w) =
+        make_uint2(__byte_perm(v0.x, v0.y, 0x7632),
+                   __byte_perm(v0.y, v1.x, 0x7632));
+    *reinterpret_cast<uint2*>(w + kMmaPlaneO) =
+        make_uint2(__byte_perm(v0.y, v1.x, 0x5410),
+                   __byte_perm(v1.x, v1.y, 0x5410));
+  }
+}
+
+// Named barriers between the MMA warps and the load warps: bar.sync waits
+// for the barrier's count of threads, bar.arrive counts without waiting.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// "tile j is staged" (the load warps arrive, the MMA warps wait) and "tile
+// j is consumed" (the reverse), each alternating between two ids by j's
+// parity, so that a barrier's next phase never starts before its last one
+// ended
+constexpr int kBarFull = 1;                    // ids 1, 2
+constexpr int kBarEmpty = 3;                   // ids 3, 4
+
+// One block per SM walks the tiles blockIdx.x + j gridDim.x.  The load
+// warps copy tile j + 1's cotangent and columns while tile j's are built
+// into planes, then hand tile j to the 7 MMA warps, which run the k steps
+// back to back.
+__global__ void __launch_bounds__(kMmaThreads, 1)
+stem_dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ g,
+                   float* __restrict__ partials, int B, int H, int W,
+                   bool vec, int copy) {
+  extern __shared__ float4 smem4[];
+  unsigned char* g_ring = reinterpret_cast<unsigned char*>(smem4);
+  unsigned char* win_ring = g_ring + kMmaGRing * kMmaGBytes;
+  unsigned char* raw_ring = win_ring + kMmaWinRing * kMmaWinBytes;
+  const Tiles tiles = tiles_of(B, H, W, kMmaTR);
+  const int n = tiles.n > (int)blockIdx.x
+                    ? (tiles.n - blockIdx.x + gridDim.x - 1) / gridDim.x
+                    : 0;                         // this block's tiles
+  auto tile_of = [&](int j) {
+    return tile_at(tiles, blockIdx.x + j * gridDim.x, kMmaTR);
+  };
+  const int warp = threadIdx.x >> 5;
+
+  if (warp >= kMmaWarps) {
+    // the load warps: copy tile j + 1, build tile j's planes, hand it over
+    auto copy_tile = [&](int j) {
+      if (j < n) {
+        const Tile t = tile_of(j);
+        mma_g_async(g, H, W, t, vec, g_ring + (j % kMmaGRing) * kMmaGBytes);
+        mma_x_async<kMmaLoadThreads, kMmaTR, kMmaMmaThreads>(
+            x, H, W, t, copy, raw_ring + (j % kMmaRawRing) * kMmaRawBytes);
+      }
+      cp_async_commit();
+    };
+    copy_tile(0);
+#pragma unroll 1
+    for (int j = 0; j < n; ++j) {
+      // tile j - 2 is consumed: its cotangent buffer takes tile j + 1,
+      // its planes buffer tile j's; and every load warp is done with tile
+      // j - 1's columns, whose buffer takes tile j + 1's
+      if (j >= 2)
+        bar_sync(kBarEmpty + (j & 1), kMmaThreads);
+      else
+        bar_sync(5, kMmaLoadThreads);
+      copy_tile(j + 1);
+      cp_async_wait<1>();                        // tile j's copies
+      bar_sync(5, kMmaLoadThreads);              // every load warp's copies
+      mma_planes(raw_ring + (j % kMmaRawRing) * kMmaRawBytes,
+                 win_ring + (j % kMmaWinRing) * kMmaWinBytes);
+      bar_arrive(kBarFull + (j & 1), kMmaThreads);
+    }
+    cp_async_wait<0>();
+    for (int j = n > 2 ? n - 2 : 0; j < n; ++j)
+      bar_sync(kBarEmpty + (j & 1), kMmaThreads);
+    return;
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;                      // fragment row / column
+  const int q = lane & 3;
+
+  float tot[kMmaMT][kMmaRows][4];
+  float acc[kMmaMT][kMmaRows][4];
+#pragma unroll
+  for (int m = 0; m < kMmaMT; ++m)
+#pragma unroll
+    for (int j = 0; j < kMmaRows; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[m][j][e] = acc[m][j][e] = 0.0f;
+
+  // B fragment offsets (words) of this lane's tap kx = gq in a window row,
+  // pixels 2q, 2q + 1 of a k step; and each n tile's window row base
+  const int b_off = (gq & 1) * kMmaPlaneO + 2 * q + (gq >> 1);
+  int b_row[kMmaRows];
+#pragma unroll
+  for (int j = 0; j < kMmaRows; ++j) {
+    const int rho = kMmaRows * warp + j;         // c * 7 + ky
+    b_row[j] = ((rho / kK) * kMmaWR + rho % kK) * kMmaPitch + b_off;
+  }
+  // A: ldmatrix row of this lane (channel within an m tile) and chunk
+  const int a_co = ((lane >> 3) & 1) * 8 + (lane & 7);
+  const int a_chunk = lane >> 4;
+
+  int since = 0;                                 // k steps since a promotion
+#pragma unroll 1
+  for (int t = 0; t < n; ++t) {
+    bar_sync(kBarFull + (t & 1), kMmaThreads);
+    const unsigned char* gs = g_ring + (t % kMmaGRing) * kMmaGBytes;
+    const unsigned* ws = reinterpret_cast<const unsigned*>(
+        win_ring + (t % kMmaWinRing) * kMmaWinBytes);
+#pragma unroll 4
+    for (int s = 0; s < kMmaSteps; ++s) {
+      const int r = s / (kTC / 16);              // tile row
+      const int px0 = (s % (kTC / 16)) * 16;     // first pixel of the step
+      unsigned b[kMmaRows][2];
+#pragma unroll
+      for (int j = 0; j < kMmaRows; ++j) {
+        const unsigned* p = ws + b_row[j] + 2 * r * kMmaPitch + px0;
+        b[j][0] = p[0];
+        b[j][1] = p[8];
+      }
+      const int chunk = (kTC / 8) * r + px0 / 8 + a_chunk;
+#pragma unroll
+      for (int m = 0; m < kMmaMT; ++m) {
+        const int co = 16 * m + a_co;
+        unsigned a[4];
+        ldmatrix_x4(a, gs + co * (kMmaPix * 2) + 16 * (chunk ^ (co & 7)));
+#pragma unroll
+        for (int j = 0; j < kMmaRows; ++j) mma_bf16(acc[m][j], a, b[j][0],
+                                                    b[j][1]);
+      }
+      if (++since == kMmaPromote) {
+        since = 0;
+#pragma unroll
+        for (int m = 0; m < kMmaMT; ++m)
+#pragma unroll
+          for (int j = 0; j < kMmaRows; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              tot[m][j][e] = __fadd_rn(tot[m][j][e], acc[m][j][e]);
+              acc[m][j][e] = 0.0f;
+            }
+      }
+    }
+    bar_arrive(kBarEmpty + (t & 1), kMmaThreads);
+  }
+
+  // this block's [64, 147] partial: lane (gq, q) holds channels gq, gq + 8
+  // of each m tile at taps kx = 2q, 2q + 1 of each of its filter rows
+  float* out = partials + (size_t)blockIdx.x * kCout * kTaps;
+#pragma unroll
+  for (int m = 0; m < kMmaMT; ++m)
+#pragma unroll
+    for (int j = 0; j < kMmaRows; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int co = 16 * m + gq + (e >> 1) * 8;
+        const int kx = 2 * q + (e & 1);
+        if (kx < kK)
+          out[co * kTaps + (kMmaRows * warp + j) * kK + kx] =
+              __fadd_rn(tot[m][j][e], acc[m][j][e]);
+      }
+}
+
 // dw[i] = sum of the partials in block order (a fixed order).
 __global__ void stem_dw_reduce_kernel(const float* __restrict__ partials,
                                       int n_partials, float* __restrict__ dw) {
@@ -571,6 +930,7 @@ __global__ void stem_dw_reduce_kernel(const float* __restrict__ partials,
 
 bool bad_shape(int B, int H, int W) {
   if (B <= 0 || H < 2 || W < 2 || (H & 1) || (W & 1)) return true;
+  // the most tiles: those of the fewest rows
   const Tiles t = tiles_of(1, H, W, kDwTR < kTR ? kDwTR : kTR);
   return (int64_t)B * t.tx * t.ty > (int64_t)INT32_MAX;
 }
@@ -611,7 +971,6 @@ cudaError_t opt_in_smem(Kernel kernel, int bytes,
 // The shared-memory opt-in of each instantiation, per device.
 template <bool kWithConv, typename T>
 std::atomic<unsigned> fwd_ready{0};
-template <typename T>
 std::atomic<unsigned> dw_ready{0};
 
 template <typename T>
@@ -639,16 +998,43 @@ cudaError_t launch_fwd(const void* x, const float* w, const float* scale,
   return cudaGetLastError();
 }
 
+std::atomic<unsigned> dw_mma_ready{0};
+
+// The persistent grid of dW's partial pass for x's type: float32 one block
+// per SM over tiles of kDwTR rows; bfloat16 (the tensor cores)
+// one block per SM over tiles of kMmaTR rows.
+template <typename T>
+cudaError_t dw_blocks(int B, int H, int W, int* blocks) {
+  return std::is_same<T, float>::value
+             ? grid_blocks(B, H, W, kDwTR, 1, blocks)
+             : grid_blocks(B, H, W, kMmaTR, 1, blocks);
+}
+
 template <typename T>
 cudaError_t launch_dw(const void* x, const void* g, float* partials,
                       float* dw, int B, int H, int W, cudaStream_t s) {
   int blocks = 0;
-  cudaError_t err = grid_blocks(B, H, W, kDwTR, 1, &blocks);
+  cudaError_t err = dw_blocks<T>(B, H, W, &blocks);
   if (err != cudaSuccess) return err;
-  err = opt_in_smem(stem_dw_partial_kernel<T>, kDwSmem, dw_ready<T>);
-  if (err != cudaSuccess) return err;
-  stem_dw_partial_kernel<T><<<blocks, kDwThreads, kDwSmem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), partials, B, H, W);
+  if constexpr (std::is_same<T, float>::value) {
+    err = opt_in_smem(stem_dw_partial_kernel, kDwSmem, dw_ready);
+    if (err != cudaSuccess) return err;
+    stem_dw_partial_kernel<<<blocks, kDwThreads, kDwSmem, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g), partials,
+        B, H, W);
+  } else {
+    err = opt_in_smem(stem_dw_mma_kernel, kMmaSmem, dw_mma_ready);
+    if (err != cudaSuccess) return err;
+    const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+    const bool vec = (W / 2) % 8 == 0 &&
+                     (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+    const int copy = W % 8 == 0 && (xa & 15) == 0 ? kCopy16
+                     : (xa & 3) == 0                ? kCopy4
+                                                    : kCopyWords;
+    stem_dw_mma_kernel<<<blocks, kMmaThreads, kMmaSmem, s>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(g), partials, B, H, W, vec, copy);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   stem_dw_reduce_kernel<<<(kCout * kTaps + 255) / 256, 256, 0, s>>>(
@@ -676,13 +1062,15 @@ int hnd_stem_fwd(const void* x, const float* w, const float* scale,
 }
 
 // Number of floats the caller must allocate for hnd_stem_dw's partials
-// (one [64, 147] sum per block of the grid); 0 if the shape is refused.
+// (one [64, 147] sum per block of the larger of the two grids); 0 if the
+// shape is refused.
 int hnd_stem_dw_partials_size(int B, int H, int W) {
-  int blocks = 0;
-  if (bad_shape(B, H, W) ||
-      grid_blocks(B, H, W, kDwTR, 1, &blocks) != cudaSuccess)
+  int f32 = 0;
+  int bf16 = 0;
+  if (bad_shape(B, H, W) || dw_blocks<float>(B, H, W, &f32) != cudaSuccess ||
+      dw_blocks<__nv_bfloat16>(B, H, W, &bf16) != cudaSuccess)
     return 0;
-  return blocks * kCout * kTaps;
+  return (f32 > bf16 ? f32 : bf16) * kCout * kTaps;
 }
 
 // x [B, 3, H, W], g [B, 64, H/2, W/2] (the conv's cotangent; both float32,

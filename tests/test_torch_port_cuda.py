@@ -662,20 +662,29 @@ def _bf16_ulp(x: float) -> float:
 # bfloat16 activations (R12): the products of bf16 operands are exact in
 # float32, so output and residual stay within one bf16 ulp of the plain
 # version's largest value (they differ only where the float32 sums, in
-# another order, round to other neighbours) and dW within STEM_DW_TOL
+# another order, round to other neighbours) and dW within STEM_DW_TOL.
+# ``cancel``: x like a normalised image with a large positive mean (2 +
+# 0.5 N(0, 1)) and a small zero-mean cotangent (1e-3 N(0, 1)), so that the
+# sums of |x g| behind each dW element are ~1e3 times |dW| (the case that
+# shows the tensor cores' accumulation error); dW's repeatability is held
+# there too.
+@pytest.mark.parametrize("cancel", [False, True])
 @pytest.mark.parametrize("shape", [(2, 66, 100), (1, 16, 34), (3, 130, 1346),
                                    (4, 832, 1344)])
-def test_stem_kernels_bf16_vs_plain(cuda, shape):
+def test_stem_kernels_bf16_vs_plain(cuda, shape, cancel):
     from hnd_ghnd_tpu_torch.ops import stem as ts
     from hnd_ghnd_tpu_torch.ops import stem_kernels as SK
     torch.backends.cudnn.allow_tf32 = False
     x, weight, scale, bias = _stem_inputs(cuda, *shape)
+    if cancel:
+        x = 2.0 + 0.5 * x
     x = x.bfloat16()
     before = SK.stem_fwd.launches[torch.bfloat16]
     want, conv = ts.stem_forward(x, weight, scale, bias, with_conv=True)
     got = SK.stem_fwd(x, weight, scale, bias)
     got_res, got_conv = SK.stem_fwd_res(x, weight, scale, bias)
-    g = torch.randn(conv.shape, device=cuda).bfloat16()
+    g = torch.randn(conv.shape, device=cuda)
+    g = (g * 1e-3 if cancel else g).bfloat16()
     dw = SK.stem_dw(x, g)
     torch.cuda.synchronize()
     assert got.dtype == got_conv.dtype == torch.bfloat16
@@ -685,8 +694,18 @@ def test_stem_kernels_bf16_vs_plain(cuda, shape):
             _bf16_ulp(float(b.float().abs().max()))
         assert int((a != b).sum()) <= STEM_BF16_DIFF_FRAC * b.numel()
     want_dw = ts.stem_weight_grad(x, g)
+    # the float32 FMA loop on the same (widened) operands, beside the
+    # tensor cores, against float64
+    exact = ts.stem_weight_grad(x.double(), g.double())
+    fma = SK.stem_dw(x.float(), g.float())
+    top = float(exact.abs().max())
+    print(f"stem_dw bf16 {shape} cancel={cancel}: tensor cores "
+          f"{float((dw - exact).abs().max()) / top:.3e}, FMA loop "
+          f"{float((fma - exact).abs().max()) / top:.3e} of max |dW| "
+          f"from float64")
     assert float((dw - want_dw).abs().max()) <= \
         STEM_DW_TOL * float(want_dw.abs().max())
+    assert torch.equal(SK.stem_dw(x, g), dw)  # no atomics: same bits
     assert SK.stem_fwd.launches[torch.bfloat16] == before + 1
     with pytest.raises(TypeError):
         SK.stem_fwd(x.half(), weight, scale, bias)
