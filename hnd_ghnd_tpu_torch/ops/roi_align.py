@@ -22,8 +22,9 @@ roi_align.py:168-173); that rounding serves the MXU, so the weights here
 stay float32 and the result is closer to the exact one.
 
 The function is differentiable in the levels: its autograd is the plain
-backward (a scatter-add of the cotangent through the same weights, into a
-float32 table that is rounded once to the levels' dtype).
+backward (a scatter-add of the cotangent through the same weights, one
+``index_add_`` a tap, into a float32 table that is rounded once to the
+levels' dtype).
 """
 from __future__ import annotations
 
@@ -178,11 +179,19 @@ def multiscale_roi_align_batch(
                 for xi, wx in ((x_lo, wx_lo), (x_hi, wx_hi)):
                     idx = (base + yi[..., sy][:, :, None] * w_stride
                            + xi[..., sx][:, None, :])  # [M, P, P]
-                    vals = table[idx.reshape(-1)].reshape(idx.shape + (c,))
+                    # index_select: its backward is one index_add_ a tap
+                    # (advanced indexing's, index_put_ with accumulate, was
+                    # ~30% of a CPU training step)
+                    vals = torch.index_select(table, 0, idx.reshape(-1))
                     w = ((wy[..., sy] * ok_y[..., sy])[:, :, None]
                          * (wx[..., sx] * ok_x[..., sx])[:, None, :] * inv)
-                    contrib = vals * w[..., None]
-                    out = contrib if out is None else out + contrib
+                    # in place, the same roundings in the same order: the
+                    # gathered rows and the sum are this loop's own (their
+                    # backward needs neither), so no [M * P * P, C] buffer
+                    # is allocated a tap; never on a view (autograd would
+                    # rebase it, and the backward ran 2x longer)
+                    contrib = vals.mul_(w.reshape(-1, 1))
+                    out = contrib if out is None else out.add_(contrib)
     out = out.reshape(b, n, output_size, output_size, c)
     if boxes_valid is not None:
         out = out * boxes_valid.to(out.dtype)[:, :, None, None, None]

@@ -16,7 +16,11 @@ native host libraries' bindings, the cost analyzer and the visualizer with
 its drawing and the JPEG codec) import none of them either: PIL, cv2 and
 yaml are imported by the functions that decode, resize, draw and load a
 config.  The slice also runs the native prep and cocomask (built with g++
-where they build), writes TensorBoard scalars and a profiler trace."""
+where they build), writes TensorBoard scalars and a profiler trace.  The
+entry scripts (``bench`` and ``tools/``) import with the host modules, and
+no source file of the package imports jax, the JAX package or the repo's
+tests anywhere in it."""
+import ast
 import os
 import shutil
 import subprocess
@@ -127,6 +131,13 @@ from hnd_ghnd_tpu_torch.runners import (coco_runner, common, cost_analyzer,
 from hnd_ghnd_tpu_torch.codec import datalogger, jpeg
 from hnd_ghnd_tpu_torch.split import deploy, int8
 from hnd_ghnd_tpu_torch.utils import visual_util
+from hnd_ghnd_tpu_torch import bench
+from hnd_ghnd_tpu_torch.data import fixtures
+from hnd_ghnd_tpu_torch.tools import (complexity_analyzer, design_helper,
+    e2e_demo, ext_demo, pipeline_bench, runner_bench)
+for tool in (bench, complexity_analyzer, design_helper, e2e_demo, ext_demo,
+             pipeline_bench, runner_bench):
+    tool.get_argparser().parse_args([])
 for name in ("load_config", "overwrite_config"):
     assert callable(getattr(config, name))
 ev = coco_eval.CocoEvaluator(None, ["bbox", "segm", "keypoints"])
@@ -140,10 +151,37 @@ visualizer.get_argparser().parse_args(["--config", "x.yaml", "--image",
 banned = sorted({m.split(".")[0] for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "hnd_ghnd_tpu",
                                         "PIL", "cv2", "yaml", "optax",
-                                        "sklearn", "pandas")})
+                                        "sklearn", "pandas", "tests",
+                                        "bench", "__graft_entry__")})
 assert not banned, banned
 print("clean")
 """
+
+
+def _imported_modules(path: Path) -> set:
+    """Every module a source file imports, at its top or in a function."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def test_package_sources_import_no_jax_package_or_tests():
+    # the whole package, its entry scripts (bench.py, tools/) included:
+    # no import of jax, of the JAX package, of the repo's tests or of its
+    # JAX-side entry scripts, even inside a function
+    banned = ("jax", "jaxlib", "hnd_ghnd_tpu", "tests", "bench",
+              "__graft_entry__", "fixtures")
+    sources = sorted((REPO / "hnd_ghnd_tpu_torch").rglob("*.py"))
+    assert REPO / "hnd_ghnd_tpu_torch" / "bench.py" in sources
+    assert len([p for p in sources if p.parent.name == "tools"]) == 7
+    for path in sources:
+        bad = [m for m in _imported_modules(path)
+               if m.split(".")[0] in banned]
+        assert not bad, (path, bad)
 
 
 def _env():
