@@ -116,8 +116,15 @@ paths, at full width with random weights and BN statistics from a seed:
     process on the concatenated batch-8 stream from the same weights; the
     stem, quantize/dequantize and f32 RoIAlign kernels launched in each
     rank; then one rank through ``mimic_runner.main`` over NCCL
-    (``--dist_url env://``, WORLD_SIZE=1).  Two ranks on one card measure
-    the path, not scaling across cards.
+    (``--dist_url env://``, WORLD_SIZE=1); then the local mode
+    (parallel/mesh.py: JAX's one-process mesh, one worker a device) with
+    its two workers sharing card 0 over gloo (``common.launch``'s
+    ``devices``), each taking its rows of the process's batch-4 batches of
+    a train split of its own (MP_LOCAL_SHAPES), against one process on
+    the same batches: losses, the first
+    reduced gradient and the parameter moves, each worker's kernel
+    launches counted in it.  Two ranks on one card measure the path, not
+    scaling across cards (chip_multicard.py does, on four).
   * the entry scripts (phase 15): ``tools/runner_bench
     .measure_runner_loop`` at bench.py's workload (the GHND b3ch student,
     bfloat16, batch 24 on 832x1344, the shipped ``distill_coco`` loop) for
@@ -483,6 +490,14 @@ MP_GRAD_TOL = 1e-4
 MP_ZERO_GRAD = ("backbone.body.layer1.decoder.3.bias",
                 "backbone.body.layer1.decoder.8.bias")
 MP_TIMEOUT_S = 600.0
+# the local mode's train split (phase 14(d)): seven landscape and three
+# portrait images, three steps at global batch 4, two of them padded
+# remainders.  Three Adam steps keep the moves inside MP_MOVE_TOL's
+# horizon: after eight (14(a)'s 28 images as one process) one process's
+# run lies 1.05e-2 from itself in a BatchNorm bias's move (cuDNN's
+# unordered sums, grown by Adam's steps on gradients of 1e-1 to 1e8),
+# after three within 1e-4
+MP_LOCAL_SHAPES = (RUNNER_SHAPES[0],) * 7 + (RUNNER_SHAPES[1],) * 3
 # the entry scripts (PR 21): the headline bench's loop at bench.py's
 # workload, short (two epochs of BENCH_STEPS, the stem switch on); the e2e
 # demo's Faster R-CNN teacher (its box mAP on the fixture at least
@@ -4658,6 +4673,37 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def _local_worker(config: dict, args, device: torch.device) -> dict:
+    """A worker of phase 14(d), started by ``common.launch``: the run of
+    ``mimic_runner`` in the local mode on its device (``mimic_runner
+    ._run``, what the launch runs), with every kernel count set to 0 just
+    before it and read just after, the first update's reduced gradient
+    norms, and the trained student.  Returns worker 0's record, the
+    workers' counts gathered."""
+    from hnd_ghnd_tpu_torch.parallel import multihost
+    from hnd_ghnd_tpu_torch.parallel.train_step import DistillStep
+    from hnd_ghnd_tpu_torch.runners import mimic_runner
+    from hnd_ghnd_tpu_torch.runners.common import configure_precision
+    os.environ["HND_TPU_PALLAS_STEM"] = "1"
+    configure_precision(torch.float32)
+    captured: dict = {}
+    _capture_distill(mimic_runner, captured)
+    grad_norms: list = []
+    _record_grad_norms(DistillStep, grad_norms)
+    zero_kernel_counts()
+    result = mimic_runner._run(config, args, device)
+    counts = multihost.all_gather_objects(kernel_counts())
+    hist = result["distill"]
+    return {"steps": [tuple(s[:3]) for s in hist["steps"]],
+            "step_ms": [s[3] for s in hist["steps"]],
+            "val_batches": hist["epochs"][0]["eval"]["batches"],
+            "test_batches": result["student"]["eval"]["batches"],
+            "counts": counts, "state": captured["state"],
+            "grad_norms": grad_norms[0].tolist(),
+            "backend": captured["backend"], "world": captured["world"],
+            "local": multihost.local_mode()}
+
+
 def spawn_ranks(target, world: int, args: tuple, timeout_s: float) -> list:
     """``target(rank, *args, results)`` in ``world`` spawned processes;
     their records in rank order.  A rank that reports a failure, exits
@@ -4735,7 +4781,8 @@ def multiprocess_phase(dev: torch.device, root: str, card: str) -> dict:
     teacher, student = runner_models(dev)
     ckpts = {}
     for name, model in (("teacher", teacher), ("student", student),
-                        ("student_a", student), ("student_c", student)):
+                        ("student_a", student), ("student_c", student),
+                        ("student_d", student)):
         ckpts[name] = os.path.join(mp_root, f"{name}.pt")
         params, state = jax_params_from_state_dict(model.state_dict())
         ckpt_util.save_ckpt(ckpts[name], params=params, state=state)
@@ -4958,8 +5005,102 @@ def multiprocess_phase(dev: torch.device, root: str, card: str) -> dict:
         f"(--dist_url env://, WORLD_SIZE=1): 1 step {steps_c[0][3]:.3f} ms, "
         f"loss {steps_c[0][1]:.6e}, val and test evals, {wall_c:.3f} s; "
         f"launches { {k: v for k, v in nccl.items() if v} }")
+
+    # ---- (d) the local mode: two workers of one process on card 0, gloo
+    fx_d = write_runner_fixture(os.path.join(mp_root, "local"),
+                                np.random.RandomState(SEED + 30),
+                                {"train": len(MP_LOCAL_SHAPES)},
+                                MP_LOCAL_SHAPES)
+    config_one = dict(config, dataset=dict(config["dataset"], splits=dict(
+        config["dataset"]["splits"], train=dict(
+            train, images=fx_d["train"][0], annotations=fx_d["train"][1]))))
+    config_d = dict(config_one, student_model=dict(STUDENT_MODEL,
+                                                   ckpt=ckpts["student_d"]))
+    args = mimic_runner.get_argparser().parse_args(
+        ["--config", GHND_YAML, "--device", "cuda", "-distill",
+         "-transform_bottleneck", "-skip_teacher_eval"])
+    t0 = time.perf_counter()
+    loc = common.launch(_local_worker, config_d, args, [dev] * MP_WORLD)
+    wall_d = time.perf_counter() - t0
+    check(loc["local"] and loc["backend"] == "gloo"
+          and loc["world"] == MP_WORLD, f"(d): group {loc['backend']} of "
+          f"{loc['world']}, local mode {loc['local']}")
+    teacher = get_model(config_one["teacher_model"], seed=SEED, device=dev)
+    student = get_model(dict(config_one["student_model"],
+                             ckpt=ckpts["student"]),
+                        seed=SEED + 1, device=dev)
+    loader = common.loaders_from_config(config_one, student.kind,
+                                        TRAIN_BATCH)[0]
+    step = mimic_runner.make_step(teacher, student, config_one, len(loader))
+    grad_norms = []
+    _record_grad_norms(step, grad_norms)
+    student.train()
+    one_d = []
+    for batch, _, _ in loader:
+        loss, terms = step(common.to_device({"images": batch["images"]},
+                                            dev))
+        one_d.append((float(loss), {k: float(v) for k, v in terms.items()}))
+    final = {n: p.detach().cpu() for n, p in student.named_parameters()
+             if p.requires_grad}
+    del teacher, student, step
+    torch.cuda.empty_cache()
+    check(len(one_d) == len(loc["steps"]) > len(loader), f"(d): the local "
+          f"workers ran {len(loc['steps'])} steps, one process "
+          f"{len(one_d)} (len(loader) {len(loader)}: every batch runs, "
+          "the padded remainders too)")
+    for i, ((loss, terms), (_, l_loss, l_terms)) in enumerate(
+            zip(one_d, loc["steps"])):
+        tol = LOSS_TOL_FIRST if i == 0 else LOSS_TOL_LATER
+        for name, a, b in [("loss", l_loss, loss)] + [
+                (k, l_terms[k], terms[k]) for k in terms]:
+            check(abs(a - b) <= tol * abs(b), f"(d) step {i} {name}: local "
+                  f"workers {a} vs one process {b} (tol {tol})")
+    grad_d = sorted(
+        ((abs(got - want) / want, name) for name, got, want in
+         zip(names, loc["grad_norms"], grad_norms[0].tolist())
+         if name not in MP_ZERO_GRAD), reverse=True)
+    move_d = []
+    for name, p in final.items():
+        moved = p - start[name]
+        got = loc["state"][name] - start[name]
+        if name in MP_ZERO_GRAD:
+            check(float((got - moved).abs().max()) <= 2 * lr * len(one_d),
+                  f"(d) {name}: local workers and one process apart")
+            continue
+        move_d.append((float((got - moved).norm() / moved.norm()), name))
+    move_d.sort(reverse=True)
+    check(grad_d[0][0] <= MP_GRAD_TOL, f"(d) {grad_d[0][1]}: the workers' "
+          f"first gradient norm is {grad_d[0][0]} of the one process's away "
+          f"from it (tol {MP_GRAD_TOL})")
+    check(move_d[0][0] <= MP_MOVE_TOL, f"(d) {move_d[0][1]}: the workers' "
+          f"move is {move_d[0][0]} of the one process's away from it (tol "
+          f"{MP_MOVE_TOL})")
+    n_steps_d = len(one_d)
+    for w, counts in enumerate(loc["counts"]):
+        want = {"stem_fwd": n_steps_d, "stem_fwd_res": n_steps_d,
+                "stem_dw": n_steps_d}
+        for k, n in want.items():
+            check(counts[k] >= n, f"(d) worker {w}: {k} launched "
+                  f"{counts[k]} times in {n_steps_d} steps and its evals")
+        for k in ("quantize", "dequantize", "roi_align", "nms_keep",
+                  "nms_keep_levels"):
+            check(counts[k] > 0, f"(d) worker {w}: {k} never launched")
+    log(f"[multi-process] (d) the local mode, {MP_WORLD} workers of one "
+        f"process on {dev} over gloo (mimic_runner -distill "
+        f"-transform_bottleneck at global batch {TRAIN_BATCH}, "
+        f"{n_steps_d} steps with the padded remainders, {loc['val_batches']}"
+        f" val and {loc['test_batches']} test batches on worker 0) against "
+        f"one process on the same batches: losses "
+        + " ".join(f"{s[1]:.6e}" for s in loc["steps"]) + "; first "
+        f"gradient worst {worst(grad_d)} (tol {MP_GRAD_TOL}); moves worst "
+        f"{worst(move_d)} (tol {MP_MOVE_TOL}); worker 0's steps "
+        + " / ".join(f"{ms:.3f}" for ms in loc["step_ms"])
+        + f" ms; spawn to exit {wall_d:.3f} s; launches "
+        + "; ".join(f"worker {w} { {k: v for k, v in c.items() if v} }"
+                    for w, c in enumerate(loc["counts"])))
     return {"rank0": r0["counts"], "rank1": ranks[1]["counts"],
-            "nccl": nccl}
+            "nccl": nccl, **{f"local_worker{w}": c
+                             for w, c in enumerate(loc["counts"])}}
 
 
 def bench_phase(dev: torch.device, card: str) -> dict:

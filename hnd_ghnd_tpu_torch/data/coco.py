@@ -20,7 +20,7 @@ from __future__ import annotations
 import io
 import json
 import os
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -154,6 +154,12 @@ class CocoDataset:
 
     def __len__(self) -> int:
         return len(self.ids)
+
+    def image_size(self, index: int) -> Tuple[int, int]:
+        """The (height, width) the annotation file records for image
+        ``index``, without decoding it."""
+        info = self.images[self.ids[index]]
+        return int(info["height"]), int(info["width"])
 
     def load_image(self, image_id: int) -> np.ndarray:
         from PIL import Image

@@ -26,6 +26,13 @@ Targets:
   dataset has them; G = MAX_GT.
 Each batch also carries its per-image host targets (``is_padding`` marks
 the rows that repeat an image to fill the last batch of a bucket).
+
+The loader plans each epoch's batches from the image sizes the annotation
+file records (``_plan``; each decoded image is checked against its planned
+bucket).  ``rows=(k, n)`` makes it device k of an n-device mesh
+(parallel/mesh.py): it decodes and yields only rows [k*b/n, (k+1)*b/n) of
+each process-level batch, padded to the batch's bucket, as ``put_batch``
+gives device k its rows; k >= n yields nothing.
 """
 from __future__ import annotations
 
@@ -159,7 +166,8 @@ class DetectionLoader:
                  hflip_prob: float = 0.5, seed: int = 0,
                  num_workers: int = 4, shard_index: int = 0,
                  num_shards: int = 1, max_gt: int = MAX_GT,
-                 pixel_dtype: str = "float32"):
+                 pixel_dtype: str = "float32",
+                 rows: Tuple[int, int] = (0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.training = training
@@ -172,6 +180,10 @@ class DetectionLoader:
         self.num_workers = num_workers
         self.shard_index = shard_index
         self.num_shards = num_shards
+        self.rows = (int(rows[0]), int(rows[1]))
+        if self.rows[1] < 1 or batch_size % self.rows[1]:
+            raise ValueError(f"a batch of {batch_size} does not split over "
+                             f"{self.rows[1]} devices")
         self.max_gt = max_gt
         # uint8 wire: batch pixels stay rounded u8 codes (4x less host
         # traffic and H2D bytes); the step turns them into float * 1/255
@@ -194,16 +206,21 @@ class DetectionLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def _prepare(self, index: int):
-        # per-(seed, epoch, index) rng: deterministic regardless of the
-        # thread pool's completion order
+    def _draws(self, index: int) -> Tuple[bool, int]:
+        """(flip, min side) of ``index`` this epoch, from a
+        per-(seed, epoch, index) rng: deterministic regardless of the
+        thread pool's completion order."""
         rng = random.Random((self.seed * 1_000_003 + self.epoch) * 7919
                             + index)
-        img, target = self.dataset[index]
-        oh, ow = img.shape[:2]
         flip = self.training and rng.random() < self.hflip_prob
         min_size = (rng.choice(self.min_sizes) if self.training
                     else self.min_sizes[-1])
+        return flip, min_size
+
+    def _prepare(self, index: int):
+        img, target = self.dataset[index]
+        oh, ow = img.shape[:2]
+        flip, min_size = self._draws(index)
         if self.native:
             # the pixels stay uint8 until _emit; the targets move here as
             # T.hflip and T.resize move them
@@ -227,33 +244,67 @@ class DetectionLoader:
         idx = idx[self.shard_index::self.num_shards]
         return idx
 
+    def _plan(self) -> List[Tuple[Tuple[int, int], List[int], int]]:
+        """This epoch's batches as (bucket, dataset indices, real rows),
+        from the image sizes the annotation file records, in the order the
+        images arrive: aspect-ratio grouping, a bucket's batch when it
+        fills, then each remainder padded by repeating its last index, so
+        that shapes stay static (the extra rows carry valid=False targets
+        and are dropped from eval by image_id bookkeeping)."""
+        out, pending = [], {}
+        for index in self._order():
+            h, w = self.dataset.image_size(index)
+            nh, nw, _ = T.resize_geometry(h, w, self._draws(index)[1],
+                                          self.max_size)
+            bucket = T.pick_bucket(nh, nw, self.buckets)
+            pending.setdefault(bucket, []).append(index)
+            if len(pending[bucket]) == self.batch_size:
+                out.append((bucket, pending.pop(bucket), self.batch_size))
+        for bucket, indices in pending.items():
+            n_real = len(indices)
+            indices += [indices[-1]] * (self.batch_size - n_real)
+            out.append((bucket, indices, n_real))
+        return out
+
     def __iter__(self) -> Iterator[Tuple[Dict, Dict, List[Dict]]]:
-        order = self._order()
+        """Rows [k*b/n, (k+1)*b/n) of each planned batch, ``rows`` = (k,
+        n): the whole batch at (0, 1).  Each image is decoded once (a
+        padding row reuses the image it repeats) and checked against its
+        planned bucket."""
+        k, n = self.rows
+        if k >= n:
+            return
+        lo = k * self.batch_size // n
+        hi = (k + 1) * self.batch_size // n
+        mine = [(bucket, indices[lo:hi], max(0, min(n_real - lo, hi - lo)))
+                for bucket, indices, n_real in self._plan()]
+        # a repeat is padding: decode the first of each run only
+        decode = [i for _, indices, _ in mine for j, i in enumerate(indices)
+                  if j == 0 or i != indices[j - 1]]
         pool = ThreadPoolExecutor(max_workers=max(self.num_workers, 1))
         try:
             # bounded prefetch window: a fixed number of in-flight items,
             # not the whole epoch
-            prepared = _bounded_map(pool, self._prepare, order,
+            prepared = _bounded_map(pool, self._prepare, decode,
                                     window=max(4 * self.num_workers,
                                                2 * self.batch_size))
-            # group into same-bucket batches (aspect-ratio grouping)
-            pending: Dict[Tuple[int, int], List] = {}
-            for img, target in prepared:
-                bucket = T.pick_bucket(img.shape[0], img.shape[1], self.buckets)
-                pending.setdefault(bucket, []).append((img, target))
-                if len(pending[bucket]) == self.batch_size:
-                    yield self._emit(bucket, pending.pop(bucket))
-            # flush remainders: pad batch by repeating the last image so
-            # shapes stay static (extra rows carry valid=False targets and
-            # are dropped from eval by image_id bookkeeping)
-            for bucket, items in pending.items():
-                if not items:
-                    continue
-                n_real = len(items)
-                while len(items) < self.batch_size:
-                    im, tg = items[-1]
-                    items.append((im, dict(tg)))  # fresh dict: padding flag
-                yield self._emit(bucket, items, n_real)
+            for bucket, indices, real in mine:
+                items = []
+                for j, index in enumerate(indices):
+                    if j and index == indices[j - 1]:
+                        im, tg = items[-1]
+                        items.append((im, dict(tg)))  # fresh dict: padding
+                        continue
+                    img, target = next(prepared)
+                    got = T.pick_bucket(img.shape[0], img.shape[1],
+                                        self.buckets)
+                    if got != bucket:
+                        raise ValueError(
+                            f"image {self.dataset.ids[index]}: decoded to "
+                            f"bucket {got}, its recorded size to {bucket}")
+                    items.append((img, target))
+                yield self._emit(bucket, items,
+                                 real if real < len(items) else None)
         finally:
             pool.shutdown(wait=False, cancel_futures=True)
 
@@ -291,14 +342,18 @@ def get_coco_data_loaders(dataset_config: Dict[str, Any], batch_size: int, *,
                           eval_batch_size: int = 1,
                           val_batch_size: Optional[int] = None,
                           shard_eval: bool = False,
-                          pixel_dtype: str = "float32"):
+                          pixel_dtype: str = "float32",
+                          shards: Optional[Dict[str, Tuple[int, int]]] = None,
+                          rows: Optional[Dict[str, Tuple[int, int]]] = None):
     """Build (train, val, test) loaders from the reference dataset YAML block
     (src/utils/data_util.py:18-48).  val/test default to batch_size=1 like
     the reference (data_util.py:44-47); ``eval_batch_size`` raises it
     (remainder batches are padded and unpadded around eval).
     ``val_batch_size`` overrides it for the VAL split only — per-epoch val
     has no reference batch-1 protocol constraint (that applies to the final
-    TEST pass), so shipped configs run it batched (``tpu.eval_batch_size``)."""
+    TEST pass), so shipped configs run it batched (``tpu.eval_batch_size``).
+    ``shards`` (split -> (index, count)) overrides a split's image shard;
+    ``rows`` (split -> (device, devices)) gives its loader's ``rows``."""
     splits = dataset_config["splits"]
     num_workers = int(dataset_config.get("num_workers", 4))
     out = []
@@ -316,12 +371,15 @@ def get_coco_data_loaders(dataset_config: Dict[str, Any], batch_size: int, *,
             bs = val_batch_size
         else:
             bs = eval_batch_size
+        shard = (shard_index, num_shards) if (training or shard_eval) \
+            else (0, 1)
+        shard = (shards or {}).get(name, shard)
         out.append(DetectionLoader(
             ds, bs,
             training=training,
             min_sizes=min_sizes, max_size=max_size, buckets=buckets,
             num_workers=num_workers,
-            shard_index=shard_index if (training or shard_eval) else 0,
-            num_shards=num_shards if (training or shard_eval) else 1,
-            pixel_dtype=pixel_dtype))
+            shard_index=shard[0], num_shards=shard[1],
+            pixel_dtype=pixel_dtype,
+            rows=(rows or {}).get(name, (0, 1))))
     return tuple(out)

@@ -2,6 +2,8 @@
 (ops/library.py says what an op is made of and imports them all)."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 NAMESPACE = "hnd_ghnd"
@@ -13,6 +15,23 @@ def check_device(t: torch.Tensor, what: str) -> None:
     kernels); a wrapper given a tensor anywhere else raises."""
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def on_card(device: torch.device):
+    """A context in which ``device``, a card, is the current CUDA device.
+    The kernels read their card from ``cudaGetDevice`` (its SM count, the
+    shared-memory opt-ins, the cooperative grid) and launch on the stream
+    the wrapper hands them, so each launch runs under this guard for its
+    inputs' card.  On the card that is already current it switches
+    nothing (one ``cudaGetDevice``, cached by the runtime), nor for a CPU
+    tensor (the launch code rehearsed on the host against a stub
+    library)."""
+    if device.type != "cuda" or device.index == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(device)
 
 
 def define(schema: str, cpu, cuda, fake):

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from hnd_ghnd_tpu_torch import _build
+from hnd_ghnd_tpu_torch.ops._oplib import on_card
 from hnd_ghnd_tpu_torch.ops.quant_kernels import _stream
 
 ZP = 128  # zero point of an unsigned (post-ReLU) site: value = (q + 128) s
@@ -184,13 +185,14 @@ def _launch(q, qw, stride, pad, groups, dims, mode, out, ptrs=None,
     b, h, w, c, n, kh, kw, _, _ = dims
     path = template_for(q, qw, stride, groups)
     p = ptrs or {}
-    _build.check(_build.load().hnd_int8_conv_fused(
-        q.data_ptr(), qw.data_ptr(), b, h, w, c, n, kh, kw, stride, pad,
-        groups, 1 if path == "wgmma" else 0, MODES[mode], out.data_ptr(),
-        p.get("zp"), p.get("zp_map"), p.get("scale"), p.get("bias"),
-        p.get("site_scale"), flags[0], flags[1], p.get("id_codes"),
-        p.get("id_scale"), ctypes.c_float(id_zp), p.get("id_float"),
-        p.get("feat"), _stream(q.device)), "hnd_int8_conv_fused")
+    with on_card(q.device):
+        _build.check(_build.load().hnd_int8_conv_fused(
+            q.data_ptr(), qw.data_ptr(), b, h, w, c, n, kh, kw, stride, pad,
+            groups, 1 if path == "wgmma" else 0, MODES[mode], out.data_ptr(),
+            p.get("zp"), p.get("zp_map"), p.get("scale"), p.get("bias"),
+            p.get("site_scale"), flags[0], flags[1], p.get("id_codes"),
+            p.get("id_scale"), ctypes.c_float(id_zp), p.get("id_float"),
+            p.get("feat"), _stream(q.device)), "hnd_int8_conv_fused")
     template_launches[path] += 1
 
 

@@ -35,7 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from hnd_ghnd_tpu_torch import _build
-from hnd_ghnd_tpu_torch.ops._oplib import check_device, define
+from hnd_ghnd_tpu_torch.ops._oplib import check_device, define, on_card
 from hnd_ghnd_tpu_torch.ops.boxes import pairwise_iou
 
 # csrc/nms.cu kMaxBoxes: boxes per problem (a level's, for the levels op)
@@ -171,13 +171,14 @@ def _launch(boxes, scores, valid, categories, sizes: Sequence[int],
                  "hnd_nms_work_bytes")
     work = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
     keep = torch.empty((b, m), dtype=torch.bool, device=dev)
-    _build.check(lib.hnd_nms_keep(
-        boxes.data_ptr(), int(boxes.dtype == torch.bfloat16),
-        scores.data_ptr(), int(scores.dtype == torch.bfloat16),
-        valid.data_ptr(),
-        None if categories is None else categories.data_ptr(), b,
-        len(sizes), c_sizes, thr, work.data_ptr(), keep.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream), "hnd_nms_keep")
+    with on_card(dev):
+        _build.check(lib.hnd_nms_keep(
+            boxes.data_ptr(), int(boxes.dtype == torch.bfloat16),
+            scores.data_ptr(), int(scores.dtype == torch.bfloat16),
+            valid.data_ptr(),
+            None if categories is None else categories.data_ptr(), b,
+            len(sizes), c_sizes, thr, work.data_ptr(), keep.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "hnd_nms_keep")
     return keep
 
 

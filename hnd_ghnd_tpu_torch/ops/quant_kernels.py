@@ -22,7 +22,7 @@ from hnd_ghnd_tpu_torch import _build
 from hnd_ghnd_tpu_torch.codec.quantizer import (QuantizedTensor,
                                                 dequantize_tensor,
                                                 quantize_tensor)
-from hnd_ghnd_tpu_torch.ops._oplib import check_device, define
+from hnd_ghnd_tpu_torch.ops._oplib import check_device, define, on_card
 
 
 def _dense(x: torch.Tensor) -> bool:
@@ -43,7 +43,7 @@ _work_floats: dict = {}
 def _work_size(lib, device: torch.device) -> int:
     n = _work_floats.get(device.index)
     if n is None:
-        with torch.cuda.device(device):
+        with on_card(device):
             n = lib.hnd_quantize_work_floats()
         if n <= 0:
             _build.check(-n, "hnd_quantize_work_floats")
@@ -73,10 +73,11 @@ def launch_quantize(x: torch.Tensor, num_bits: int):
     q = torch.empty_like(x, dtype=torch.uint8)
     work = torch.empty(_work_size(lib, x.device), dtype=torch.float32,
                        device=x.device)
-    _build.check(lib.hnd_quantize_u8(x.data_ptr(), q.data_ptr(),
-                                     work.data_ptr(), x.numel(), num_bits,
-                                     _stream(x.device)),
-                 "hnd_quantize_u8")
+    with on_card(x.device):
+        _build.check(lib.hnd_quantize_u8(x.data_ptr(), q.data_ptr(),
+                                         work.data_ptr(), x.numel(),
+                                         num_bits, _stream(x.device)),
+                     "hnd_quantize_u8")
     quantize.launches += 1
     return q, work[:2]
 
@@ -100,10 +101,11 @@ def launch_dequantize(codes: torch.Tensor, scale: torch.Tensor,
                              "one-element float32 tensors on the codes' device")
     lib = _build.load()
     out = torch.empty_like(codes, dtype=torch.float32)
-    _build.check(lib.hnd_dequantize_u8(codes.data_ptr(), scale.data_ptr(),
-                                       zero_point.data_ptr(), out.data_ptr(),
-                                       codes.numel(), _stream(codes.device)),
-                 "hnd_dequantize_u8")
+    with on_card(codes.device):
+        _build.check(lib.hnd_dequantize_u8(
+            codes.data_ptr(), scale.data_ptr(), zero_point.data_ptr(),
+            out.data_ptr(), codes.numel(), _stream(codes.device)),
+            "hnd_dequantize_u8")
     dequantize.launches += 1
     return out
 

@@ -43,7 +43,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from hnd_ghnd_tpu_torch import _build
-from hnd_ghnd_tpu_torch.ops._oplib import check_device, define
+from hnd_ghnd_tpu_torch.ops._oplib import check_device, define, on_card
 from hnd_ghnd_tpu_torch.ops.roi_align import (assign_levels, level_geometry,
                                               multiscale_roi_align_batch,
                                               quantize_fpn_levels)
@@ -162,12 +162,14 @@ def _forward(features, boxes, level, weight, image_size, output_size,
                       device=boxes.device)
     vec = vector_width(c, features[0].element_size(), list(ptrs),
                        out.element_size(), [out.data_ptr()])
-    _build.check(_build.load().hnd_roi_align_fwd(
-        ptrs, hw, scales, boxes.data_ptr(), level.data_ptr(),
-        None if weight is None else weight.data_ptr(),
-        None if table_scale is None else table_scale.data_ptr(),
-        out.data_ptr(), b * n, n, c, int(output_size), int(sampling_ratio),
-        _DTYPE_CODES[dtype], vec, _stream(boxes.device)), "hnd_roi_align_fwd")
+    with on_card(boxes.device):
+        _build.check(_build.load().hnd_roi_align_fwd(
+            ptrs, hw, scales, boxes.data_ptr(), level.data_ptr(),
+            None if weight is None else weight.data_ptr(),
+            None if table_scale is None else table_scale.data_ptr(),
+            out.data_ptr(), b * n, n, c, int(output_size),
+            int(sampling_ratio), _DTYPE_CODES[dtype], vec,
+            _stream(boxes.device)), "hnd_roi_align_fwd")
     roi_align.launches[(dtype, int(output_size))] += 1
     return out
 
@@ -233,8 +235,9 @@ def quantize_levels(levels: Sequence[torch.Tensor]
 def launch_quantize_levels(levels: Sequence[torch.Tensor]
                            ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     args, codes, scales = quantize_levels_args(levels)
-    _build.check(_build.load().hnd_quantize_levels(*args),
-                 "hnd_quantize_levels")
+    with on_card(levels[0].device):
+        _build.check(_build.load().hnd_quantize_levels(*args),
+                     "hnd_quantize_levels")
     quantize_levels.launches += 1
     return codes, scales
 
@@ -353,17 +356,18 @@ def roi_align_backward(grad_out: torch.Tensor,
                          list(ptrs))
     lib = _build.load()
     bf16 = dtype == torch.bfloat16
-    _build.check(lib.hnd_roi_align_bwd(
-        ptrs, hw, scales, boxes.data_ptr(), level.data_ptr(),
-        None if weight is None else weight.data_ptr(), grad_out.data_ptr(),
-        b * n, n, c, p, int(sampling_ratio), int(bf16), vec, _stream(dev)),
-        "hnd_roi_align_bwd")
-    if bf16:
-        out = torch.empty(acc.shape, dtype=torch.bfloat16, device=dev)
-        _build.check(lib.hnd_f32_to_bf16(acc.data_ptr(), out.data_ptr(),
-                                         acc.numel(), _stream(dev)),
-                     "hnd_f32_to_bf16")
-        views = list(torch.split(out, sizes))
+    with on_card(dev):
+        _build.check(lib.hnd_roi_align_bwd(
+            ptrs, hw, scales, boxes.data_ptr(), level.data_ptr(),
+            None if weight is None else weight.data_ptr(),
+            grad_out.data_ptr(), b * n, n, c, p, int(sampling_ratio),
+            int(bf16), vec, _stream(dev)), "hnd_roi_align_bwd")
+        if bf16:
+            out = torch.empty(acc.shape, dtype=torch.bfloat16, device=dev)
+            _build.check(lib.hnd_f32_to_bf16(acc.data_ptr(), out.data_ptr(),
+                                             acc.numel(), _stream(dev)),
+                         "hnd_f32_to_bf16")
+            views = list(torch.split(out, sizes))
     roi_align_backward.launches[(dtype, int(p))] += 1
     return [v.view(b, h, w, c) for v, (h, w) in zip(views, shapes)]
 

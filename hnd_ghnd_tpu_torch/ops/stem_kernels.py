@@ -28,7 +28,7 @@ from collections import Counter
 import torch
 
 from hnd_ghnd_tpu_torch import _build
-from hnd_ghnd_tpu_torch.ops._oplib import check_device, define
+from hnd_ghnd_tpu_torch.ops._oplib import check_device, define, on_card
 from hnd_ghnd_tpu_torch.ops.stem import (KERNEL, OUT_CHANNELS, PADDING,
                                          STRIDE, stem_forward,
                                          stem_weight_grad)
@@ -77,10 +77,13 @@ def _launch_fwd(x, weight, scale, bias, with_conv: bool):
     out = torch.empty((b, OUT_CHANNELS, h // 2, w // 2), dtype=x.dtype,
                       device=x.device)
     conv = torch.empty_like(out) if with_conv else None
-    _build.check(lib.hnd_stem_fwd(
-        x.data_ptr(), weight.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), None if conv is None else conv.data_ptr(), b, h, w,
-        int(x.dtype == torch.bfloat16), _stream(x.device)), "hnd_stem_fwd")
+    with on_card(x.device):
+        _build.check(lib.hnd_stem_fwd(
+            x.data_ptr(), weight.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), out.data_ptr(),
+            None if conv is None else conv.data_ptr(), b, h, w,
+            int(x.dtype == torch.bfloat16), _stream(x.device)),
+            "hnd_stem_fwd")
     return out, conv
 
 
@@ -138,14 +141,16 @@ def stem_dw(x: torch.Tensor, g_conv: torch.Tensor) -> torch.Tensor:
     _check(g_conv, (b, OUT_CHANNELS, h // 2, w // 2), "g_conv", x.device,
            x.dtype)
     lib = _build.load()
-    partials = torch.empty(lib.hnd_stem_dw_partials_size(b, h, w),
-                           dtype=torch.float32, device=x.device)
     dw = torch.empty((OUT_CHANNELS, 3, KERNEL, KERNEL), dtype=torch.float32,
                      device=x.device)
-    _build.check(lib.hnd_stem_dw(x.data_ptr(), g_conv.data_ptr(),
-                                 partials.data_ptr(), dw.data_ptr(), b, h, w,
-                                 int(x.dtype == torch.bfloat16),
-                                 _stream(x.device)), "hnd_stem_dw")
+    # the partials' count follows the card's SM count
+    with on_card(x.device):
+        partials = torch.empty(lib.hnd_stem_dw_partials_size(b, h, w),
+                               dtype=torch.float32, device=x.device)
+        _build.check(lib.hnd_stem_dw(x.data_ptr(), g_conv.data_ptr(),
+                                     partials.data_ptr(), dw.data_ptr(), b,
+                                     h, w, int(x.dtype == torch.bfloat16),
+                                     _stream(x.device)), "hnd_stem_dw")
     stem_dw.launches[x.dtype] += 1
     return dw
 

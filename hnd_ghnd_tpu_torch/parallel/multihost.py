@@ -4,8 +4,12 @@ Counterpart of hnd_ghnd_tpu/parallel/multihost.py (reference
 src/utils/main_util.py:29-62 init_distributed_mode / setup_for_distributed,
 src/utils/misc_util.py:72-139 all_gather / reduce_dict, :236-262
 is_main_process / save_on_master).  One process drives one device.  The
-JAX package runs a multi-process job as one global mesh; the port's ranks
-reproduce its semantics with explicit collectives:
+JAX package runs a multi-process job, and one process over every local
+chip, as one mesh; the port's ranks reproduce its semantics with explicit
+collectives.  A rank is one device of that mesh; ``process_index`` and
+``process_count`` name the JAX process it stands for, which shards the
+data: each rank is a process of its own under torchrun, and the local
+mode's workers (parallel/mesh.py) are one process's devices.
 
   * ``all_reduce_grads(params, "sum")``: the GSPMD distill step, whose
     loss is a sum over the global batch (hnd_ghnd_tpu/parallel/mesh.py:
@@ -42,8 +46,31 @@ REDUCE_OPS = ("sum", "avg")
 _print = builtins.print
 
 
+# set in the workers of the local mode (parallel/mesh.py): the group's
+# ranks are the devices of one JAX process's mesh, not JAX processes
+_local_mode = False
+
+
 def group_up() -> bool:
     return dist.is_available() and dist.is_initialized()
+
+
+def local_mode() -> bool:
+    """True in a worker of the local mode (parallel/mesh.py)."""
+    return _local_mode and group_up()
+
+
+def process_index() -> int:
+    """The JAX process this rank stands for, which picks the data shard:
+    the rank, one device a process (torchrun, ``--process_id``), or 0 in
+    the local mode, whose ranks are one process's devices."""
+    return 0 if local_mode() else get_rank()
+
+
+def process_count() -> int:
+    """The number of JAX processes (``jax.process_count()``): the rank
+    count, or 1 in the local mode."""
+    return 1 if local_mode() else get_world_size()
 
 
 def get_rank() -> int:
@@ -77,19 +104,24 @@ def default_backend(device: torch.device | str) -> str:
 def init_distributed_mode(dist_url: str, world_size: int, rank: int,
                           device: torch.device | str = "cpu",
                           backend: Optional[str] = None,
-                          timeout_s: float = DEFAULT_TIMEOUT_S) -> bool:
+                          timeout_s: float = DEFAULT_TIMEOUT_S,
+                          local: bool = False) -> bool:
     """``init_process_group`` of ``world_size`` ranks at ``dist_url``
     (``env://`` reads MASTER_ADDR and MASTER_PORT, ``tcp://host:port``
     names rank 0's address), unless a group is already up: then that group
     is used.  The backend is ``backend``, else NCCL on a CUDA ``device`` and
-    gloo on the CPU; ``timeout_s`` bounds every collective.  Returns True
-    when this call made the group."""
+    gloo on the CPU; ``timeout_s`` bounds every collective.  ``local``: the
+    ranks are the devices of one process (``process_index`` 0 of 1), as
+    the local mode's workers are.  Returns True when this call made the
+    group."""
+    global _local_mode
     if group_up():
         return False
     dist.init_process_group(
         backend=backend or default_backend(device), init_method=dist_url,
         world_size=int(world_size), rank=int(rank),
         timeout=datetime.timedelta(seconds=timeout_s))
+    _local_mode = bool(local)
     setup_for_distributed(get_rank() == 0)
     return True
 
@@ -145,8 +177,10 @@ def maybe_init_distributed(args: Any = None,
 
 def destroy() -> None:
     """Leave the group and print on every rank again."""
+    global _local_mode
     if group_up():
         dist.destroy_process_group()
+    _local_mode = False
     builtins.print = _print
 
 

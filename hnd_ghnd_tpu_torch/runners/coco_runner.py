@@ -19,16 +19,18 @@ unless the config says float32).
 
 ``train`` is the batch-level loop over given (batch, targets) pairs, whose
 evals return raw detections; ``train_coco`` is the runner's loop over the
-loaders.  N ranks (``torchrun``, or ``--dist_url env://``) run JAX's
-``shard_map`` step (parallel/train_step.py: each rank's loss and BN
-statistics, averaged gradients); rank 0 logs and writes the checkpoints.
+loaders.  N ranks (``torchrun``, or ``--dist_url env://``), or the local
+mode's workers, one a card (parallel/mesh.py), run JAX's ``shard_map``
+step (parallel/train_step.py: each rank's loss and BN statistics, its
+sampler draws from ``fold_in(seed, rank)``, averaged gradients); rank 0
+logs and writes the checkpoints.
 """
 from __future__ import annotations
 
 import argparse
 import math
 import time
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -191,13 +193,14 @@ def train_coco(model: RCNN, config: Dict[str, Any], args: argparse.Namespace,
     return history
 
 
-def run(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
-    """``main`` after the config is loaded, as one process or N ranks
-    (``common.distributed``; each trains and evaluates its shard).
-    Returns {"train": the history of ``train_coco`` (with -train), "test":
-    {"stats", "eval"}}."""
-    with common.distributed(args) as device:
-        return _run(config, args, device)
+def run(config: Dict[str, Any], args: argparse.Namespace,
+        devices: Optional[Sequence] = None) -> Dict[str, Any]:
+    """``main`` after the config is loaded, as one process, N ranks or the
+    local mode's workers (``common.launch``; each trains and evaluates its
+    share).  Returns {"train": the history of ``train_coco`` (with -train),
+    "test": {"stats", "eval"}}: rank 0's, in the local mode.  ``devices``:
+    the local mode's, in place of every visible card."""
+    return common.launch(_run, config, args, devices)
 
 
 def _run(config: Dict[str, Any], args: argparse.Namespace,

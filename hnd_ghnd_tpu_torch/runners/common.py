@@ -20,11 +20,16 @@ the training loops: each step's loss and terms go to pinned host memory
 behind a CUDA event and are read one step later.
 
 Each rank runs every loop on one device (``distributed``: the process
-group and the rank's card; the loaders shard by rank): JAX's meshes,
+group and the rank's card; the loaders shard by JAX process).  JAX's one
+process over every local chip is the local mode (``launch``,
+parallel/mesh.py): one worker a card, each taking its rows of the
+process's batches, and its rows of each val and test batch over
+``mesh_size_for_batch(eval batch, workers)`` workers, as ``eval_mesh_for``
+and the ``shard_map`` forward shard them (common.py:166-200, :323-343);
+a batch-1 eval splits its images over the workers instead.  JAX's
 MicrobatchBuffer (``steps_per_dispatch``), JitCache and persistent
 compilation cache have no counterpart (XLA-only, or measured slower,
-BASELINE.md round 5), nor has its one-process eval over many chips
-(common.py:320-341).
+BASELINE.md round 5).
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ from hnd_ghnd_tpu_torch.models.convert import (jax_params_from_state_dict,
                                                state_dict_from_jax)
 from hnd_ghnd_tpu_torch.models.factory import get_iou_types, load_weights
 from hnd_ghnd_tpu_torch.models.rcnn import RCNN
-from hnd_ghnd_tpu_torch.parallel import multihost
+from hnd_ghnd_tpu_torch.parallel import mesh, multihost
 from hnd_ghnd_tpu_torch.parallel.train_step import images_to_compute
 from hnd_ghnd_tpu_torch.utils import ckpt as ckpt_util
 from hnd_ghnd_tpu_torch.utils.tensorboard import SummaryWriter
@@ -60,9 +65,12 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     """--config/--json/--device/--seed and the process-group flags of every
     runner (reference src/mimic_runner.py:17-29; JAX's
     runners/common.py:30-48).  The runners run on the card unless
-    ``--device cpu``.  A multi-process run is N ranks, one device each,
-    launched by ``torchrun`` (RANK, WORLD_SIZE, LOCAL_RANK) or given
-    ``--process_id`` and ``--num_processes`` (``multihost.rendezvous_from``)."""
+    ``--device cpu``.  Without a launch, ``--device cuda`` on a host with
+    several cards runs the local mode (``launch``): one worker a card,
+    ``--world_size`` capping their number.  A multi-process run is N
+    ranks, one device each, launched by ``torchrun`` (RANK, WORLD_SIZE,
+    LOCAL_RANK) or given ``--process_id`` and ``--num_processes``
+    (``multihost.rendezvous_from``)."""
     parser.add_argument("--config", required=True, help="yaml config path")
     parser.add_argument("--json", default=None,
                         help="JSON string merged over the config")
@@ -71,8 +79,10 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                              "the card of its LOCAL_RANK), cuda:K (every "
                              "rank card K) or cpu")
     parser.add_argument("--world_size", type=int, default=None,
-                        help="number of processes (each rank's RANK comes "
-                             "from torchrun or --process_id)")
+                        help="number of processes of a launch (each "
+                             "rank's RANK comes from torchrun or "
+                             "--process_id); without one, the cap on the "
+                             "local mode's cards")
     parser.add_argument("--dist_url", default=None,
                         help="rendezvous of the process group: env:// "
                              "(MASTER_ADDR, MASTER_PORT) or tcp://host:port")
@@ -123,6 +133,26 @@ def rank_device(device: str | torch.device) -> torch.device:
     return torch.device("cuda", index)
 
 
+def launch(run_fn, config: Dict[str, Any], args: argparse.Namespace,
+           devices: Optional[Sequence] = None):
+    """``run_fn(config, args, device)`` as this runner's processes: in the
+    local mode (``mesh.local_devices``: no launch, and several cards or
+    the caller's ``devices``) one worker per device of the mesh that
+    ``train.batch_size``, the process's global batch, takes, returning
+    worker 0's result; else in this process, as one process or a rank of
+    a launch (``distributed``)."""
+    batch = int((config.get("train") or {}).get("batch_size", 1))
+    devices = mesh.local_devices(args, batch, devices)
+    if devices is None:
+        with distributed(args) as device:
+            return run_fn(config, args, device)
+    print(f"local mode: {len(devices)} workers on "
+          f"{', '.join(str(d) for d in devices)} "
+          f"({mesh.backend_for(devices)}), global batch {batch}",
+          flush=True)
+    return mesh.launch_local(run_fn, devices, (config, args))
+
+
 @contextlib.contextmanager
 def distributed(args: argparse.Namespace):
     """A runner's process group: this rank's device (``rank_device``), and
@@ -155,14 +185,16 @@ def loaders_from_config(config: Dict[str, Any], model_kind: str,
     and ``tpu`` blocks: the buckets, min sizes, max size, ``pixel_dtype``,
     the per-epoch val batch (``tpu.eval_batch_size``) and the test batch
     (``test.batch_size``, 1 by default, the reference's protocol).  Each
-    rank loads its shard of every split (the shard defaults to the rank
-    and the rank count, JAX's runners/common.py:343-378); the evals are
-    merged by ``CocoEvaluator.synchronize_between_processes``.
-    ``batch_size`` is per rank."""
+    JAX process loads its shard of every split (the shard defaults to
+    ``multihost.process_index`` and ``process_count``, JAX's
+    runners/common.py:343-378); the evals are merged by
+    ``CocoEvaluator.synchronize_between_processes``.  ``batch_size`` is
+    the process's.  In the local mode (``local_rows``) each worker takes
+    its rows of the process's batches."""
     if shard_index is None:
-        shard_index = multihost.get_rank()
+        shard_index = multihost.process_index()
     if num_shards is None:
-        num_shards = multihost.get_world_size()
+        num_shards = multihost.process_count()
     from hnd_ghnd_tpu_torch.data.loader import get_coco_data_loaders
     from hnd_ghnd_tpu_torch.data.transforms import DEFAULT_BUCKETS
     tpu_cfg = config.get("tpu", {}) or {}
@@ -171,6 +203,10 @@ def loaders_from_config(config: Dict[str, Any], model_kind: str,
     max_size = int(tpu_cfg.get("max_size", 1333))
     eval_bs = int((config.get("test", {}) or {}).get("batch_size", 1))
     val_bs = tpu_cfg.get("eval_batch_size")
+    shards, rows = local_rows({
+        "train": batch_size,
+        "val": int(val_bs) if val_bs is not None else eval_bs,
+        "test": eval_bs})
     return get_coco_data_loaders(
         config["dataset"], batch_size,
         with_masks=model_kind == "mask_rcnn",
@@ -180,28 +216,55 @@ def loaders_from_config(config: Dict[str, Any], model_kind: str,
         eval_batch_size=eval_bs,
         val_batch_size=int(val_bs) if val_bs is not None else None,
         shard_eval=num_shards > 1,
-        pixel_dtype=str(tpu_cfg.get("pixel_dtype", "float32")))
+        pixel_dtype=str(tpu_cfg.get("pixel_dtype", "float32")),
+        shards=shards, rows=rows)
+
+
+def local_rows(batches: Dict[str, int]):
+    """(shards, rows) of each split for ``get_coco_data_loaders`` in a
+    local-mode worker, from each split's batch; (None, None) elsewhere.
+    Worker k of D takes rows k of ``mesh_size_for_batch(b, D)`` of each
+    batch of b rows (D itself for the train batch the mesh was sized for;
+    the workers past that count take none, as ``eval_mesh_for`` uses only
+    the devices that divide the eval batch); a val or test split of batch
+    1 gives worker k its k-th share of the images instead (per image, the
+    same result)."""
+    if not multihost.local_mode():
+        return None, None
+    k, d = multihost.get_rank(), multihost.get_world_size()
+    shards = {}
+    rows = {"train": (k, mesh.mesh_size_for_batch(batches["train"], d))}
+    for name in ("val", "test"):
+        if batches[name] > 1:
+            rows[name] = (k, mesh.mesh_size_for_batch(batches[name], d))
+        else:
+            shards[name] = (k, d)
+    return shards, rows
 
 
 def log_global_batch(batch_size: int, train_loader) -> None:
-    """train.batch_size is per rank: the global batch is N times it, and an
-    epoch is the rank's shard (JAX's mimic_runner.py:209-225)."""
-    world = multihost.get_world_size()
-    print(f"{world} process(es): batch {batch_size} per rank, global batch "
-          f"{batch_size * world}, {len(train_loader)} steps per epoch",
+    """train.batch_size is per JAX process: the global batch is the
+    process count times it (JAX's mimic_runner.py:209-225), and an epoch is
+    the process's shard; in the local mode each worker takes its rows."""
+    world, procs = multihost.get_world_size(), multihost.process_count()
+    share = "its rows of every batch" if multihost.local_mode() \
+        else f"batch {batch_size} per rank"
+    print(f"{world} rank(s) in {procs} process(es): {share}, global batch "
+          f"{batch_size * procs}, {len(train_loader)} steps per epoch",
           flush=True)
 
 
 def epoch_batches(loader) -> Iterable:
-    """A training ``loader``'s epoch as this rank runs it: every batch at
-    one rank; at N ranks, the first ``len(loader)``.  A rank's shard fills
-    a number of batches of its own (each bucket's remainder is padded into
-    a batch, so two shards of one size but other landscape and portrait
-    mixes give other counts), and a rank with one step more would wait
-    alone in the step's collectives.  ``len(loader)``, the shard's floor
-    size over the batch, is the same on every rank and never more than a
-    shard yields."""
-    if multihost.get_world_size() == 1:
+    """A training ``loader``'s epoch as this rank runs it: every batch in
+    one JAX process (one rank, or the local mode's workers, which share
+    the process's batches); at N processes, the first ``len(loader)``.  A
+    rank's shard fills a number of batches of its own (each bucket's
+    remainder is padded into a batch, so two shards of one size but other
+    landscape and portrait mixes give other counts), and a rank with one
+    step more would wait alone in the step's collectives.
+    ``len(loader)``, the shard's floor size over the batch, is the same on
+    every rank and never more than a shard yields."""
+    if multihost.process_count() == 1:
         return loader
     return _first(loader, len(loader))
 

@@ -22,15 +22,16 @@ printed without pandas.
     python -m hnd_ghnd_tpu_torch.runners.ext_runner --config <yaml> \\
         -train [--device cpu]
 
-N ranks (``torchrun``, or ``--dist_url env://``) run JAX's GSPMD step on
-the global batch (``ExtStep``) and gather the scores, so the best
-checkpoint, written by rank 0, is the same choice on every rank.
+N ranks (``torchrun``, or ``--dist_url env://``), or the local mode's
+workers, one a card (parallel/mesh.py), run JAX's GSPMD step on the
+global batch (``ExtStep``) and gather the scores, so the best checkpoint,
+written by rank 0, is the same choice on every rank.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -287,15 +288,17 @@ def train_ext(model: RCNN, config: Dict[str, Any], args: argparse.Namespace,
     return history
 
 
-def run(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
+def run(config: Dict[str, Any], args: argparse.Namespace,
+        devices: Optional[Sequence] = None) -> Dict[str, Any]:
     """``main`` after the config is loaded.  Returns {"train": the history
     of ``train_ext`` (with -train), "test": {"scores": (acc, recall,
     specificity, auc), "table": the threshold rows, "n": images,
-    "batches"}}.  As N ranks (``common.distributed``), each on its shard;
-    the scores are the gathered arrays'."""
+    "batches"}}.  As N ranks or the local mode's workers
+    (``common.launch``), each on its share; the scores are the gathered
+    arrays', and the result rank 0's.  ``devices``: the local mode's, in
+    place of every visible card."""
     common.check_ckpt_backend(config)
-    with common.distributed(args) as device:
-        return _run(config, args, device)
+    return common.launch(_run, config, args, devices)
 
 
 def _run(config: Dict[str, Any], args: argparse.Namespace,

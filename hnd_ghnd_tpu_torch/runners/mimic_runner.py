@@ -32,13 +32,16 @@ with RANK, WORLD_SIZE and LOCAL_RANK set) run JAX's global-batch step, or
 with the org term its per-rank average (parallel/train_step.py):
 ``train.batch_size`` is per rank, rank 0 logs and
 writes the checkpoints, and the best one is chosen on the merged val mAP,
-the same on every rank.
+the same on every rank.  With no launch on a host of several cards the
+runner runs JAX's one-process mesh as local workers, one a card
+(parallel/mesh.py): ``train.batch_size`` is then the global batch, split
+by rows over the workers, and ``--world_size`` caps the cards.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -246,17 +249,20 @@ def distill_coco(teacher: RCNN, student: RCNN, config: Dict[str, Any],
     return history
 
 
-def run(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
+def run(config: Dict[str, Any], args: argparse.Namespace,
+        devices: Optional[Sequence] = None) -> Dict[str, Any]:
     """``main`` after the config is loaded: distil when ``-distill``, reload
     the best checkpoint, then the test evals (mimic_runner.py:225-255).
-    As N ranks when a launch or the caller's group says so
-    (``common.distributed``): each distils its shard of the global batch,
-    evaluates its shard of val and test, and reads the merged stats.
+    As N ranks when a launch or the caller's group says so, or as the
+    local mode's workers, one a card (``common.launch``): each distils its
+    share of the global batch, evaluates its share of val and test, and
+    reads the merged stats.
 
     Returns {"distill": the history of ``distill_coco`` (with -distill),
-    "teacher" and "student": {"stats", "eval"} of the test evals}."""
-    with common.distributed(args) as device:
-        return _run(config, args, device)
+    "teacher" and "student": {"stats", "eval"} of the test evals}: rank
+    0's, in the local mode.  ``devices``: the local mode's, in place of
+    every visible card."""
+    return common.launch(_run, config, args, devices)
 
 
 def _run(config: Dict[str, Any], args: argparse.Namespace,

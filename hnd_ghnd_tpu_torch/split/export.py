@@ -38,6 +38,7 @@ with its own edge's scale and zero point: the port's counterpart of JAX's
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import io
 import pickle
@@ -321,7 +322,10 @@ class ExportedShardedTail:
 
     def call(self, devices, q, scales, zero_points, image_sizes):
         """Run shard k of the batch on ``devices[k]`` (their number must
-        match the exported one; a device may repeat).
+        match the exported one; a device may repeat), under that card's
+        device guard: each shard's copies and its tail are queued on its
+        own card before any shard is read back (host inputs go through
+        pinned memory, so no copy waits).
 
         q: [n*batch_per_shard, H', W', C'] wire tensors (edge order),
         scales/zero_points: [n] per-edge quantization params,
@@ -333,18 +337,28 @@ class ExportedShardedTail:
             raise ValueError(
                 f"artifact was exported for {self.n_devices} devices; "
                 f"got {len(devices)}")
-        q = torch.as_tensor(q)
-        scales = torch.as_tensor(scales, dtype=torch.float32)
-        zero_points = torch.as_tensor(zero_points, dtype=torch.float32)
-        image_sizes = torch.as_tensor(image_sizes, dtype=torch.int32)
+        cuda = devices[0].type == "cuda"
+
+        def staged(t):
+            return t.pin_memory() if cuda and t.device.type == "cpu" else t
+
+        q = staged(torch.as_tensor(q))
+        scales = staged(torch.as_tensor(scales, dtype=torch.float32))
+        zero_points = staged(torch.as_tensor(zero_points,
+                                             dtype=torch.float32))
+        image_sizes = staged(torch.as_tensor(image_sizes, dtype=torch.int32))
         n = self.batch_per_shard
         outs = []
         # no host sync inside a tail: every shard is queued before any ends
         for k, dev in enumerate(devices):
             rows = slice(k * n, (k + 1) * n)
-            outs.append(self._copy(dev)(
-                q[rows].to(dev), scales[k].to(dev), zero_points[k].to(dev),
-                image_sizes[rows].to(dev)))
+            program = self._copy(dev)
+            with torch.cuda.device(dev) if dev.type == "cuda" \
+                    else contextlib.nullcontext():
+                outs.append(program(*(
+                    t.to(dev, non_blocking=True) for t in (
+                        q[rows], scales[k], zero_points[k],
+                        image_sizes[rows]))))
         return {key: torch.cat([o[key].to(devices[0]) for o in outs])
                 for key in outs[0]}
 

@@ -1020,3 +1020,19 @@ def test_nms_kernel_rejects_what_it_does_not_take(cuda):
         NMS.nms_keep(torch.zeros(1, big, 4, device=cuda),
                      torch.zeros(1, big, device=cuda), 0.5,
                      torch.ones(1, big, dtype=torch.bool, device=cuda))
+
+
+def test_every_kernel_on_card_1_while_card_0_is_current(cuda):
+    """Each kernel's direct entry and ``hnd_ghnd::`` op on tensors on card
+    1 while card 0 is the current device, against its plain version there
+    (chip_multicard.py's check (a)): the wrappers launch under their
+    inputs' card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from chip_multicard import kernels_on_card
+    errs = kernels_on_card(torch.device("cuda", 1))
+    assert torch.cuda.current_device() == 0
+    assert {"quantize", "dequantize", "roi_align", "roi_align_bf16",
+            "roi_align_int8", "quantize_levels", "roi_align_bwd",
+            "roi_align_bwd_f32", "stem_fwd", "stem_bf16_dw", "int8_conv",
+            "int8_conv_requant", "nms_keep", "nms_keep_levels"} <= set(errs)

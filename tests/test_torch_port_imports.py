@@ -218,3 +218,17 @@ def test_chip_smoke_fails_without_gpu_or_package(tmp_path):
                              timeout=300)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_chip_multicard_fails_without_four_cards_or_package(tmp_path):
+    # no CUDA device here: the four-card script must fail and print no
+    # result, in the repo and where nothing else of the repo lies beside it
+    shutil.copy(REPO / "chip_multicard.py", tmp_path / "chip_multicard.py")
+    for cwd, env in ((REPO, _env()), (tmp_path, {k: v for k, v in
+                                                 os.environ.items()
+                                                 if k != "PYTHONPATH"})):
+        out = subprocess.run([sys.executable, "chip_multicard.py"], cwd=cwd,
+                             env=env, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
